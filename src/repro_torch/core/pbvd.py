@@ -1,0 +1,134 @@
+"""Parallel Block-based Viterbi Decoder — configuration, framing and the
+paper's throughput model (§III-A / eq. 7).
+
+The counterpart of ``repro.core.pbvd``. The stream of received soft symbols
+is framed into ``N_t`` parallel blocks of decode length ``D``, each extended
+by ``M = L`` truncation stages on the left and ``L`` traceback stages on the
+right. All blocks decode independently; on the GPU each parallel block is
+one lane of the kernels' batch axis.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ops import (
+    backend_acs_impl,
+    backend_acs_radix,
+    backend_metric_modes,
+    backend_start_policies,
+    backend_tb_modes,
+    knob_error,
+)
+
+from .codespec import CodeSpec
+from .quantize import quantize_soft, u1_bytes, u2_bytes
+from .trellis import CCSDS_27, ConvCode
+
+__all__ = ["PBVDConfig", "frame_stream", "throughput_model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class PBVDConfig:
+    """Decoder configuration. Paper defaults: D=512, L=42 (≈6K), M=L.
+
+    ``spec`` selects a :class:`~repro_torch.core.codespec.CodeSpec` (code +
+    puncturing); when given it overrides ``code``. ``backend`` defaults to
+    ``"cuda"``, the hand-written kernels. Every knob is validated at
+    construction against what the backend declares in the port's registry,
+    with the reference's uniform :func:`knob_error`.
+    """
+
+    code: ConvCode = CCSDS_27
+    D: int = 512  # decode block length
+    L: int = 42  # traceback depth (= truncation length M)
+    q: int | None = 8  # soft-symbol quantization bits; None → float32
+    start_policy: Literal["zero", "argmin"] = "zero"
+    backend: Literal["cuda", "ref"] = "cuda"
+    spec: CodeSpec | None = None
+    metric_mode: Literal["f32"] = "f32"
+    tb_mode: Literal["serial", "auto"] = "auto"
+    acs_radix: Literal[2] = 2
+    acs_impl: Literal["butterfly"] = "butterfly"
+
+    @property
+    def T(self) -> int:  # stages per parallel block
+        return self.D + 2 * self.L
+
+    @property
+    def codespec(self) -> CodeSpec:
+        """The effective CodeSpec (wrapping ``code`` when none was given)."""
+        if self.spec is not None:
+            return self.spec
+        return CodeSpec(name=f"(2,1,{self.code.K})" if self.code.R == 2 else "custom",
+                        code=self.code)
+
+    def quantize(self, y: torch.Tensor) -> torch.Tensor:
+        """Quantize float soft symbols to ``q`` bits with the quantizer's
+        default range (``metric_mode="f32"``, the only mode ported so far,
+        keeps ``q`` as configured)."""
+        return y if self.q is None else quantize_soft(y, self.q)
+
+    def __post_init__(self):
+        if self.D <= 0 or self.L < 0:
+            raise ValueError("D must be positive, L non-negative")
+        for knob, value, allowed in (
+            ("start_policy", self.start_policy, backend_start_policies(self.backend)),
+            ("metric_mode", self.metric_mode, backend_metric_modes(self.backend)),
+            ("tb_mode", self.tb_mode, (*backend_tb_modes(self.backend), "auto")),
+            ("acs_impl", self.acs_impl, backend_acs_impl(self.backend)),
+            ("acs_radix", self.acs_radix, backend_acs_radix(self.backend)),
+        ):
+            if value not in allowed:
+                raise knob_error(self.backend, knob, value, allowed)
+        if self.spec is not None and self.spec.code is not self.code:
+            # keep cfg.code authoritative for kernel callers
+            object.__setattr__(self, "code", self.spec.code)
+
+
+def frame_stream(y: torch.Tensor, D: int, L: int, n_blocks: int) -> torch.Tensor:
+    """Frame a symbol stream into overlapping parallel blocks.
+
+    y: (..., n_sym, R) soft symbols → (..., T, R, N_t) with T = D + 2L. Block
+    b covers global stages [bD - L, bD + D + L); out-of-range stages are zero
+    (BM-neutral). Leading dimensions frame independent streams.
+    """
+    *lead, n_sym, R = y.shape
+    T = D + 2 * L
+    pad_tail = max(n_blocks * D + L - n_sym, 0)
+    yp = F.pad(y, (0, 0, L, pad_tail))
+    idx = torch.arange(T, device=y.device)[:, None] + torch.arange(n_blocks, device=y.device) * D
+    blocks = yp.index_select(-2, idx.reshape(-1)).reshape(*lead, T, n_blocks, R)
+    return blocks.transpose(-1, -2).contiguous()
+
+
+def throughput_model(
+    *,
+    D: int,
+    L: int,
+    R: int,
+    q: int | None,
+    packed_out: bool,
+    s_kernel_mbps: float,
+    n_streams: int = 3,
+    bandwidth_gbps: float = 8.0,
+) -> float:
+    """Paper eq. (7): decoding throughput in Mbps given kernel throughput S_k.
+
+    ``bandwidth_gbps`` is the host↔device link (PCIe 2.0 ≈ 8 GB/s in the
+    paper's GTX580 setup):
+
+      T/P [bit/s] = N_s / ((1 + 2L/D)·U₁/B + N_s/S_k + U₂/B)
+
+    with U in bytes/bit, B in bytes/s, S_k in bit/s.
+    """
+    B = bandwidth_gbps * 1e9  # bytes/s
+    s_k = s_kernel_mbps * 1e6  # bit/s
+    u1 = u1_bytes(R, q)
+    u2 = u2_bytes(packed_out)
+    denom = (1.0 + 2.0 * L / D) * u1 / B + n_streams / s_k + u2 / B
+    return n_streams / denom / 1e6  # Mbps

@@ -1,0 +1,75 @@
+"""Carry a reference decoder configuration across to the port.
+
+The decoder has no weights: its parameters are the code and the config.
+:func:`convert_config` builds the port's :class:`PBVDConfig` from plain
+values (numpy arrays and scalars), so a caller holding a configuration of
+the JAX package can describe it without the port importing that package:
+
+    fields = dict(polys=np.array(cfg.spec.code.polys), puncture=..., D=cfg.D,
+                  L=cfg.L, q=cfg.q, start_policy=cfg.start_policy,
+                  metric_mode=cfg.metric_mode)
+
+:func:`config_fields` is the inverse.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.codespec import CodeSpec, available_code_specs, get_code_spec
+from repro_torch.core.pbvd import PBVDConfig
+from repro_torch.core.trellis import ConvCode
+
+__all__ = ["convert_config", "config_fields"]
+
+_KEYS = ("polys", "puncture", "D", "L", "q", "start_policy", "metric_mode")
+
+
+def _spec_for(code: ConvCode, puncture) -> CodeSpec:
+    """The registered spec with this code and puncturing, else a custom one."""
+    for name in available_code_specs():
+        spec = get_code_spec(name)
+        if spec.code == code and spec.puncture == puncture:
+            return spec
+    return CodeSpec(name="custom", code=code, puncture=puncture)
+
+
+def convert_config(fields: dict) -> PBVDConfig:
+    """Plain-valued reference config → the port's ``PBVDConfig``.
+
+    ``fields`` holds ``polys`` ((R, K) int array of generator bits, input tap
+    first), ``puncture`` ((R, period) 0/1 array or ``None``), ``D``, ``L``,
+    ``q`` (``None`` for float symbols), ``start_policy`` and ``metric_mode``.
+    The port's own fields (``backend``, …) keep their defaults.
+    """
+    missing = [k for k in _KEYS if k not in fields]
+    if missing:
+        raise KeyError(f"config fields missing {missing}; expected {_KEYS}")
+    polys = tuple(tuple(int(b) for b in row) for row in np.asarray(fields["polys"]))
+    puncture = fields["puncture"]
+    if puncture is not None:
+        puncture = tuple(tuple(int(b) for b in row) for row in np.asarray(puncture))
+    spec = _spec_for(ConvCode(polys=polys), puncture)
+    q = fields["q"]
+    return PBVDConfig(
+        spec=spec,
+        D=int(fields["D"]),
+        L=int(fields["L"]),
+        q=None if q is None else int(q),
+        start_policy=str(fields["start_policy"]),
+        metric_mode=str(fields["metric_mode"]),
+    )
+
+
+def config_fields(cfg: PBVDConfig) -> dict:
+    """The port's config → the plain values :func:`convert_config` takes."""
+    spec = cfg.codespec
+    return dict(
+        polys=np.asarray(spec.code.polys, dtype=np.int64),
+        puncture=None if spec.puncture is None else np.asarray(spec.puncture, dtype=np.int64),
+        D=cfg.D,
+        L=cfg.L,
+        q=cfg.q,
+        start_policy=cfg.start_policy,
+        metric_mode=cfg.metric_mode,
+    )

@@ -1,0 +1,97 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Every ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface,
+``build/<name>-<digest>.so`` at the root of the checkout, where the digest
+covers the source and the flags: an edited source builds anew, an unchanged
+one is loaded as it is. :func:`build_all` starts one ``nvcc`` per source,
+all together, and waits for them. Nothing here runs when a module is
+imported, and nothing here is reached for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_all", "load", "sources"]
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list[str]:
+    """Names of the kernels in ``csrc/`` (one ``.cu`` file each)."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found on PATH or in /usr/local/cuda/bin: the CUDA kernels "
+            "cannot be built (pass CPU tensors to use the plain versions)"
+        )
+    return path
+
+
+def _target(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build_all(names: list[str] | None = None) -> list[str]:
+    """Compile the named kernels (default: all) that are not built yet.
+
+    One ``nvcc`` process per source, started together. Each writes to a
+    temporary file that is renamed into place, so a concurrent or cut build
+    never leaves a half-written library. Returns the names it compiled;
+    raises ``RuntimeError`` with the compiler's output if any build fails.
+    """
+    names = sources() if names is None else names
+    todo = [n for n in names if not _target(n).exists()]
+    if not todo:
+        return []
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        procs.append((name, tmp, proc))
+    failed = []
+    for name, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, _target(name))
+        else:
+            os.unlink(tmp)
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return todo
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
+    return lib

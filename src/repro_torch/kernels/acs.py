@@ -1,0 +1,102 @@
+"""K1, the forward ACS kernel (``csrc/acs.cu``): wrapper, plain version, count.
+
+Replaces ``repro.kernels.acs._acs_kernel`` (radix-2 branch, driven by
+``acs_forward_pallas``). :func:`acs_forward` takes the plain PyTorch version
+:func:`acs_forward_plain` (``repro_torch.kernels.ref.acs_forward_ref``) for a
+CPU tensor; for a CUDA tensor it launches the CUDA kernel or raises. What
+bounds the kernel on the card and what its design does about it is noted in
+the CUDA source.
+
+``launches`` counts the kernel's launches, and nothing else: set it to 0,
+run, read it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from repro_torch.core.trellis import ConvCode
+from . import _build
+from .ref import _acc_dtype_for, acs_forward_ref as acs_forward_plain
+
+__all__ = ["acs_forward", "acs_forward_plain", "kernel_labels", "launches"]
+
+#: launches of the CUDA kernel since the count was last set to 0
+launches = 0
+
+_DTYPE_CODE = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3}
+_MAX_R = 4
+
+
+def kernel_labels(code: ConvCode) -> np.ndarray:
+    """(N, 2) int32: the R-bit labels of each target state's even and odd
+    predecessor branches (α/γ for the top half, β/θ for the bottom half)."""
+    tabs = code.acs_tables
+    even = np.concatenate([tabs["cw_top_even"], tabs["cw_bot_even"]])
+    odd = np.concatenate([tabs["cw_top_odd"], tabs["cw_bot_odd"]])
+    return np.stack([even, odd], axis=1).astype(np.int32)
+
+
+@lru_cache(maxsize=None)
+def _labels_on(code: ConvCode, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(kernel_labels(code), device=device)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("acs")
+    fn = lib.pbvd_acs_forward
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, i, i, i, p, p, p, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def acs_forward(
+    y: torch.Tensor,
+    code: ConvCode,
+    metric_mode: str = "f32",
+    radix: int = 2,
+    impl: str = "butterfly",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward ACS over parallel blocks. y: (T, R, B) → (sp (T, W, B), pm (N, B)).
+
+    The signature and result of :func:`acs_forward_plain`. On a CUDA tensor
+    ``y`` must be contiguous, int8/int16/int32 or float32; the kernel writes
+    int32 survivor words and int32 (float32 for float symbols) metrics.
+    """
+    global launches
+    if y.device.type == "cpu":
+        return acs_forward_plain(y, code, metric_mode=metric_mode, radix=radix, impl=impl)
+    if y.device.type != "cuda":
+        raise ValueError(f"acs_forward runs on CPU or CUDA tensors, got {y.device}")
+    if radix != 2 or impl != "butterfly":
+        raise ValueError(
+            f"the CUDA ACS kernel implements radix 2 butterflies, got radix={radix}, impl={impl!r}"
+        )
+    acc_dtype = _acc_dtype_for(y.dtype, metric_mode)  # raises for other modes/dtypes
+    if y.dim() != 3 or not y.is_contiguous():
+        raise ValueError(f"y must be a contiguous (T, R, B) tensor, got {tuple(y.shape)}")
+    T, R, B = y.shape
+    if R != code.R or R > _MAX_R:
+        raise ValueError(f"symbol rank {R} != code R {code.R} (at most {_MAX_R})")
+    N = code.n_states
+    sp = torch.empty((T, -(-N // 32), B), dtype=torch.int32, device=y.device)
+    pm = torch.empty((N, B), dtype=acc_dtype, device=y.device)
+    if T == 0 or B == 0:
+        return sp, pm.zero_()
+    labels = _labels_on(code, y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        rc = _lib().pbvd_acs_forward(
+            y.data_ptr(), _DTYPE_CODE[y.dtype], T, R, B, code.v,
+            labels.data_ptr(), sp.data_ptr(), pm.data_ptr(), stream,
+        )
+    if rc:
+        raise RuntimeError(f"pbvd_acs_forward launch failed (error {rc})")
+    launches += 1
+    return sp, pm

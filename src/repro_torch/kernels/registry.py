@@ -1,0 +1,235 @@
+"""Backend registry for the port's PBVD decode kernels.
+
+The counterpart of ``repro.kernels.registry``. Every backend is a function
+with the common contract
+
+    backend(blocks: FramedBlocks, code: ConvCode, *,
+            start_policy, metric_mode, tb_mode, acs_radix, acs_impl)
+        -> (n_decode, B_real) int32 bits
+
+registered under a name via ``@register_backend("name")``. Backends declare
+the knob values they implement; the dispatcher and ``PBVDConfig`` reject
+any other value eagerly with :func:`knob_error`.
+
+The knob contracts below hold only what the port implements so far:
+``metric_mode="f32"``, the serial traceback, the radix-2 butterfly. The
+reference's narrow metric modes, prefix traceback, radix-4 and matrix ACS
+are still to be ported; a backend cannot declare them until their contract
+entries land here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Protocol
+
+__all__ = [
+    "FramedBlocks",
+    "DecodeBackend",
+    "METRIC_MODES",
+    "TB_MODES",
+    "ACS_RADIX",
+    "ACS_IMPL",
+    "register_backend",
+    "get_backend",
+    "available_backends",
+    "backend_start_policies",
+    "backend_metric_modes",
+    "backend_tb_modes",
+    "backend_acs_radix",
+    "backend_acs_impl",
+    "backend_preferred_tb_mode",
+    "resolve_tb_mode",
+    "knob_error",
+]
+
+
+METRIC_MODES: dict[str, dict[str, Any]] = {
+    "f32": dict(
+        pm_dtype="float32/int32",
+        symbols="float32, or any pre-quantized int (exact int32 accumulation)",
+        normalization="none (unbounded accumulation)",
+        saturation_budget="int32 headroom: 2^31 / (R·2^q) stages per block",
+    ),
+}
+
+TB_MODES: dict[str, dict[str, Any]] = {
+    "serial": dict(
+        serial_steps="T - decode_start (early exit below the decode region)",
+        scratch="none beyond the survivor history",
+        when="the paper's walk; the only traceback ported so far",
+    ),
+}
+
+ACS_RADIX: dict[int, dict[str, Any]] = {
+    2: dict(
+        serial_steps="T butterfly stages",
+        metrics_per_step="2^(R-1) folded branch metrics",
+        when="the paper's butterfly; the only radix ported so far",
+    ),
+}
+
+ACS_IMPL: dict[str, dict[str, Any]] = {
+    "butterfly": dict(
+        serial_steps="T compare-select steps",
+        metrics_per_step="2^(R-1) folded branch metrics",
+        when="the paper's formulation; the only one ported so far",
+    ),
+}
+
+
+def knob_error(backend: str, knob: str, value: Any, allowed) -> ValueError:
+    """The uniform eager knob-validation error (the reference's shape)."""
+    return ValueError(
+        f"backend {backend!r} does not support {knob}={value!r}; "
+        f"supported {knob} values: {tuple(allowed)}"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class FramedBlocks:
+    """The framed parallel-block batch every backend consumes.
+
+    ``y``: (T, R, B) soft symbols (float32, or int8/int16 for the exact
+    quantized path), framed [truncation M | decode D | traceback L].
+    ``decode_start``/``n_decode``: the decode region within the T stages.
+    ``frame_counts``: when the lane axis packs several frames (independent
+    streams), the number of real blocks each frame contributed, in lane
+    order; ``None`` means a single frame spanning every lane. Lanes beyond
+    ``sum(frame_counts)`` are padding and must be trimmed by the backend.
+    """
+
+    y: Any  # torch.Tensor
+    decode_start: int
+    n_decode: int
+    frame_counts: tuple[int, ...] | None = None
+
+    def __post_init__(self):
+        if self.frame_counts is not None:
+            if any(k <= 0 for k in self.frame_counts):
+                raise ValueError(
+                    f"frame_counts must be positive, got {self.frame_counts}"
+                )
+            if sum(self.frame_counts) > self.y.shape[2]:
+                raise ValueError(
+                    f"frame_counts {self.frame_counts} sum to "
+                    f"{sum(self.frame_counts)} > lane axis {self.y.shape[2]}"
+                )
+
+    @property
+    def n_real_blocks(self) -> int:
+        """Real (non-pad) lanes; what every backend must return."""
+        if self.frame_counts is None:
+            return int(self.y.shape[2])
+        return sum(self.frame_counts)
+
+
+class DecodeBackend(Protocol):
+    def __call__(
+        self,
+        blocks: FramedBlocks,
+        code: Any,
+        *,
+        start_policy: str,
+        metric_mode: str,
+        tb_mode: str,
+        acs_radix: int,
+        acs_impl: str,
+    ) -> Any: ...
+
+
+_BACKENDS: dict[str, DecodeBackend] = {}
+
+
+def register_backend(
+    name: str,
+    *,
+    start_policies: tuple[str, ...] = ("zero", "argmin"),
+    metric_modes: tuple[str, ...] = ("f32",),
+    tb_modes: tuple[str, ...] = ("serial",),
+    preferred_tb_mode: str = "serial",
+    acs_radix: tuple[int, ...] = (2,),
+    acs_impl: tuple[str, ...] = ("butterfly",),
+) -> Callable[[DecodeBackend], DecodeBackend]:
+    """Decorator: register a decode backend under ``name``.
+
+    Each keyword declares the values of one knob the backend implements; the
+    declared values must exist in the matching contract above.
+    ``preferred_tb_mode`` is what ``tb_mode="auto"`` resolves to.
+    """
+    for knob, declared, contract in (
+        ("metric modes", metric_modes, METRIC_MODES),
+        ("tb modes", tb_modes, TB_MODES),
+        ("acs radixes", acs_radix, ACS_RADIX),
+        ("acs impls", acs_impl, ACS_IMPL),
+    ):
+        unknown = set(declared) - contract.keys()
+        if unknown:
+            raise ValueError(f"unknown {knob} {sorted(unknown)}")
+    if preferred_tb_mode not in tb_modes:
+        raise ValueError(
+            f"preferred_tb_mode {preferred_tb_mode!r} not in tb_modes {tb_modes}"
+        )
+
+    def deco(fn: DecodeBackend) -> DecodeBackend:
+        if name in _BACKENDS:
+            raise ValueError(f"backend {name!r} already registered")
+        _BACKENDS[name] = fn
+        fn.backend_name = name  # type: ignore[attr-defined]
+        fn.start_policies = tuple(start_policies)  # type: ignore[attr-defined]
+        fn.metric_modes = tuple(metric_modes)  # type: ignore[attr-defined]
+        fn.tb_modes = tuple(tb_modes)  # type: ignore[attr-defined]
+        fn.preferred_tb_mode = str(preferred_tb_mode)  # type: ignore[attr-defined]
+        fn.acs_radix = tuple(acs_radix)  # type: ignore[attr-defined]
+        fn.acs_impl = tuple(acs_impl)  # type: ignore[attr-defined]
+        return fn
+
+    return deco
+
+
+def get_backend(name: str) -> DecodeBackend:
+    try:
+        return _BACKENDS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown decode backend {name!r}; available: {available_backends()}"
+        ) from None
+
+
+def backend_start_policies(name: str) -> tuple[str, ...]:
+    """Start policies the named backend supports."""
+    return get_backend(name).start_policies
+
+
+def backend_metric_modes(name: str) -> tuple[str, ...]:
+    """Metric modes the named backend supports (see :data:`METRIC_MODES`)."""
+    return get_backend(name).metric_modes
+
+
+def backend_tb_modes(name: str) -> tuple[str, ...]:
+    """Traceback modes the named backend supports (see :data:`TB_MODES`)."""
+    return get_backend(name).tb_modes
+
+
+def backend_acs_radix(name: str) -> tuple[int, ...]:
+    """Forward-ACS radixes the named backend supports (see :data:`ACS_RADIX`)."""
+    return get_backend(name).acs_radix
+
+
+def backend_acs_impl(name: str) -> tuple[str, ...]:
+    """Forward-ACS formulations the named backend supports (see :data:`ACS_IMPL`)."""
+    return get_backend(name).acs_impl
+
+
+def backend_preferred_tb_mode(name: str) -> str:
+    """The named backend's declared traceback mode for ``tb_mode="auto"``."""
+    return get_backend(name).preferred_tb_mode
+
+
+def resolve_tb_mode(name: str, tb_mode: str) -> str:
+    """Resolve ``"auto"`` to the backend's preferred mode; pass others through."""
+    return backend_preferred_tb_mode(name) if tb_mode == "auto" else tb_mode
+
+
+def available_backends() -> list[str]:
+    return sorted(_BACKENDS)

@@ -23,6 +23,26 @@ non-zero and prints no result:
    plain version's, its bound, decoded Mb/s end to end and on the device,
    bytes per decoded bit and the host phases.
 
+Then the fused backend, the narrow metric modes and radix 4:
+
+7. K1 in the metric modes i16/i8 and at radix 4 against its plain version
+   (survivor words equal, path metrics equal after a cast to int32), and the
+   fused kernel against its plain version (packed words equal): CCSDS at the
+   main shapes, K=9, rate 1/3, a 16-state code, a ragged batch, int8/int16/
+   float32 symbols, odd T, zero and random start states, a packed width that
+   overhangs the block and a K=9 block (D=4096, L=64) whose survivor history
+   needs more than 48 KB of shared memory. Combinations whose saturation
+   budget ``norm_interval`` refuses are printed as refused;
+8. the fused main path, ``DecoderEngine(PBVDConfig(backend="fused")).decode``
+   on the 4,194,304-bit stream: equal to ``"ref"`` and ``"cuda"``, i16 equal
+   to f32, i8 at radix 4 through ``"fused"`` and ``"cuda"`` equal to
+   ``"ref"`` in that configuration (each radix-4 path's launches counted), a
+   noiseless stream with 0 errors, one fused launch and no K1/K2 launch per
+   decode, and ``decode_batch`` of 64 × 65,536 bits in one fused launch;
+9. times of the fused kernel (radix 2 and 4, f32 and i8) and of K1 at radix
+   4 and in i8, beside their plain versions and bounds, and end-to-end Mb/s
+   of ``"fused"`` beside ``"cuda"``.
+
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 torch finds no CUDA device or when the port's sources are missing.
@@ -37,6 +57,7 @@ import sys
 import time
 from pathlib import Path
 
+DEVICE = "cuda"
 SEED = 20261016
 N_MAIN_BLOCKS = 8192  # 8192 × D=512 = 4,194,304 decoded bits
 EBN0_DB = 4.0
@@ -102,6 +123,16 @@ def k2_cost(T: int, B: int, decode_start: int, n_decode: int) -> tuple[float, fl
     return float(nbytes), float(ops)
 
 
+def fused_cost(code, T: int, B: int, sym_bytes: int, decode_start: int,
+               n_decode: int) -> tuple[float, float]:
+    """(bytes, operations) of the fused kernel: symbols and start states in,
+    packed bit words out; K1's operations plus the walk's."""
+    n_words = -(-n_decode // 32)
+    nbytes = T * code.R * B * sym_bytes + B * 4 + n_words * B * 4
+    ops = k1_cost(code, T, B, sym_bytes)[1] + B * (T - decode_start) * 6
+    return float(nbytes), float(ops)
+
+
 def bound(nbytes: float, ops: float, op_rate: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / op_rate
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
@@ -125,9 +156,10 @@ def main() -> int:
     from repro_torch.core.engine import DecoderEngine
     from repro_torch.core.pbvd import PBVDConfig
     from repro_torch.core.trellis import ConvCode
-    from repro_torch.kernels import _build, acs, traceback
+    from repro_torch.core.quantize import norm_interval
+    from repro_torch.kernels import _build, acs, fused, traceback
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} (count {torch.cuda.device_count()}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -206,7 +238,7 @@ def main() -> int:
     flushed = torch.cat([payload, payload.new_zeros(cfg.code.v)])
     coded = encode(flushed, cfg.code)
     y = transmit(gen, coded, EBN0_DB, cfg.codespec.rate)
-    engine = DecoderEngine(cfg)
+    engine = DecoderEngine(cfg, device=dev)
     engine.decode(y[: 4 * cfg.D], 4 * cfg.D)  # first call loads the kernels
     torch.cuda.synchronize()
     acs.launches = traceback.launches = 0
@@ -215,7 +247,7 @@ def main() -> int:
     main_launches = {"acs": acs.launches, "traceback": traceback.launches}
     if min(main_launches.values()) < 1:
         raise AssertionError(f"main path did not launch every kernel: {main_launches}")
-    ref_bits = DecoderEngine(PBVDConfig(backend="ref")).decode(y, n_bits)
+    ref_bits = DecoderEngine(PBVDConfig(backend="ref"), device=dev).decode(y, n_bits)
     if bits.shape != (n_bits,) or bits.dtype != torch.int32 or not torch.equal(bits, ref_bits):
         raise AssertionError("main path: backend='cuda' differs from backend='ref'")
     ber = float((bits != payload).double().mean())
@@ -286,6 +318,172 @@ def main() -> int:
         f"bytes per decoded bit: K1 {k1_bytes / n_bits:.3f} + K2 {k2_bytes / n_bits:.3f} = "
         f"{(k1_bytes + k2_bytes) / n_bits:.3f}")
 
+    # ---- 7. narrow modes, radix 4 and the fused kernel against plain -----------
+    is95, lte = get_code_spec("is95-k9").code, get_code_spec("lte-1/3").code
+    i8, i16, f32 = torch.int8, torch.int16, torch.float32
+    # label, code, symbol dtype, B, T, decode_start, n_decode, mode, radix, start
+    cases = [
+        ("ccsds main", ccsds, i8, N_MAIN_BLOCKS, T, L, D, "f32", 2, "zero"),
+        ("ccsds main", ccsds, i8, N_MAIN_BLOCKS, T, L, D, "f32", 4, "zero"),
+        ("ccsds main", ccsds, i8, N_MAIN_BLOCKS, T, L, D, "i8", 4, "zero"),
+        ("ccsds main", ccsds, i8, N_MAIN_BLOCKS, T, L, D, "i16", 2, "zero"),
+        ("ccsds", ccsds, i16, 1024, T, L, D, "i16", 4, "random"),
+        ("ccsds float", ccsds, f32, 256, T + 1, L, D, "f32", 4, "random"),
+        ("ccsds float", ccsds, f32, 256, T, L, D, "f32", 2, "random"),
+        ("ccsds ragged", ccsds, i8, 1001, T + 1, L, D, "i8", 4, "random"),
+        ("ccsds ragged", ccsds, i16, 1001, T, L, D, "i8", 2, "zero"),
+        ("ccsds overhang", ccsds, i8, 300, 100, 8, 128, "i16", 4, "random"),
+        ("is95-k9", is95, i8, 256, T, L, D, "i16", 4, "random"),
+        ("is95-k9", is95, i16, 256, T + 1, L, D, "i8", 2, "zero"),
+        ("is95-k9", is95, i8, 256, T, L, D, "f32", 2, "zero"),
+        ("lte-1/3", lte, i8, 256, T + 1, L, D, "f32", 4, "random"),
+        ("lte-1/3", lte, i8, 256, T, L, D, "i8", 4, "zero"),
+        ("(2,1,5)", k5, i8, 77, T, L, D, "i16", 4, "random"),
+        ("(2,1,5)", k5, i8, 77, T + 1, L, D, "i8", 2, "zero"),
+        ("(2,1,5)", k5, i8, 77, T, L, D, "i8", 4, "zero"),  # refused by the budget
+        ("is95-k9 long", is95, i8, 300, 4096 + 128, 64, 4096, "f32", 2, "random"),
+        ("is95-k9 long", is95, i8, 300, 4096 + 129, 64, 4096, "i8", 4, "zero"),
+        # G drops to 1: CTAs of 16 threads, one partly filled warp
+        ("(2,1,5) long", k5, i8, 50, 8000, 64, 7904, "i16", 4, "random"),
+    ]
+    fused_err = {2: 0.0, 4: 0.0}  # by radix; K1's radix-4 errors go to k1_err_r4
+    k1_err_r4 = 0.0
+    for label, code, dtype, B, Tc, ds, nd, mode, radix, policy in cases:
+        tag = f"{label:14s} {str(dtype):13s} T={Tc} B={B} {mode} r{radix} start={policy}"
+        try:
+            norm_interval(code, mode, radix)
+        except ValueError as err:
+            log(f"[7 refused] {tag}: {err}")
+            continue
+        if dtype == f32:
+            y7 = torch.randn((Tc, code.R, B), generator=gen, device=dev) * 2.0
+        else:
+            y7 = torch.randint(-127, 128, (Tc, code.R, B), generator=gen, device=dev).to(dtype)
+        start = (torch.randint(0, code.n_states, (B,), generator=gen, device=dev,
+                               dtype=torch.int32) if policy == "random" else None)
+        if mode != "f32" or radix == 4:
+            sp_k, pm_k = acs.acs_forward(y7, code, mode, radix)
+            torch.cuda.synchronize()
+            sp_p, pm_p = acs.acs_forward_plain(y7, code, mode, radix)
+            if not torch.equal(sp_k, sp_p):
+                raise AssertionError(f"K1 {tag}: {int((sp_k != sp_p).sum())} survivor words differ")
+            if not torch.equal(pm_k, pm_p.to(pm_k.dtype)):
+                raise AssertionError(f"K1 {tag}: path metrics differ")
+            err = float((pm_k.double() - pm_p.double()).abs().max())
+            if radix == 4:
+                k1_err_r4 = max(k1_err_r4, err)
+            else:
+                k1_err = max(k1_err, err)
+        words_k = fused.pbvd_fused(y7, code, decode_start=ds, n_decode=nd, start_state=start,
+                                   metric_mode=mode, radix=radix)
+        torch.cuda.synchronize()
+        words_p = fused.pbvd_fused_plain(y7, code, decode_start=ds, n_decode=nd,
+                                         start_state=start, metric_mode=mode, radix=radix)
+        if not torch.equal(words_k, words_p):
+            raise AssertionError(f"fused {tag}: {int((words_k != words_p).sum())} words differ")
+        fused_err[radix] = max(fused_err[radix],
+                               float((words_k.double() - words_p.double()).abs().max()))
+        G, smem = fused.smem_plan(Tc, code.n_states)
+        log(f"[7 fused] {tag}: words equal (G={G}, {smem} B shared)"
+            + ("; K1 sp and pm equal" if mode != "f32" or radix == 4 else ""))
+
+    # ---- 8. the fused main path ----------------------------------------------
+    fcfg = PBVDConfig(backend="fused")
+    fengine = DecoderEngine(fcfg, device=dev)
+    fengine.decode(y[: 4 * cfg.D], 4 * cfg.D)
+    torch.cuda.synchronize()
+    acs.launches = traceback.launches = fused.launches = 0
+    fbits = fengine.decode(y, n_bits)
+    torch.cuda.synchronize()
+    fused_launches = {"acs": acs.launches, "traceback": traceback.launches,
+                      "fused": fused.launches}
+    if fused_launches != {"acs": 0, "traceback": 0, "fused": 1}:
+        raise AssertionError(f"fused main path launched {fused_launches}")
+    if fbits.shape != (n_bits,) or not (torch.equal(fbits, ref_bits) and torch.equal(fbits, bits)):
+        raise AssertionError("fused main path differs from backend='ref' or 'cuda'")
+    i16_bits = DecoderEngine(PBVDConfig(backend="fused", metric_mode="i16"),
+                             device=dev).decode(y, n_bits)
+    if not torch.equal(i16_bits, fbits):
+        raise AssertionError("fused i16 differs from f32")
+    # the radix-4 paths, i8: the fused kernel's and K1's radix-4 branches
+    i8r4 = dict(metric_mode="i8", acs_radix=4)
+    i8_engine = DecoderEngine(PBVDConfig(backend="fused", **i8r4), device=dev)
+    r4_engines = {"fused": i8_engine,
+                  "cuda": DecoderEngine(PBVDConfig(backend="cuda", **i8r4), device=dev)}
+    r4_bits, r4_launches = {}, {}
+    for be, eng in r4_engines.items():
+        acs.launches = traceback.launches = fused.launches = 0
+        r4_bits[be] = eng.decode(y, n_bits)
+        torch.cuda.synchronize()
+        r4_launches[be] = {"acs": acs.launches, "traceback": traceback.launches,
+                           "fused": fused.launches}
+    if r4_launches != {"fused": {"acs": 0, "traceback": 0, "fused": 1},
+                       "cuda": {"acs": 1, "traceback": 1, "fused": 0}}:
+        raise AssertionError(f"i8 radix-4 paths launched {r4_launches}")
+    i8_ref = DecoderEngine(PBVDConfig(backend="ref", **i8r4), device=dev).decode(y, n_bits)
+    if not (torch.equal(r4_bits["fused"], i8_ref) and torch.equal(r4_bits["cuda"], i8_ref)):
+        raise AssertionError("i8 radix 4: fused or cuda differs from backend='ref'")
+    i8_bits = r4_bits["fused"]
+    n_err0 = int((fengine.decode(bpsk(coded), n_bits) != payload).sum())
+    n_err0 += int((i8_engine.decode(bpsk(coded), n_bits) != payload).sum())
+    if n_err0:
+        raise AssertionError(f"fused: noiseless stream decoded with {n_err0} errors")
+    ber_i8 = float((i8_bits != payload).double().mean())
+    log(f"[8 fused] {n_bits} bits: fused == ref == cuda bit for bit; launches {fused_launches}; "
+        f"i16 == f32; i8 radix 4: fused == cuda == ref (launches {r4_launches}; BER at "
+        f"{EBN0_DB} dB {ber_i8:.3e}, f32 {ber:.3e}); noiseless errors = 0 (f32 and i8 radix 4)")
+    acs.launches = traceback.launches = fused.launches = 0
+    fbatch = fengine.decode_batch(ys, [STREAM_BITS] * N_STREAMS)
+    torch.cuda.synchronize()
+    fbatch_launches = {"acs": acs.launches, "traceback": traceback.launches,
+                       "fused": fused.launches}
+    if fbatch_launches != {"acs": 0, "traceback": 0, "fused": 1}:
+        raise AssertionError(f"fused decode_batch launched {fbatch_launches}")
+    for i, (yi, bi) in enumerate(zip(ys, fbatch)):
+        if not torch.equal(bi, fengine.decode(yi, STREAM_BITS)) or not torch.equal(bi, batch[i]):
+            raise AssertionError(f"fused decode_batch stream {i} differs")
+    log(f"[8 fused] decode_batch {N_STREAMS} x {STREAM_BITS} bits == per-stream decode == cuda "
+        f"(launches {fbatch_launches})")
+
+    # ---- 9. times of the fused kernel, K1 radix 4 / i8 -------------------------
+    i8_blocks = i8_engine._frame_one(y, n_bits)[0]
+    fkw = dict(decode_start=cfg.L, n_decode=cfg.D)
+    f_bytes, f_ops = fused_cost(cfg.code, cfg.T, n_blocks, blocks.element_size(), cfg.L, cfg.D)
+    f_bound, f_by = bound(f_bytes, f_ops, INT32_OPS_PER_S)
+    fused_ms = {}
+    for mode, radix, blk in (("f32", 2, blocks), ("f32", 4, blocks), ("i8", 2, i8_blocks),
+                             ("i8", 4, i8_blocks)):
+        if not torch.equal(fused.pbvd_fused(blk, cfg.code, metric_mode=mode, radix=radix, **fkw),
+                           fused.pbvd_fused_plain(blk, cfg.code, metric_mode=mode, radix=radix,
+                                                  **fkw)):
+            raise AssertionError(f"fused {mode} r{radix} differs from plain on the main blocks")
+        fused_ms[mode, radix] = cuda_ms(
+            torch, lambda: fused.pbvd_fused(blk, cfg.code, metric_mode=mode, radix=radix, **fkw),
+            reps=20)
+        log(f"[9 times] fused {mode} radix {radix}: {fused_ms[mode, radix]:.4f} ms "
+            f"(bound {f_bound:.4f} ms by {f_by}: {f_bytes:.0f} B, {f_ops:.0f} int32 op)")
+    fused_plain_ms = {r: cuda_ms(torch, lambda: fused.pbvd_fused_plain(blocks, cfg.code, radix=r,
+                                                                      **fkw), reps=3, warmup=1)
+                      for r in (2, 4)}
+    k1_r4_ms = cuda_ms(torch, lambda: acs.acs_forward(blocks, cfg.code, radix=4), reps=20)
+    k1_r4_plain_ms = cuda_ms(torch, lambda: acs.acs_forward_plain(blocks, cfg.code, radix=4),
+                             reps=3, warmup=1)
+    k1_i8_ms = cuda_ms(torch, lambda: acs.acs_forward(i8_blocks, cfg.code, "i8"), reps=20)
+    k1_i8r4_ms = cuda_ms(torch, lambda: acs.acs_forward(i8_blocks, cfg.code, "i8", 4), reps=20)
+    log(f"[9 times] fused plain radix 2 {fused_plain_ms[2]:.3f} ms, radix 4 "
+        f"{fused_plain_ms[4]:.3f} ms; K1 radix 2 {k1_ms:.4f} ms, radix 4 {k1_r4_ms:.4f} ms "
+        f"(plain {k1_r4_plain_ms:.3f} ms), i8 {k1_i8_ms:.4f} ms, i8 radix 4 {k1_i8r4_ms:.4f} ms "
+        f"(bound {k1_bound:.4f} ms)")
+    e2e = {"cuda": [], "fused": []}
+    for be, eng in (("cuda", engine), ("fused", fengine), ("fused", fengine), ("cuda", engine)):
+        e2e[be].append(wall_ms(torch, lambda: eng.decode(y, n_bits), reps=5))
+    log(f"[9 times] end to end ms (in turns cuda, fused, fused, cuda): cuda {e2e['cuda']}, "
+        f"fused {e2e['fused']}; decoded Mb/s: cuda "
+        f"{n_bits / statistics.mean(e2e['cuda']) / 1e3:.1f}, fused "
+        f"{n_bits / statistics.mean(e2e['fused']) / 1e3:.1f}; on the device: K1+K2 "
+        f"{n_bits / (k1_ms + k2_ms) / 1e3:.1f}, fused {n_bits / fused_ms['f32', 2] / 1e3:.1f}; "
+        f"bytes per decoded bit: fused {f_bytes / n_bits:.3f}")
+
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith(("jax.", "jaxlib")) or mod == "repro" or mod.startswith("repro."):
             raise AssertionError(f"the port imported {mod}")
@@ -299,6 +497,21 @@ def main() -> int:
              replaces="src/repro/kernels/traceback.py:68", launches=main_launches["traceback"],
              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound,
              bound_by=k2_by, library_ms=None),
+        dict(name="pbvd_fused", route="cuda", source="src/repro_torch/kernels/csrc/fused.cu",
+             replaces="src/repro/kernels/fused.py:327", launches=fused_launches["fused"],
+             max_abs_err=fused_err[2], ms=fused_ms["f32", 2], plain_ms=fused_plain_ms[2],
+             bound_ms=f_bound, bound_by=f_by, library_ms=None),
+        # the radix-4 branches of the same two sources, timed at f32; their
+        # launches are those of the i8 radix-4 main-path runs of phase 8
+        dict(name="acs_forward (K1) radix 4", route="cuda",
+             source="src/repro_torch/kernels/csrc/acs.cu",
+             replaces="src/repro/kernels/acs.py:407", launches=r4_launches["cuda"]["acs"],
+             max_abs_err=k1_err_r4, ms=k1_r4_ms, plain_ms=k1_r4_plain_ms, bound_ms=k1_bound,
+             bound_by=k1_by, library_ms=None),
+        dict(name="pbvd_fused radix 4", route="cuda", source="src/repro_torch/kernels/csrc/fused.cu",
+             replaces="src/repro/kernels/fused.py:92", launches=r4_launches["fused"]["fused"],
+             max_abs_err=fused_err[4], ms=fused_ms["f32", 4], plain_ms=fused_plain_ms[4],
+             bound_ms=f_bound, bound_by=f_by, library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

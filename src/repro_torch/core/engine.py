@@ -6,12 +6,17 @@ the streaming sessions (still to be ported):
 * **codes** come from a :class:`~repro_torch.core.codespec.CodeSpec` —
   punctured streams are depunctured with BM-neutral zeros first;
 * **backends** are looked up in the port's kernel registry through
-  :func:`~repro_torch.kernels.ops.pbvd_decode_blocks`;
+  :func:`~repro_torch.kernels.ops.pbvd_decode_blocks`: ``"cuda"`` (K1 then
+  K2), ``"fused"`` (one kernel) and ``"ref"`` (plain PyTorch);
+* **metric modes** ``"f32"``/``"i16"``/``"i8"``: float symbols are
+  quantized by ``cfg.quantize`` (``effective_q`` bits; the coarse i8
+  scale) before framing, so the narrow pipelines never saturate;
 * **batching across streams** is :meth:`DecoderEngine.decode_batch`: the
   framed blocks of many streams are concatenated along the lane axis and
-  decoded in ONE launch of each kernel. The kernels mask the ragged lane
-  edge, so no lanes are padded; per-stream bits equal sequential
-  :meth:`DecoderEngine.decode` calls because parallel blocks never interact.
+  decoded in ONE launch of each kernel (one fused launch on ``"fused"``).
+  The kernels mask the ragged lane edge, so no lanes are padded;
+  per-stream bits equal sequential :meth:`DecoderEngine.decode` calls
+  because parallel blocks never interact.
 
 The engine runs on the GPU unless the caller asks for the CPU: ``device``
 defaults to ``"cuda"``, and with no CUDA device the engine refuses to start

@@ -26,7 +26,14 @@ from repro_torch.kernels.ops import (
 )
 
 from .codespec import CodeSpec
-from .quantize import quantize_soft, u1_bytes, u2_bytes
+from .quantize import (
+    max_symbol_bits,
+    metric_dtype_max,
+    norm_interval,
+    quantize_soft,
+    u1_bytes,
+    u2_bytes,
+)
 from .trellis import CCSDS_27, ConvCode
 
 __all__ = ["PBVDConfig", "frame_stream", "throughput_model"]
@@ -38,9 +45,17 @@ class PBVDConfig:
 
     ``spec`` selects a :class:`~repro_torch.core.codespec.CodeSpec` (code +
     puncturing); when given it overrides ``code``. ``backend`` defaults to
-    ``"cuda"``, the hand-written kernels. Every knob is validated at
-    construction against what the backend declares in the port's registry,
-    with the reference's uniform :func:`knob_error`.
+    ``"cuda"``, the hand-written two-kernel path; ``"fused"`` runs the
+    single kernel, ``"ref"`` the plain PyTorch oracle. Every knob is
+    validated at construction against what the backend declares in the
+    port's registry, with the reference's uniform :func:`knob_error`, and
+    radix 4 is checked against the code (K ≥ 3) and the narrow modes'
+    saturation budget (``norm_interval``) before anything runs.
+
+    ``metric_mode`` ``"i16"``/``"i8"`` run the narrow normalized path-metric
+    pipeline: the engine quantizes float symbols to ``effective_q`` bits.
+    ``acs_radix=4`` runs two trellis stages per ACS step; the decoded bits
+    equal radix 2's.
     """
 
     code: ConvCode = CCSDS_27
@@ -48,11 +63,11 @@ class PBVDConfig:
     L: int = 42  # traceback depth (= truncation length M)
     q: int | None = 8  # soft-symbol quantization bits; None → float32
     start_policy: Literal["zero", "argmin"] = "zero"
-    backend: Literal["cuda", "ref"] = "cuda"
+    backend: Literal["cuda", "fused", "ref"] = "cuda"
     spec: CodeSpec | None = None
-    metric_mode: Literal["f32"] = "f32"
+    metric_mode: Literal["f32", "i16", "i8"] = "f32"
     tb_mode: Literal["serial", "auto"] = "auto"
-    acs_radix: Literal[2] = 2
+    acs_radix: Literal[2, 4] = 2
     acs_impl: Literal["butterfly"] = "butterfly"
 
     @property
@@ -67,11 +82,32 @@ class PBVDConfig:
         return CodeSpec(name=f"(2,1,{self.code.K})" if self.code.R == 2 else "custom",
                         code=self.code)
 
+    @property
+    def effective_q(self) -> int | None:
+        """Quantizer width the engine actually applies to float symbols.
+
+        ``f32`` keeps ``q`` as configured; the narrow metric modes quantize
+        unconditionally (integer metrics need integer symbols) and cap the
+        width at the widest q whose worst-case metric fits the mode's dtype
+        (:func:`~repro_torch.core.quantize.max_symbol_bits`).
+        """
+        if self.metric_mode == "f32":
+            return self.q
+        cap = max_symbol_bits(self.code, metric_dtype_max(self.metric_mode))
+        return min(self.q or 8, cap)
+
     def quantize(self, y: torch.Tensor) -> torch.Tensor:
-        """Quantize float soft symbols to ``q`` bits with the quantizer's
-        default range (``metric_mode="f32"``, the only mode ported so far,
-        keeps ``q`` as configured)."""
-        return y if self.q is None else quantize_soft(y, self.q)
+        """Quantize float soft symbols per the configured metric mode.
+
+        ``f32``/``i16`` use the quantizer's default range. The coarse ``i8``
+        quantizer (q = 3 for the registered codes) maps |y| = 2 to full
+        scale, ``qmax / 2``, as the reference does.
+        """
+        q = self.effective_q
+        if q is None:
+            return y
+        scale = ((1 << (q - 1)) - 1) / 2.0 if self.metric_mode == "i8" else None
+        return quantize_soft(y, q, scale)
 
     def __post_init__(self):
         if self.D <= 0 or self.L < 0:
@@ -88,6 +124,12 @@ class PBVDConfig:
         if self.spec is not None and self.spec.code is not self.code:
             # keep cfg.code authoritative for kernel callers
             object.__setattr__(self, "code", self.spec.code)
+        if self.acs_radix == 4:
+            if self.code.n_states < 4:
+                raise ValueError(f"acs_radix=4 needs K >= 3 (got K={self.code.K})")
+            # narrow modes: the saturation budget must absorb the fused
+            # step's two unnormalized stages — fail at config time
+            norm_interval(self.code, self.metric_mode, self.acs_radix)
 
 
 def frame_stream(y: torch.Tensor, D: int, L: int, n_blocks: int) -> torch.Tensor:

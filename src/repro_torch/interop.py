@@ -7,8 +7,11 @@ the JAX package can describe it without the port importing that package:
 
     fields = dict(polys=np.array(cfg.spec.code.polys), puncture=..., D=cfg.D,
                   L=cfg.L, q=cfg.q, start_policy=cfg.start_policy,
-                  metric_mode=cfg.metric_mode)
+                  metric_mode=cfg.metric_mode, acs_radix=cfg.acs_radix,
+                  backend=cfg.backend)
 
+``backend`` is the reference's name and maps to the port's counterpart:
+``"pallas"`` → ``"cuda"``, ``"ref"`` → ``"ref"``, ``"fused"`` → ``"fused"``.
 :func:`config_fields` is the inverse.
 """
 
@@ -23,6 +26,8 @@ from repro_torch.core.trellis import ConvCode
 __all__ = ["convert_config", "config_fields"]
 
 _KEYS = ("polys", "puncture", "D", "L", "q", "start_policy", "metric_mode")
+#: the reference's backend names → the port's
+BACKENDS = {"pallas": "cuda", "ref": "ref", "fused": "fused"}
 
 
 def _spec_for(code: ConvCode, puncture) -> CodeSpec:
@@ -39,8 +44,9 @@ def convert_config(fields: dict) -> PBVDConfig:
 
     ``fields`` holds ``polys`` ((R, K) int array of generator bits, input tap
     first), ``puncture`` ((R, period) 0/1 array or ``None``), ``D``, ``L``,
-    ``q`` (``None`` for float symbols), ``start_policy`` and ``metric_mode``.
-    The port's own fields (``backend``, …) keep their defaults.
+    ``q`` (``None`` for float symbols), ``start_policy`` and ``metric_mode``;
+    optionally ``acs_radix`` (default 2) and ``backend`` (the reference's
+    name, see :data:`BACKENDS`; absent means the port's default).
     """
     missing = [k for k in _KEYS if k not in fields]
     if missing:
@@ -51,6 +57,15 @@ def convert_config(fields: dict) -> PBVDConfig:
         puncture = tuple(tuple(int(b) for b in row) for row in np.asarray(puncture))
     spec = _spec_for(ConvCode(polys=polys), puncture)
     q = fields["q"]
+    extra = {}
+    if "backend" in fields:
+        try:
+            extra["backend"] = BACKENDS[str(fields["backend"])]
+        except KeyError:
+            raise KeyError(
+                f"reference backend {fields['backend']!r} has no counterpart in the port; "
+                f"known: {tuple(BACKENDS)}"
+            ) from None
     return PBVDConfig(
         spec=spec,
         D=int(fields["D"]),
@@ -58,6 +73,8 @@ def convert_config(fields: dict) -> PBVDConfig:
         q=None if q is None else int(q),
         start_policy=str(fields["start_policy"]),
         metric_mode=str(fields["metric_mode"]),
+        acs_radix=int(fields.get("acs_radix", 2)),
+        **extra,
     )
 
 
@@ -72,4 +89,6 @@ def config_fields(cfg: PBVDConfig) -> dict:
         q=cfg.q,
         start_policy=cfg.start_policy,
         metric_mode=cfg.metric_mode,
+        acs_radix=cfg.acs_radix,
+        backend={port: ref for ref, port in BACKENDS.items()}[cfg.backend],
     )

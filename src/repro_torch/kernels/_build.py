@@ -3,9 +3,10 @@
 Every ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface,
 ``build/<name>-<digest>.so`` at the root of the checkout, where the digest
-covers the source and the flags: an edited source builds anew, an unchanged
-one is loaded as it is. :func:`build_all` starts one ``nvcc`` per source,
-all together, and waits for them. Nothing here runs when a module is
+covers the source, every shared header ``csrc/*.cuh`` and the flags: an
+edited source or header builds anew, an unchanged one is loaded as it is.
+:func:`build_all` starts one ``nvcc`` per source, all together, and waits
+for them. Nothing here runs when a module is
 imported, and nothing here is reached for a CPU tensor.
 """
 
@@ -46,10 +47,14 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+def _target(name: str, csrc: Path = CSRC_DIR) -> Path:
+    """The library path of kernel ``name``; its digest covers ``name.cu``,
+    every header in ``csrc`` (name and bytes, in name order) and the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: list[str] | None = None) -> list[str]:

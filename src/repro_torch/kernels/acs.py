@@ -1,11 +1,15 @@
 """K1, the forward ACS kernel (``csrc/acs.cu``): wrapper, plain version, count.
 
-Replaces ``repro.kernels.acs._acs_kernel`` (radix-2 branch, driven by
-``acs_forward_pallas``). :func:`acs_forward` takes the plain PyTorch version
+Replaces ``repro.kernels.acs._acs_kernel`` (radix-2 and radix-4 branches,
+driven by ``acs_forward_pallas``) in the metric modes ``f32``/``i16``/``i8``.
+:func:`acs_forward` takes the plain PyTorch version
 :func:`acs_forward_plain` (``repro_torch.kernels.ref.acs_forward_ref``) for a
 CPU tensor; for a CUDA tensor it launches the CUDA kernel or raises. What
 bounds the kernel on the card and what its design does about it is noted in
-the CUDA source.
+the CUDA source. In the narrow modes the kernel keeps int32 metrics, as the
+TPU kernel does, and returns them as int32; the plain version stores
+int16/int8. The values are equal (the saturation budget keeps them inside
+the narrow dtype), so comparisons cast to int32.
 
 ``launches`` counts the kernel's launches, and nothing else: set it to 0,
 run, read it.
@@ -19,6 +23,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from repro_torch.core.quantize import metric_mode_qmax, norm_interval
 from repro_torch.core.trellis import ConvCode
 from . import _build
 from .ref import _acc_dtype_for, acs_forward_ref as acs_forward_plain
@@ -51,7 +56,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pbvd_acs_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, i, i, i, p, p, p, p]
+        fn.argtypes = [p, i, i, i, i, i, p, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -65,20 +70,27 @@ def acs_forward(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward ACS over parallel blocks. y: (T, R, B) → (sp (T, W, B), pm (N, B)).
 
-    The signature and result of :func:`acs_forward_plain`. On a CUDA tensor
-    ``y`` must be contiguous, int8/int16/int32 or float32; the kernel writes
-    int32 survivor words and int32 (float32 for float symbols) metrics.
+    The signature and result of :func:`acs_forward_plain`, except that the
+    kernel's metrics are int32 in the narrow modes. On a CUDA tensor ``y``
+    must be contiguous, int8/int16/int32 or float32; the kernel writes int32
+    survivor words and int32 (float32 for float symbols) metrics.
     """
     global launches
     if y.device.type == "cpu":
         return acs_forward_plain(y, code, metric_mode=metric_mode, radix=radix, impl=impl)
     if y.device.type != "cuda":
         raise ValueError(f"acs_forward runs on CPU or CUDA tensors, got {y.device}")
-    if radix != 2 or impl != "butterfly":
+    if radix not in (2, 4) or impl != "butterfly":
         raise ValueError(
-            f"the CUDA ACS kernel implements radix 2 butterflies, got radix={radix}, impl={impl!r}"
+            f"the CUDA ACS kernel implements radix 2 and 4 butterflies, got radix={radix}, "
+            f"impl={impl!r}"
         )
-    acc_dtype = _acc_dtype_for(y.dtype, metric_mode)  # raises for other modes/dtypes
+    if radix == 4 and code.n_states < 4:
+        raise ValueError(f"radix-4 ACS needs K >= 3 (got K={code.K})")
+    semantic = _acc_dtype_for(y.dtype, metric_mode)  # raises for other modes/dtypes
+    acc_dtype = torch.float32 if semantic == torch.float32 else torch.int32
+    norm_every = norm_interval(code, metric_mode, radix)
+    qmax = metric_mode_qmax(code, metric_mode) if norm_every else 0
     if y.dim() != 3 or not y.is_contiguous():
         raise ValueError(f"y must be a contiguous (T, R, B) tensor, got {tuple(y.shape)}")
     T, R, B = y.shape
@@ -93,8 +105,8 @@ def acs_forward(
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         rc = _lib().pbvd_acs_forward(
-            y.data_ptr(), _DTYPE_CODE[y.dtype], T, R, B, code.v,
-            labels.data_ptr(), sp.data_ptr(), pm.data_ptr(), stream,
+            y.data_ptr(), _DTYPE_CODE[y.dtype], T, R, B, code.v, labels.data_ptr(),
+            norm_every, qmax, radix, sp.data_ptr(), pm.data_ptr(), stream,
         )
     if rc:
         raise RuntimeError(f"pbvd_acs_forward launch failed (error {rc})")

@@ -1,16 +1,20 @@
 """Decode backends and the eager-checking dispatcher of the port.
 
-The counterpart of ``repro.kernels.ops``. Two backends register here:
+The counterpart of ``repro.kernels.ops``. Three backends register here,
+each with the metric modes ``"f32"``/``"i16"``/``"i8"`` and radix 2 and 4:
 
 * ``"ref"`` — the plain PyTorch path (``kernels/ref.py``), on whatever
   device the symbols are;
 * ``"cuda"`` — the two-kernel path, the counterpart of the reference's
   ``"pallas"``: K1 (``kernels/acs.py``) then K2 (``kernels/traceback.py``).
   On CPU tensors the wrappers run their plain versions, so ``"cuda"`` on the
-  CPU equals ``"ref"``.
+  CPU equals ``"ref"``;
+* ``"fused"`` — the single-kernel path (``kernels/fused.py``): forward ACS
+  and the serial walk in one kernel, bit-packed output words; zero start
+  only, as in the reference.
 
-Neither pads the lane axis (the kernels mask the ragged edge) nor the stage
-axis (the CUDA ACS loop runs the true T stages). So the argmin start is
+None pads the lane axis (the kernels mask the ragged edge) nor the stage
+axis (the CUDA ACS loops run the true T stages). So the argmin start is
 taken over the true stage-T metrics, as the reference's ``"ref"`` backend
 does; the reference's ``"pallas"`` backend takes it after its zero pad
 stages and may start from another of several tied states.
@@ -22,8 +26,10 @@ from typing import Literal
 
 import torch
 
+from repro_torch.core.quantize import norm_interval
 from repro_torch.core.trellis import ConvCode
 from . import acs as _acs
+from . import fused as _fused
 from . import ref as _ref
 from . import traceback as _traceback
 from .registry import (
@@ -60,14 +66,19 @@ def _start_states(pm: torch.Tensor, start_policy: str) -> torch.Tensor | int:
     return 0
 
 
-def _two_phase(blocks: FramedBlocks, code: ConvCode, forward, walk, start_policy, metric_mode):
-    sp, pm = forward(blocks.y, code, metric_mode=metric_mode)
+def _two_phase(blocks: FramedBlocks, code: ConvCode, forward, walk, start_policy, metric_mode,
+               acs_radix):
+    sp, pm = forward(blocks.y, code, metric_mode=metric_mode, radix=acs_radix)
     start = _start_states(pm, start_policy)
     bits = walk(sp, code, blocks.decode_start, blocks.n_decode, start)
     return bits[:, : blocks.n_real_blocks]
 
 
-@register_backend("ref")
+_MODES = ("f32", "i16", "i8")
+_RADIXES = (2, 4)
+
+
+@register_backend("ref", metric_modes=_MODES, acs_radix=_RADIXES)
 def _decode_ref(
     blocks: FramedBlocks,
     code: ConvCode,
@@ -80,11 +91,12 @@ def _decode_ref(
 ) -> torch.Tensor:
     """Plain PyTorch path (the oracle)."""
     return _two_phase(
-        blocks, code, _ref.acs_forward_ref, _ref.traceback_ref, start_policy, metric_mode
+        blocks, code, _ref.acs_forward_ref, _ref.traceback_ref, start_policy, metric_mode,
+        acs_radix,
     )
 
 
-@register_backend("cuda")
+@register_backend("cuda", metric_modes=_MODES, acs_radix=_RADIXES)
 def _decode_cuda(
     blocks: FramedBlocks,
     code: ConvCode,
@@ -97,8 +109,45 @@ def _decode_cuda(
 ) -> torch.Tensor:
     """Two-kernel path: K1 forward ACS, then K2 serial traceback."""
     return _two_phase(
-        blocks, code, _acs.acs_forward, _traceback.traceback, start_policy, metric_mode
+        blocks, code, _acs.acs_forward, _traceback.traceback, start_policy, metric_mode,
+        acs_radix,
     )
+
+
+@register_backend("fused", start_policies=("zero",), metric_modes=_MODES, acs_radix=_RADIXES)
+def _decode_fused(
+    blocks: FramedBlocks,
+    code: ConvCode,
+    *,
+    start_policy: str = "zero",
+    metric_mode: str = "f32",
+    tb_mode: str = "serial",
+    acs_radix: int = 2,
+    acs_impl: str = "butterfly",
+) -> torch.Tensor:
+    """Single-kernel path (ACS + on-chip serial walk, bit-packed output),
+    unpacked here to the common ``(n_decode, n_real)`` bits."""
+    if start_policy != "zero":
+        # direct backend callers bypass the dispatcher's eager check; fail
+        # loudly rather than silently decoding from state 0
+        raise ValueError("fused backend tracebacks from state 0 (start_policies=('zero',))")
+    nd = -(-blocks.n_decode // 32) * 32  # the kernel emits 32-bit words
+    packed = _fused.pbvd_fused(
+        blocks.y, code, decode_start=blocks.decode_start, n_decode=nd,
+        metric_mode=metric_mode, radix=acs_radix,
+    )
+    # unpack only what is kept: the real lanes, and the live rows of the
+    # ragged last word
+    packed = packed[:, : blocks.n_real_blocks]
+    n_full, rem = divmod(blocks.n_decode, 32)
+    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
+    parts = []
+    if n_full:
+        parts.append(((packed[:n_full, None, :] >> shifts[None, :, None]) & 1)
+                     .reshape(n_full * 32, -1))
+    if rem:
+        parts.append((packed[n_full, None, :] >> shifts[:rem, None]) & 1)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
 def pbvd_decode_blocks(
@@ -125,7 +174,9 @@ def pbvd_decode_blocks(
 
     Backend and knobs are validated before anything runs: an unknown
     backend raises ``KeyError``; an unsupported start policy, metric mode,
-    tb mode, radix or impl raises :func:`knob_error`'s ``ValueError``.
+    tb mode, radix or impl raises :func:`knob_error`'s ``ValueError``, and
+    so do radix 4 on a code with K < 3 and a narrow metric mode whose
+    saturation budget cannot take the radix (``norm_interval``).
     """
     supported = backend_start_policies(backend)  # KeyError for unknown backend
     if start_policy not in supported:
@@ -143,6 +194,12 @@ def pbvd_decode_blocks(
     supported_radix = backend_acs_radix(backend)
     if acs_radix not in supported_radix:
         raise knob_error(backend, "acs_radix", acs_radix, supported_radix)
+    if acs_radix == 4 and code.n_states < 4:
+        raise ValueError(f"acs_radix=4 needs K >= 3 (got K={code.K})")
+    # narrow modes: the normalization cadence must exist at this radix —
+    # norm_interval raises before anything launches when the budget cannot
+    # absorb the fused double-stage accumulation
+    norm_interval(code, metric_mode, acs_radix)
     return get_backend(backend)(
         FramedBlocks(y_blocks, decode_start, n_decode, frame_counts),
         code,

@@ -11,11 +11,11 @@ registered under a name via ``@register_backend("name")``. Backends declare
 the knob values they implement; the dispatcher and ``PBVDConfig`` reject
 any other value eagerly with :func:`knob_error`.
 
-The knob contracts below hold only what the port implements so far:
-``metric_mode="f32"``, the serial traceback, the radix-2 butterfly. The
-reference's narrow metric modes, prefix traceback, radix-4 and matrix ACS
-are still to be ported; a backend cannot declare them until their contract
-entries land here.
+The knob contracts below hold only what the port implements so far: the
+metric modes ``"f32"``, ``"i16"`` and ``"i8"``, the serial traceback, the
+radix-2 and radix-4 butterflies. The reference's prefix traceback and
+matrix ACS are still to be ported; a backend cannot declare them until
+their contract entries land here.
 """
 
 from __future__ import annotations
@@ -51,6 +51,24 @@ METRIC_MODES: dict[str, dict[str, Any]] = {
         normalization="none (unbounded accumulation)",
         saturation_budget="int32 headroom: 2^31 / (R·2^q) stages per block",
     ),
+    "i16": dict(
+        pm_dtype="int16",
+        symbols="int8 (q ≤ 8; widest q with the k=1 budget ≤ 32767)",
+        normalization="min-subtract every norm_interval(code, 'i16') stages "
+        "(per lane; ~100+ for the registered codes)",
+        saturation_budget="(2·v+k)·R·qmax ≤ 32767 — hard-decision bit-exact "
+        "to f32 on the same symbols",
+    ),
+    "i8": dict(
+        pm_dtype="int8",
+        symbols="coarse int (widest q with the k=1 budget ≤ 127; q=3 for "
+        "the registered codes)",
+        normalization="min-subtract every norm_interval(code, 'i8') stages "
+        "(per lane; ~8-9 for the registered codes)",
+        saturation_budget="(2·v+k)·R·qmax ≤ 127 — exact vs f32 on the same "
+        "coarse symbols; vs q=8 the difference is the quantizer's (≈0.2–0.3 dB "
+        "at 3-bit soft decisions)",
+    ),
 }
 
 TB_MODES: dict[str, dict[str, Any]] = {
@@ -65,7 +83,14 @@ ACS_RADIX: dict[int, dict[str, Any]] = {
     2: dict(
         serial_steps="T butterfly stages",
         metrics_per_step="2^(R-1) folded branch metrics",
-        when="the paper's butterfly; the only radix ported so far",
+        when="the default: tiny codes (K < 3), narrow modes whose budget "
+        "cannot absorb two unnormalized stages",
+    ),
+    4: dict(
+        serial_steps="ceil(T/2) stage-fused steps (+1 radix-2 step, odd T)",
+        metrics_per_step="2^(2R-1) folded combined two-stage metrics",
+        when="halves the forward serial chain and amortizes normalization/"
+        "emission over two bits; the decoded bits equal radix 2's",
     ),
 }
 

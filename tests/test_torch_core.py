@@ -202,10 +202,10 @@ def test_convert_config_round_trips(name):
         polys=np.array(jcfg.spec.code.polys),
         puncture=None if jcfg.spec.puncture is None else np.array(jcfg.spec.puncture),
         D=jcfg.D, L=jcfg.L, q=jcfg.q, start_policy=jcfg.start_policy,
-        metric_mode=jcfg.metric_mode,
+        metric_mode=jcfg.metric_mode, acs_radix=jcfg.acs_radix, backend=jcfg.backend,
     )
     cfg = convert_config(fields)
-    assert cfg.codespec.name == name and cfg.backend == "cuda"
+    assert cfg.codespec.name == name and cfg.backend == "ref" and cfg.acs_radix == 2
     assert (cfg.D, cfg.L, cfg.q, cfg.T, cfg.start_policy) == (96, 30, 6, jcfg.T, "argmin")
     _assert_tables_equal(jcfg.code.acs_tables, cfg.code.acs_tables)
     _assert_tables_equal(jcfg.code.folded_acs_tables, cfg.code.folded_acs_tables)

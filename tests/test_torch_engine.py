@@ -4,7 +4,9 @@ Golden vectors of every registered spec replay through the port's ``"ref"``
 and ``"cuda"`` backends (on CPU tensors ``"cuda"`` runs the kernels' plain
 versions); noisy streams decode bit-equal to the JAX ``backend="ref"``
 engine; ``decode_batch`` equals per-stream ``decode``; the device rule, the
-registry's knob errors and the import boundary hold.
+registry's knob errors and the import boundary hold. The narrow metric
+modes, radix 4 and the ``"fused"`` backend are held against the reference in
+``test_torch_metric_modes.py`` and ``test_torch_fused.py``.
 """
 
 import json
@@ -40,13 +42,14 @@ def _golden(name):
 
 
 def test_port_declares_ref_and_cuda_backends():
-    assert available_backends() == ["cuda", "ref"]
+    assert available_backends() == ["cuda", "fused", "ref"]
     for be in available_backends():
-        assert registry.backend_start_policies(be) == ("zero", "argmin")
-        assert registry.backend_metric_modes(be) == ("f32",)
+        starts = ("zero",) if be == "fused" else ("zero", "argmin")
+        assert registry.backend_start_policies(be) == starts
+        assert registry.backend_metric_modes(be) == ("f32", "i16", "i8")
         assert registry.backend_tb_modes(be) == ("serial",)
         assert registry.backend_preferred_tb_mode(be) == "serial"
-        assert registry.backend_acs_radix(be) == (2,)
+        assert registry.backend_acs_radix(be) == (2, 4)
         assert registry.backend_acs_impl(be) == ("butterfly",)
 
 
@@ -125,25 +128,26 @@ def test_default_device_is_cuda_and_refuses_without_it(monkeypatch):
     [("metric_mode", "i16"), ("metric_mode", "i8"), ("tb_mode", "prefix"),
      ("acs_radix", 4), ("acs_impl", "matrix"), ("start_policy", "oracle")],
 )
-@pytest.mark.parametrize("backend", ["ref", "cuda"])
+@pytest.mark.parametrize("backend", ["ref", "cuda", "fused"])
 def test_unported_knobs_raise_knob_error(backend, knob, value):
+    blocks = torch.zeros((8, 2, 1), dtype=torch.int8)
+    ccsds = get_code_spec("ccsds").code
+    if knob in ("metric_mode", "acs_radix"):  # ported: now accepted everywhere
+        assert getattr(PBVDConfig(backend=backend, **{knob: value}), knob) == value
+        bits = pbvd_decode_blocks(blocks, ccsds, decode_start=2, n_decode=4, backend=backend,
+                                  **{knob: value})
+        assert bits.shape == (4, 1) and bits.dtype == torch.int32
+        return
     allowed = {
-        "metric_mode": ("f32",), "tb_mode": ("serial", "auto"), "acs_radix": (2,),
-        "acs_impl": ("butterfly",), "start_policy": ("zero", "argmin"),
+        "tb_mode": ("serial", "auto"), "acs_impl": ("butterfly",),
+        "start_policy": ("zero",) if backend == "fused" else ("zero", "argmin"),
     }[knob]
     with pytest.raises(ValueError) as info:
         PBVDConfig(backend=backend, **{knob: value})
     assert str(info.value) == str(registry.knob_error(backend, knob, value, allowed))
-    if knob != "tb_mode":
-        with pytest.raises(ValueError, match=f"does not support {knob}="):
-            pbvd_decode_blocks(torch.zeros((8, 2, 1), dtype=torch.int8),
-                               get_code_spec("ccsds").code, decode_start=2, n_decode=4,
-                               backend=backend, **{knob: value})
-    else:
-        with pytest.raises(ValueError, match="does not support tb_mode="):
-            pbvd_decode_blocks(torch.zeros((8, 2, 1), dtype=torch.int8),
-                               get_code_spec("ccsds").code, decode_start=2, n_decode=4,
-                               backend=backend, tb_mode=value)
+    with pytest.raises(ValueError, match=f"does not support {knob}="):
+        pbvd_decode_blocks(blocks, ccsds, decode_start=2, n_decode=4, backend=backend,
+                           **{knob: value})
 
 
 def test_unknown_backend_and_bad_symbols():

@@ -191,11 +191,12 @@ def test_wrappers_refuse_other_devices():
 
 @pytest.mark.parametrize(
     "kwargs,match",
-    [(dict(metric_mode="i16"), "metric_mode"), (dict(radix=4), "radix"),
+    [(dict(metric_mode="i16"), "metric_mode"), (dict(radix=3), "radix"),
      (dict(impl="matrix"), "impl")],
 )
 def test_plain_acs_rejects_unported_knobs(kwargs, match):
-    y = torch.zeros((3, 2, 2), dtype=torch.int8)
+    # i16 and radix 4 are ported: float symbols with i16 and radix 3 are not
+    y = torch.zeros((3, 2, 2), dtype=torch.float32 if "metric_mode" in kwargs else torch.int8)
     with pytest.raises(ValueError, match=match):
         acs.acs_forward(y, CODES["ccsds"], **kwargs)
 

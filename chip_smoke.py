@@ -43,6 +43,29 @@ Then the fused backend, the narrow metric modes and radix 4:
    4 and in i8, beside their plain versions and bounds, and end-to-end Mb/s
    of ``"fused"`` beside ``"cuda"``.
 
+Then the prefix traceback and the matrix ACS:
+
+10. K1-matrix against its plain version (survivor words and path metrics
+    equal): CCSDS at k = 2, 3, 4 at the main shapes, the rate-1/3 code at
+    k = 2, K = 9 and (2,1,5), f32 with int8 symbols, i16 and i8 (refused
+    where the budget refuses), T mod k != 0 and a ragged batch; float
+    symbols, which launch the butterfly kernel and no K1-matrix;
+11. K2-prefix against its plain version: tb_chunk 1, 7, 64 and T+5, the
+    main window and one whose first chunk is chunk 0 (c_lo = 0), W = 1, 2
+    and 8, a ragged batch, random start states (scratch that does not fit
+    printed as refused);
+12. the fused kernel against its plain version in prefix, in matrix and in
+    both, including the K = 9, D = 4096, L = 64 history with the prefix
+    scratch and a geometry whose scratch does not fit (printed as refused);
+13. the new main paths: the 4,194,304-bit stream through ``"cuda"`` and
+    ``"fused"`` with ``acs_impl="matrix", acs_k=2, tb_mode="prefix"`` and
+    with each knob alone, each bit-equal to ``"ref"`` at the default
+    config, with their launch counts (``"cuda"``: one K1-matrix and/or one
+    K2-prefix; ``"fused"``: one fused launch, no K1 or K2);
+14. times of K1-matrix (k = 2, 3), K2-prefix and the fused variants beside
+    their plain versions and bounds, and end-to-end Mb/s of the new paths
+    in turns.
+
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 torch finds no CUDA device or when the port's sources are missing.
@@ -130,6 +153,39 @@ def fused_cost(code, T: int, B: int, sym_bytes: int, decode_start: int,
     n_words = -(-n_decode // 32)
     nbytes = T * code.R * B * sym_bytes + B * 4 + n_words * B * 4
     ops = k1_cost(code, T, B, sym_bytes)[1] + B * (T - decode_start) * 6
+    return float(nbytes), float(ops)
+
+
+def k1_matrix_cost(code, T: int, B: int, sym_bytes: int, k: int) -> tuple[float, float]:
+    """(bytes, operations) of K1-matrix: K1's bytes; per k-step and target
+    2^k adds and 2^k - 1 compare-selects (two operations each), plus kR - 1
+    adds per folded combined row and block; the T mod k trailing stages as
+    K1's."""
+    nbytes = k1_cost(code, T, B, sym_bytes)[0]
+    nk, nb = 1 << k, k * code.R
+    per_step = code.n_states * (nk + 2 * (nk - 1)) + (1 << (nb - 1)) * (nb - 1)
+    per_stage = 4 * code.n_states + code.n_folded * (code.R - 1)
+    return float(nbytes), float(B * ((T // k) * per_step + (T % k) * per_stage))
+
+
+def prefix_geometry(T: int, decode_start: int, n_decode: int, tb_chunk: int):
+    """(n_act, nc_e, C, first stage read) of the prefix walk."""
+    from repro_torch.kernels.traceback import prefix_chunk_geometry
+
+    C, P, n_chunks, c_lo, c_hi = prefix_chunk_geometry(T, decode_start, n_decode, tb_chunk)
+    return n_chunks - c_lo, c_hi - c_lo + 1, C, max(0, c_lo * C - P)
+
+
+def k2_prefix_cost(code, T: int, B: int, decode_start: int, n_decode: int,
+                   tb_chunk: int) -> tuple[float, float]:
+    """(bytes, operations) of K2-prefix: the start states and the survivor
+    words of the stages the active chunks hold in, the bits out; about six
+    integer operations per composed (chunk, state, stage), per walked map
+    and per expanded stage."""
+    n_act, nc_e, C, first = prefix_geometry(T, decode_start, n_decode, tb_chunk)
+    W = -(-code.n_states // 32)
+    nbytes = B * 4 + (T - first) * W * B * 4 + n_decode * B * 4
+    ops = B * 6 * (n_act * C * code.n_states + n_act + nc_e * C)
     return float(nbytes), float(ops)
 
 
@@ -484,6 +540,231 @@ def main() -> int:
         f"{n_bits / (k1_ms + k2_ms) / 1e3:.1f}, fused {n_bits / fused_ms['f32', 2] / 1e3:.1f}; "
         f"bytes per decoded bit: fused {f_bytes / n_bits:.3f}")
 
+    # ---- 10. K1-matrix against its plain version ------------------------------
+    mcases = [  # label, code, symbol dtype, B, T, mode, k
+        ("ccsds main", ccsds, i8, N_MAIN_BLOCKS, T, "f32", 2),
+        ("ccsds main", ccsds, i8, N_MAIN_BLOCKS, T, "f32", 3),  # T mod 3 = 2
+        ("ccsds main", ccsds, i8, N_MAIN_BLOCKS, T, "f32", 4),
+        ("ccsds", ccsds, i16, 1024, T + 1, "i16", 3),
+        ("ccsds ragged", ccsds, i8, 1001, T + 1, "i8", 2),
+        ("ccsds ragged", ccsds, i16, 1001, T + 3, "i8", 4),
+        ("lte-1/3", lte, i8, 256, T, "f32", 2),
+        ("lte-1/3", lte, i8, 256, T + 1, "i8", 2),
+        ("lte-1/3", lte, i16, 256, T + 1, "i16", 1),
+        ("is95-k9", is95, i8, 256, T + 3, "i16", 4),
+        ("is95-k9", is95, i16, 256, T, "i8", 3),
+        ("(2,1,5)", k5, i8, 77, T + 2, "i16", 3),
+        ("(2,1,5)", k5, i8, 77, T, "i8", 2),  # refused by the budget
+    ]
+    mat_err = 0.0
+    for label, code, dtype, B, Tc, mode, k in mcases:
+        tag = f"{label:13s} {str(dtype):11s} T={Tc} B={B} {mode} k={k}"
+        try:
+            norm_interval(code, mode, stages_per_step=k)
+        except ValueError as err:
+            log(f"[10 refused] {tag}: {err}")
+            continue
+        y10 = torch.randint(-127, 128, (Tc, code.R, B), generator=gen, device=dev).to(dtype)
+        acs.launches = acs.matrix_launches = 0
+        sp_k, pm_k = acs.acs_forward(y10, code, mode, impl="matrix", k=k)
+        torch.cuda.synchronize()
+        if (acs.launches, acs.matrix_launches) != (0, 1):
+            raise AssertionError(f"K1-matrix {tag}: launched K1 {acs.launches}, "
+                                 f"K1-matrix {acs.matrix_launches}")
+        sp_p, pm_p = acs.acs_forward_plain(y10, code, mode, impl="matrix", matrix_k=k)
+        if not torch.equal(sp_k, sp_p):
+            raise AssertionError(f"K1-matrix {tag}: {int((sp_k != sp_p).sum())} words differ")
+        if not torch.equal(pm_k, pm_p.to(pm_k.dtype)):
+            raise AssertionError(f"K1-matrix {tag}: path metrics differ")
+        mat_err = max(mat_err, float((pm_k.double() - pm_p.double()).abs().max()))
+        log(f"[10 K1-matrix] {tag}: sp and pm equal")
+    yf = torch.randn((T, 2, 256), generator=gen, device=dev) * 2.0
+    acs.launches = acs.matrix_launches = 0
+    lowered = acs.acs_forward(yf, ccsds, impl="matrix", k=2)
+    torch.cuda.synchronize()
+    float_launches = (acs.launches, acs.matrix_launches)
+    want = acs.acs_forward_plain(yf, ccsds)
+    if float_launches != (1, 0) or not (torch.equal(lowered[0], want[0])
+                                        and torch.allclose(lowered[1], want[1], rtol=1e-6,
+                                                           atol=0.0)):
+        raise AssertionError(f"float symbols with impl='matrix': launches {float_launches}")
+    log(f"[10 K1-matrix] float32 symbols with impl='matrix' run the radix-2 butterfly, as the "
+        f"reference lowers them: K1 launches {float_launches[0]}, K1-matrix {float_launches[1]}; "
+        f"sp equal to the butterfly's plain version")
+
+    # ---- 11. K2-prefix against its plain version ------------------------------
+    pre_err = 0.0
+    for label in ("ccsds main", "ccsds ragged", "is95-k9", "(2,1,5)"):
+        code, sp, _ = sp_keep[label]
+        B = sp.shape[2]
+        start = torch.randint(0, code.n_states, (B,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        for tb in (1, 7, 64, T + 5):
+            for ds, nd in ((L, D), (0, D)):  # ds = 0: the first chunk is chunk 0
+                geo = traceback.prefix_chunk_geometry(T, ds, nd, tb)
+                tag = (f"{label:13s} W={sp.shape[1]} B={B} tb_chunk={tb} window [{ds}, "
+                       f"{ds + nd}) (C, P, n_chunks, c_lo, c_hi) = {geo}")
+                try:
+                    traceback.prefix_smem_plan(code.n_states, geo[2] - geo[3], geo[4] - geo[3] + 1)
+                except ValueError as err:
+                    log(f"[11 refused] {tag}: {err}")
+                    continue
+                bits_k = traceback.traceback_prefix(sp, code, ds, nd, start, tb)
+                torch.cuda.synchronize()
+                bits_p = traceback.traceback_prefix_plain(sp, code, ds, nd, start, tb)
+                if not torch.equal(bits_k, bits_p):
+                    raise AssertionError(f"K2-prefix {tag}: {int((bits_k != bits_p).sum())} "
+                                         f"bits differ")
+                if not torch.equal(bits_k, traceback.traceback_plain(sp, code, ds, nd, start)):
+                    raise AssertionError(f"K2-prefix {tag}: differs from the serial walk")
+                pre_err = max(pre_err, float((bits_k - bits_p).abs().max()))
+                log(f"[11 K2-prefix] {tag}: bits equal (and equal to the serial walk)")
+
+    # ---- 12. the fused kernel in prefix, matrix and both ------------------------
+    # label, code, dtype, B, T, decode_start, n_decode, mode, tb_mode, impl, radix/k,
+    # tb_chunk, start
+    fcases = [
+        ("ccsds main", ccsds, i8, N_MAIN_BLOCKS, T, L, D, "f32", "prefix", "butterfly", 2, 64, "zero"),
+        ("ccsds main", ccsds, i8, N_MAIN_BLOCKS, T, L, D, "f32", "serial", "matrix", 2, 64, "zero"),
+        ("ccsds main", ccsds, i8, N_MAIN_BLOCKS, T, L, D, "f32", "prefix", "matrix", 2, 64, "zero"),
+        ("ccsds main", ccsds, i8, N_MAIN_BLOCKS, T, L, D, "i8", "prefix", "matrix", 3, 64, "zero"),
+        ("ccsds ragged", ccsds, i16, 1001, T + 1, L, D, "i16", "prefix", "matrix", 4, 7, "random"),
+        ("ccsds ragged", ccsds, i8, 1001, T + 1, L, D, "i8", "prefix", "butterfly", 4, 1, "random"),
+        ("ccsds c_lo=0", ccsds, i8, 256, T, 0, D, "f32", "prefix", "butterfly", 2, 64, "random"),
+        ("ccsds float", ccsds, f32, 256, T, L, D, "f32", "prefix", "matrix", 2, 16, "random"),
+        ("ccsds overhang", ccsds, i8, 300, 100, 8, 128, "i8", "prefix", "matrix", 2, 13, "random"),
+        ("is95-k9", is95, i8, 256, T, L, D, "i16", "prefix", "matrix", 4, 64, "random"),
+        ("is95-k9", is95, i16, 256, T + 1, L, D, "i8", "serial", "matrix", 3, 64, "zero"),
+        ("is95-k9", is95, i8, 256, T, L, D, "f32", "prefix", "butterfly", 2, T + 5, "random"),
+        ("lte-1/3", lte, i8, 256, T + 1, L, D, "i8", "prefix", "matrix", 2, 7, "zero"),
+        ("(2,1,5)", k5, i8, 77, T, L, D, "i16", "prefix", "matrix", 3, 1, "random"),
+        ("is95-k9 long", is95, i8, 300, 4096 + 128, 64, 4096, "f32", "prefix", "butterfly", 2, 64, "random"),
+        ("is95-k9 long", is95, i8, 300, 4096 + 129, 64, 4096, "i16", "prefix", "matrix", 2, 64, "zero"),
+        ("is95-k9 long", is95, i8, 300, 4096 + 128, 64, 4096, "f32", "prefix", "butterfly", 2, 16, "zero"),  # refused
+    ]
+    fused_new_err = {"matrix": 0.0, "prefix": 0.0}
+    for (label, code, dtype, B, Tc, ds, nd, mode, tbm, impl, rk, tb, policy) in fcases:
+        kw = dict(decode_start=ds, n_decode=nd, metric_mode=mode, tb_mode=tbm, tb_chunk=tb,
+                  impl=impl, **({"k": rk} if impl == "matrix" else {"radix": rk}))
+        tag = (f"{label:14s} {str(dtype):11s} T={Tc} B={B} {mode} {tbm}"
+               f"{f' tb_chunk={tb}' if tbm == 'prefix' else ''} {impl} "
+               f"{'k' if impl == 'matrix' else 'r'}={rk} start={policy}")
+        if dtype == f32:
+            y12 = torch.randn((Tc, code.R, B), generator=gen, device=dev) * 2.0
+        else:
+            y12 = torch.randint(-127, 128, (Tc, code.R, B), generator=gen, device=dev).to(dtype)
+        start = (torch.randint(0, code.n_states, (B,), generator=gen, device=dev,
+                               dtype=torch.int32) if policy == "random" else None)
+        mk = rk if impl == "matrix" and dtype != f32 else 0
+        try:
+            if mk:
+                norm_interval(code, mode, stages_per_step=mk)
+            G, smem = fused.smem_plan(Tc, code.n_states, tbm, tb, decode_start=ds, n_decode=nd,
+                                      matrix_k=mk, R=code.R)
+        except ValueError as err:
+            log(f"[12 refused] {tag}: {err}")
+            continue
+        fused.launches = fused.matrix_launches = fused.prefix_launches = 0
+        words_k = fused.pbvd_fused(y12, code, start_state=start, **kw)
+        torch.cuda.synchronize()
+        body = (fused.launches, fused.matrix_launches, fused.prefix_launches)
+        if body != (1, int(mk > 0), int(tbm == "prefix")):
+            raise AssertionError(f"fused {tag}: launches (all, matrix, prefix) = {body}")
+        words_p = fused.pbvd_fused_plain(y12, code, start_state=start, **kw)
+        if not torch.equal(words_k, words_p):
+            raise AssertionError(f"fused {tag}: {int((words_k != words_p).sum())} words differ")
+        err = float((words_k.double() - words_p.double()).abs().max())
+        for part, on in (("matrix", mk > 0), ("prefix", tbm == "prefix")):
+            if on:
+                fused_new_err[part] = max(fused_new_err[part], err)
+        log(f"[12 fused] {tag}: words equal (G={G}, {smem} B shared; launches all/matrix/"
+            f"prefix {body})")
+
+    # ---- 13. the new main paths -------------------------------------------------
+    variants = {"matrix+prefix": dict(acs_impl="matrix", acs_k=2, tb_mode="prefix"),
+                "matrix": dict(acs_impl="matrix", acs_k=2),
+                "prefix": dict(tb_mode="prefix")}
+    new_engines, new_launches = {}, {}
+    counters = (("acs", acs, "launches"), ("acs_matrix", acs, "matrix_launches"),
+                ("traceback", traceback, "launches"),
+                ("traceback_prefix", traceback, "prefix_launches"), ("fused", fused, "launches"),
+                ("fused_matrix", fused, "matrix_launches"),
+                ("fused_prefix", fused, "prefix_launches"))
+    for vname, knobs in variants.items():
+        for be in ("cuda", "fused"):
+            eng = DecoderEngine(PBVDConfig(backend=be, **knobs), device=dev)
+            eng.decode(y[: 4 * cfg.D], 4 * cfg.D)
+            torch.cuda.synchronize()
+            for _, mod, attr in counters:
+                setattr(mod, attr, 0)
+            got = eng.decode(y, n_bits)
+            torch.cuda.synchronize()
+            counts = {key: getattr(mod, attr) for key, mod, attr in counters}
+            mat, pre = "acs_impl" in knobs, "tb_mode" in knobs
+            want_counts = dict.fromkeys(counts, 0)
+            if be == "cuda":
+                want_counts.update({"acs_matrix" if mat else "acs": 1,
+                                    "traceback_prefix" if pre else "traceback": 1})
+            else:
+                want_counts.update(fused=1, fused_matrix=int(mat), fused_prefix=int(pre))
+            if counts != want_counts:
+                raise AssertionError(f"{be} {vname} main path launched {counts}")
+            if got.shape != (n_bits,) or not torch.equal(got, ref_bits):
+                raise AssertionError(f"{be} {vname} main path differs from backend='ref'")
+            new_engines[be, vname], new_launches[be, vname] = eng, counts
+            log(f"[13 main] {n_bits} bits, {be} {vname} {knobs}: == ref (default config) bit "
+                f"for bit; launches {({k: v for k, v in counts.items() if v})}")
+
+    # ---- 14. times of the new kernels --------------------------------------------
+    sym = blocks.element_size()
+    k1m_ms, k1m_plain_ms, k1m_bound = {}, {}, {}
+    for k in (2, 3):
+        k1m_ms[k] = cuda_ms(torch, lambda: acs.acs_forward(blocks, cfg.code, impl="matrix", k=k),
+                            reps=20)
+        k1m_plain_ms[k] = cuda_ms(torch, lambda: acs.acs_forward_plain(
+            blocks, cfg.code, impl="matrix", matrix_k=k), reps=3, warmup=1)
+        nb_, no_ = k1_matrix_cost(cfg.code, cfg.T, n_blocks, sym, k)
+        k1m_bound[k] = bound(nb_, no_, INT32_OPS_PER_S)
+        log(f"[14 times] K1-matrix k={k}: {k1m_ms[k]:.4f} ms (plain {k1m_plain_ms[k]:.3f} ms, "
+            f"bound {k1m_bound[k][0]:.4f} ms by {k1m_bound[k][1]}: {nb_:.0f} B, {no_:.0f} int32 "
+            f"op; K1 butterfly {k1_ms:.4f} ms)")
+    tb64 = 64
+    k2p_ms = cuda_ms(torch, lambda: traceback.traceback_prefix(sp_keep["ccsds main"][1], cfg.code,
+                                                               cfg.L, cfg.D, 0, tb64), reps=20)
+    k2p_plain_ms = cuda_ms(torch, lambda: traceback.traceback_prefix_plain(
+        sp_keep["ccsds main"][1], cfg.code, cfg.L, cfg.D, 0, tb64), reps=3, warmup=1)
+    p_bytes, p_ops = k2_prefix_cost(cfg.code, cfg.T, n_blocks, cfg.L, cfg.D, tb64)
+    k2p_bound = bound(p_bytes, p_ops, INT32_OPS_PER_S)
+    log(f"[14 times] K2-prefix tb_chunk={tb64}: {k2p_ms:.4f} ms (plain {k2p_plain_ms:.3f} ms, "
+        f"bound {k2p_bound[0]:.4f} ms by {k2p_bound[1]}: {p_bytes:.0f} B, {p_ops:.0f} int32 op; "
+        f"K2 serial {k2_ms:.4f} ms)")
+    fvar = {"prefix": dict(tb_mode="prefix"), "matrix": dict(impl="matrix", k=2),
+            "matrix+prefix": dict(impl="matrix", k=2, tb_mode="prefix")}
+    fnew_ms, fnew_plain_ms, fnew_bound = {}, {}, {}
+    walk_ops = n_blocks * (cfg.T - cfg.L) * 6
+    for vname, kw in fvar.items():
+        fnew_ms[vname] = cuda_ms(torch, lambda: fused.pbvd_fused(blocks, cfg.code, **fkw, **kw),
+                                 reps=20)
+        fnew_plain_ms[vname] = cuda_ms(torch, lambda: fused.pbvd_fused_plain(
+            blocks, cfg.code, **fkw, **kw), reps=3, warmup=1)
+        acs_ops = (k1_matrix_cost(cfg.code, cfg.T, n_blocks, sym, 2)[1] if "matrix" in vname
+                   else k1_cost(cfg.code, cfg.T, n_blocks, sym)[1])
+        ops = acs_ops + (p_ops if "prefix" in vname else walk_ops)
+        fnew_bound[vname] = bound(f_bytes, ops, INT32_OPS_PER_S)
+        log(f"[14 times] fused {vname}: {fnew_ms[vname]:.4f} ms (plain "
+            f"{fnew_plain_ms[vname]:.3f} ms, bound {fnew_bound[vname][0]:.4f} ms by "
+            f"{fnew_bound[vname][1]}: {f_bytes:.0f} B, {ops:.0f} int32 op; fused serial "
+            f"butterfly {fused_ms['f32', 2]:.4f} ms)")
+    for vname in variants:
+        e2e_new = {"cuda": [], "fused": []}
+        for be in ("cuda", "fused", "fused", "cuda"):
+            eng = new_engines[be, vname]
+            e2e_new[be].append(wall_ms(torch, lambda: eng.decode(y, n_bits), reps=5))
+        log(f"[14 times] end to end {vname}, ms in turns (cuda, fused, fused, cuda): cuda "
+            f"{e2e_new['cuda']}, fused {e2e_new['fused']}; decoded Mb/s: cuda "
+            f"{n_bits / statistics.mean(e2e_new['cuda']) / 1e3:.1f}, fused "
+            f"{n_bits / statistics.mean(e2e_new['fused']) / 1e3:.1f}")
+
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith(("jax.", "jaxlib")) or mod == "repro" or mod.startswith("repro."):
             raise AssertionError(f"the port imported {mod}")
@@ -512,6 +793,32 @@ def main() -> int:
              replaces="src/repro/kernels/fused.py:92", launches=r4_launches["fused"]["fused"],
              max_abs_err=fused_err[4], ms=fused_ms["f32", 4], plain_ms=fused_plain_ms[4],
              bound_ms=f_bound, bound_by=f_by, library_ms=None),
+        # the prefix and matrix rows, timed at the main shapes (k = 2, tb_chunk
+        # = 64); their launches are those of the matrix+prefix main paths
+        dict(name="acs_forward_matrix (K1-matrix)", route="cuda",
+             source="src/repro_torch/kernels/csrc/acs.cu",
+             replaces="src/repro/kernels/acs.py:429",
+             launches=new_launches["cuda", "matrix+prefix"]["acs_matrix"], max_abs_err=mat_err,
+             ms=k1m_ms[2], plain_ms=k1m_plain_ms[2], bound_ms=k1m_bound[2][0],
+             bound_by=k1m_bound[2][1], library_ms=None),
+        dict(name="traceback_prefix (K2-prefix)", route="cuda",
+             source="src/repro_torch/kernels/csrc/traceback.cu",
+             replaces="src/repro/kernels/traceback.py:254",
+             launches=new_launches["cuda", "matrix+prefix"]["traceback_prefix"],
+             max_abs_err=pre_err, ms=k2p_ms, plain_ms=k2p_plain_ms, bound_ms=k2p_bound[0],
+             bound_by=k2p_bound[1], library_ms=None),
+        dict(name="pbvd_fused matrix", route="cuda", source="src/repro_torch/kernels/csrc/fused.cu",
+             replaces="src/repro/kernels/fused.py:177",
+             launches=new_launches["fused", "matrix+prefix"]["fused_matrix"],
+             max_abs_err=fused_new_err["matrix"], ms=fnew_ms["matrix"],
+             plain_ms=fnew_plain_ms["matrix"], bound_ms=fnew_bound["matrix"][0],
+             bound_by=fnew_bound["matrix"][1], library_ms=None),
+        dict(name="pbvd_fused prefix", route="cuda", source="src/repro_torch/kernels/csrc/fused.cu",
+             replaces="src/repro/kernels/fused.py:414",
+             launches=new_launches["fused", "matrix+prefix"]["fused_prefix"],
+             max_abs_err=fused_new_err["prefix"], ms=fnew_ms["prefix"],
+             plain_ms=fnew_plain_ms["prefix"], bound_ms=fnew_bound["prefix"][0],
+             bound_by=fnew_bound["prefix"][1], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

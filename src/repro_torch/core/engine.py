@@ -195,6 +195,8 @@ class DecoderEngine:
             frame_counts=frame_counts,
             metric_mode=cfg.metric_mode,
             tb_mode=cfg.tb_mode,
+            tb_chunk=cfg.tb_chunk,
             acs_radix=cfg.acs_radix,
             acs_impl=cfg.acs_impl,
+            acs_k=cfg.acs_k,
         )

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import (
+    DEFAULT_ACS_K,
+    DEFAULT_TB_CHUNK,
     backend_acs_impl,
     backend_acs_radix,
     backend_metric_modes,
@@ -56,6 +58,15 @@ class PBVDConfig:
     pipeline: the engine quantizes float symbols to ``effective_q`` bits.
     ``acs_radix=4`` runs two trellis stages per ACS step; the decoded bits
     equal radix 2's.
+
+    ``tb_mode`` ``"serial"`` walks one stage per step; ``"prefix"`` composes
+    ``tb_chunk``-stage survivor maps in parallel and walks ceil(T/tb_chunk)
+    of them; ``"auto"`` resolves to the backend's declared mode (serial on
+    all three). ``acs_impl="matrix"`` collapses ``acs_k`` stages into one
+    (min,+) step (``acs_radix`` is then ignored); float symbols lower it to
+    the radix-2 butterfly. Both are bit-exact to the defaults. ``acs_k`` is
+    checked here against the code (1 ≤ k ≤ v, k·R ≤ 8) and, in the narrow
+    modes, against the k-stage saturation budget.
     """
 
     code: ConvCode = CCSDS_27
@@ -66,9 +77,11 @@ class PBVDConfig:
     backend: Literal["cuda", "fused", "ref"] = "cuda"
     spec: CodeSpec | None = None
     metric_mode: Literal["f32", "i16", "i8"] = "f32"
-    tb_mode: Literal["serial", "auto"] = "auto"
+    tb_mode: Literal["serial", "prefix", "auto"] = "auto"
+    tb_chunk: int = DEFAULT_TB_CHUNK  # prefix traceback chunk size
     acs_radix: Literal[2, 4] = 2
-    acs_impl: Literal["butterfly"] = "butterfly"
+    acs_impl: Literal["butterfly", "matrix"] = "butterfly"
+    acs_k: int = DEFAULT_ACS_K  # matrix-ACS stages per (min,+) step
 
     @property
     def T(self) -> int:  # stages per parallel block
@@ -121,10 +134,17 @@ class PBVDConfig:
         ):
             if value not in allowed:
                 raise knob_error(self.backend, knob, value, allowed)
+        if self.tb_chunk < 1:
+            raise ValueError(f"tb_chunk must be >= 1, got {self.tb_chunk}")
         if self.spec is not None and self.spec.code is not self.code:
             # keep cfg.code authoritative for kernel callers
             object.__setattr__(self, "code", self.spec.code)
-        if self.acs_radix == 4:
+        if self.acs_impl == "matrix":
+            # the fusion depth's structural bounds, then the narrow modes'
+            # budget for k unnormalized stages per step — at config time
+            self.code.validate_matrix_k(self.acs_k)
+            norm_interval(self.code, self.metric_mode, stages_per_step=self.acs_k)
+        elif self.acs_radix == 4:
             if self.code.n_states < 4:
                 raise ValueError(f"acs_radix=4 needs K >= 3 (got K={self.code.K})")
             # narrow modes: the saturation budget must absorb the fused

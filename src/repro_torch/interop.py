@@ -8,7 +8,9 @@ the JAX package can describe it without the port importing that package:
     fields = dict(polys=np.array(cfg.spec.code.polys), puncture=..., D=cfg.D,
                   L=cfg.L, q=cfg.q, start_policy=cfg.start_policy,
                   metric_mode=cfg.metric_mode, acs_radix=cfg.acs_radix,
-                  backend=cfg.backend)
+                  backend=cfg.backend, tb_mode=cfg.tb_mode,
+                  tb_chunk=cfg.tb_chunk, acs_impl=cfg.acs_impl,
+                  acs_k=cfg.acs_k)
 
 ``backend`` is the reference's name and maps to the port's counterpart:
 ``"pallas"`` → ``"cuda"``, ``"ref"`` → ``"ref"``, ``"fused"`` → ``"fused"``.
@@ -45,8 +47,9 @@ def convert_config(fields: dict) -> PBVDConfig:
     ``fields`` holds ``polys`` ((R, K) int array of generator bits, input tap
     first), ``puncture`` ((R, period) 0/1 array or ``None``), ``D``, ``L``,
     ``q`` (``None`` for float symbols), ``start_policy`` and ``metric_mode``;
-    optionally ``acs_radix`` (default 2) and ``backend`` (the reference's
-    name, see :data:`BACKENDS`; absent means the port's default).
+    optionally ``acs_radix``, ``tb_mode``, ``tb_chunk``, ``acs_impl`` and
+    ``acs_k`` (absent: the config's defaults) and ``backend`` (the
+    reference's name, see :data:`BACKENDS`; absent means the port's default).
     """
     missing = [k for k in _KEYS if k not in fields]
     if missing:
@@ -58,6 +61,10 @@ def convert_config(fields: dict) -> PBVDConfig:
     spec = _spec_for(ConvCode(polys=polys), puncture)
     q = fields["q"]
     extra = {}
+    for key, cast in (("acs_radix", int), ("tb_mode", str), ("tb_chunk", int),
+                      ("acs_impl", str), ("acs_k", int)):
+        if key in fields:
+            extra[key] = cast(fields[key])
     if "backend" in fields:
         try:
             extra["backend"] = BACKENDS[str(fields["backend"])]
@@ -73,7 +80,6 @@ def convert_config(fields: dict) -> PBVDConfig:
         q=None if q is None else int(q),
         start_policy=str(fields["start_policy"]),
         metric_mode=str(fields["metric_mode"]),
-        acs_radix=int(fields.get("acs_radix", 2)),
         **extra,
     )
 
@@ -90,5 +96,9 @@ def config_fields(cfg: PBVDConfig) -> dict:
         start_policy=cfg.start_policy,
         metric_mode=cfg.metric_mode,
         acs_radix=cfg.acs_radix,
+        tb_mode=cfg.tb_mode,
+        tb_chunk=cfg.tb_chunk,
+        acs_impl=cfg.acs_impl,
+        acs_k=cfg.acs_k,
         backend={port: ref for ref, port in BACKENDS.items()}[cfg.backend],
     )

@@ -1,18 +1,23 @@
-"""K1, the forward ACS kernel (``csrc/acs.cu``): wrapper, plain version, count.
+"""K1, the forward ACS kernels (``csrc/acs.cu``): wrapper, plain version,
+counts.
 
-Replaces ``repro.kernels.acs._acs_kernel`` (radix-2 and radix-4 branches,
-driven by ``acs_forward_pallas``) in the metric modes ``f32``/``i16``/``i8``.
-:func:`acs_forward` takes the plain PyTorch version
-:func:`acs_forward_plain` (``repro_torch.kernels.ref.acs_forward_ref``) for a
-CPU tensor; for a CUDA tensor it launches the CUDA kernel or raises. What
-bounds the kernel on the card and what its design does about it is noted in
-the CUDA source. In the narrow modes the kernel keeps int32 metrics, as the
-TPU kernel does, and returns them as int32; the plain version stores
-int16/int8. The values are equal (the saturation budget keeps them inside
-the narrow dtype), so comparisons cast to int32.
+K1 replaces ``repro.kernels.acs._acs_kernel`` (radix-2 and radix-4
+branches, driven by ``acs_forward_pallas``) and K1-matrix its
+``_acs_matrix_kernel`` (``impl="matrix"``, the k-stage (min,+) steps), in
+the metric modes ``f32``/``i16``/``i8``. :func:`acs_forward` takes the
+plain PyTorch version :func:`acs_forward_plain`
+(``repro_torch.kernels.ref.acs_forward_ref``) for a CPU tensor; for a CUDA
+tensor it launches a CUDA kernel or raises. Float symbols with
+``impl="matrix"`` run the radix-2 butterfly kernel, as the reference lowers
+them (IEEE addition is not associative). What bounds the kernels on the
+card and what their design does about it is noted in the CUDA source. In
+the narrow modes the kernels keep int32 metrics, as the TPU kernels do, and
+return them as int32; the plain version stores int16/int8. The values are
+equal (the saturation budget keeps them inside the narrow dtype), so
+comparisons cast to int32.
 
-``launches`` counts the kernel's launches, and nothing else: set it to 0,
-run, read it.
+``launches`` counts K1's (butterfly) launches and ``matrix_launches``
+K1-matrix's, and nothing else: set them to 0, run, read them.
 """
 
 from __future__ import annotations
@@ -28,13 +33,23 @@ from repro_torch.core.trellis import ConvCode
 from . import _build
 from .ref import _acc_dtype_for, acs_forward_ref as acs_forward_plain
 
-__all__ = ["acs_forward", "acs_forward_plain", "kernel_labels", "launches"]
+__all__ = [
+    "acs_forward",
+    "acs_forward_plain",
+    "kernel_labels",
+    "kernel_matrix_table",
+    "launches",
+    "matrix_launches",
+]
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of K1 (the butterfly kernel) since the count was last set to 0
 launches = 0
+#: launches of K1-matrix since the count was last set to 0
+matrix_launches = 0
 
 _DTYPE_CODE = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3}
 _MAX_R = 4
+_MAX_MATRIX_K = 4  # the kernels' template instances: every k of the R >= 2 codes
 
 
 def kernel_labels(code: ConvCode) -> np.ndarray:
@@ -46,9 +61,26 @@ def kernel_labels(code: ConvCode) -> np.ndarray:
     return np.stack([even, odd], axis=1).astype(np.int32)
 
 
+def kernel_matrix_table(code: ConvCode, k: int) -> np.ndarray:
+    """(2^k, 2^k, N/2^k) int32, indexed [c, j, u]: how target ``c·U + u``
+    gets the k-stage metric of its predecessor ``2^k·u + j``, as
+    ``2·fold_idx + (fold_sgn < 0)`` of ``code.matrix_acs_tables(k)``: the
+    folded combined row to read and whether to negate it. The rows
+    themselves follow ``code.folded_matrix_codeword_signs(k)``: row f adds
+    symbol r of the stacked window where bit kR-1-r of f is 1 and subtracts
+    it where it is 0."""
+    t = code.matrix_acs_tables(k)
+    return (2 * t["fold_idx"] + (t["fold_sgn"] < 0)).astype(np.int32)
+
+
 @lru_cache(maxsize=None)
 def _labels_on(code: ConvCode, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(kernel_labels(code), device=device)
+
+
+@lru_cache(maxsize=None)
+def _matrix_table_on(code: ConvCode, k: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(kernel_matrix_table(code, k), device=device)
 
 
 def _lib() -> ctypes.CDLL:
@@ -57,6 +89,9 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, i, i, i, i, i, p, i, i, i, p, p, p]
+        fn.restype = ctypes.c_int
+        fn = lib.pbvd_acs_forward_matrix
+        fn.argtypes = [p, i, i, i, i, i, p, p, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -67,29 +102,40 @@ def acs_forward(
     metric_mode: str = "f32",
     radix: int = 2,
     impl: str = "butterfly",
+    k: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward ACS over parallel blocks. y: (T, R, B) → (sp (T, W, B), pm (N, B)).
 
-    The signature and result of :func:`acs_forward_plain`, except that the
-    kernel's metrics are int32 in the narrow modes. On a CUDA tensor ``y``
-    must be contiguous, int8/int16/int32 or float32; the kernel writes int32
-    survivor words and int32 (float32 for float symbols) metrics.
+    The signature and result of :func:`acs_forward_plain` (``k`` is its
+    ``matrix_k``), except that the kernels' metrics are int32 in the narrow
+    modes. On a CUDA tensor ``y`` must be contiguous, int8/int16/int32 or
+    float32; the kernels write int32 survivor words and int32 (float32 for
+    float symbols) metrics.
     """
-    global launches
+    global launches, matrix_launches
     if y.device.type == "cpu":
-        return acs_forward_plain(y, code, metric_mode=metric_mode, radix=radix, impl=impl)
+        return acs_forward_plain(y, code, metric_mode=metric_mode, radix=radix, impl=impl,
+                                 matrix_k=k)
     if y.device.type != "cuda":
         raise ValueError(f"acs_forward runs on CPU or CUDA tensors, got {y.device}")
-    if radix not in (2, 4) or impl != "butterfly":
-        raise ValueError(
-            f"the CUDA ACS kernel implements radix 2 and 4 butterflies, got radix={radix}, "
-            f"impl={impl!r}"
-        )
-    if radix == 4 and code.n_states < 4:
-        raise ValueError(f"radix-4 ACS needs K >= 3 (got K={code.K})")
+    if impl not in ("butterfly", "matrix"):
+        raise ValueError(f"impl must be 'butterfly' or 'matrix', got {impl!r}")
+    if impl == "matrix":
+        code.validate_matrix_k(k)
+        if k > _MAX_MATRIX_K:
+            raise ValueError(f"the CUDA matrix ACS takes acs_k <= {_MAX_MATRIX_K}, got {k}")
     semantic = _acc_dtype_for(y.dtype, metric_mode)  # raises for other modes/dtypes
     acc_dtype = torch.float32 if semantic == torch.float32 else torch.int32
-    norm_every = norm_interval(code, metric_mode, radix)
+    if impl == "matrix" and acc_dtype == torch.float32:
+        impl, radix = "butterfly", 2  # the float lowering, as the reference's
+    if impl == "butterfly":
+        if radix not in (2, 4):
+            raise ValueError(f"the CUDA ACS kernel implements radix 2 and 4, got radix={radix}")
+        if radix == 4 and code.n_states < 4:
+            raise ValueError(f"radix-4 ACS needs K >= 3 (got K={code.K})")
+        norm_every = norm_interval(code, metric_mode, radix)
+    else:
+        norm_every = norm_interval(code, metric_mode, stages_per_step=k)
     qmax = metric_mode_qmax(code, metric_mode) if norm_every else 0
     if y.dim() != 3 or not y.is_contiguous():
         raise ValueError(f"y must be a contiguous (T, R, B) tensor, got {tuple(y.shape)}")
@@ -104,11 +150,22 @@ def acs_forward(
     labels = _labels_on(code, y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        rc = _lib().pbvd_acs_forward(
-            y.data_ptr(), _DTYPE_CODE[y.dtype], T, R, B, code.v, labels.data_ptr(),
-            norm_every, qmax, radix, sp.data_ptr(), pm.data_ptr(), stream,
-        )
+        if impl == "matrix":
+            rc = _lib().pbvd_acs_forward_matrix(
+                y.data_ptr(), _DTYPE_CODE[y.dtype], T, R, B, code.v, labels.data_ptr(),
+                _matrix_table_on(code, k, y.device).data_ptr(), k, norm_every, qmax,
+                sp.data_ptr(), pm.data_ptr(), stream,
+            )
+        else:
+            rc = _lib().pbvd_acs_forward(
+                y.data_ptr(), _DTYPE_CODE[y.dtype], T, R, B, code.v, labels.data_ptr(),
+                norm_every, qmax, radix, sp.data_ptr(), pm.data_ptr(), stream,
+            )
     if rc:
-        raise RuntimeError(f"pbvd_acs_forward launch failed (error {rc})")
-    launches += 1
+        name = "pbvd_acs_forward_matrix" if impl == "matrix" else "pbvd_acs_forward"
+        raise RuntimeError(f"{name} launch failed (error {rc})")
+    if impl == "matrix":
+        matrix_launches += 1
+    else:
+        launches += 1
     return sp, pm

@@ -1,14 +1,24 @@
 // The fused single-kernel decoder: forward ACS and serial traceback in one
 // kernel, with the survivor history kept on-chip.
 //
-// Replaces the TPU kernel repro/kernels/fused.py::_fused_kernel (driven by
-// pbvd_fused_pallas with tb_mode="serial"), with both of its ACS phases:
-// _acs_phase (radix 2) and _acs_phase_r4_dbuf (radix 4), in the metric
-// modes f32/i16/i8. It computes the same function: per parallel block, the
-// forward ACS of K1, then the serial walk from the start state after stage
-// T-1 down to decode_start, emitting the decoded bit of stage
-// decode_start + b at bit b & 31 of output word b >> 5 (bits of stages at or
-// beyond T stay 0).
+// Replaces the TPU kernels repro/kernels/fused.py::_fused_kernel (driven by
+// pbvd_fused_pallas with tb_mode="serial") and _fused_prefix_kernel
+// (tb_mode="prefix"), with each of their ACS phases: _acs_phase (radix 2),
+// _acs_phase_r4_dbuf (radix 4) and _acs_phase_mat_dbuf (k-stage matrix
+// steps), in the metric modes f32/i16/i8. It computes the same function:
+// per parallel block, the forward ACS of K1 (or K1-matrix), then the walk
+// from the start state after stage T-1 down to decode_start, emitting the
+// decoded bit of stage decode_start + b at bit b & 31 of output word b >> 5
+// (bits of stages at or beyond T stay 0).
+//
+// Prefix tail. The walk is the chunked prefix walk of K2-prefix
+// (traceback_core.cuh) over the shared history, whose stage-major layout it
+// reads as is (stages below 0 read as the zero pad). The composed maps,
+// the entry states and the decode window's words sit in shared memory
+// beside the history; phase C ors each decoded bit into the window's words
+// (atomicOr: the window starts at ds_local = decode_start + P - c_lo * C,
+// which is not word aligned, so a chunk's bits straddle words) and the
+// block then stores its n_decode/32 words.
 //
 // Design. The ACS phase is K1's (acs_core.cuh: one thread per target
 // state, G = max(1, 128/N) parallel blocks per CTA, PM ping-pong in shared
@@ -38,26 +48,72 @@
 // and while one CTA walks, the other CTAs on its SM run their ACS.
 
 #include "acs_core.cuh"
+#include "traceback_core.cuh"
 
 namespace {
 
 using pbvd::forward_acs;
+using pbvd::forward_acs_matrix;
 using pbvd::forward_smem_slots;
+using pbvd::matrix_smem_slots;
 
 constexpr size_t kMaxSmem = 232448;      // per-CTA dynamic shared memory on the H100
 constexpr size_t kDefaultSmem = 48 * 1024;
 
-size_t fused_smem_bytes(int G, int log2n, int T) {
-  const int W = ((1 << log2n) + 31) >> 5;
-  return 4 * (static_cast<size_t>(forward_smem_slots(G, log2n)) +
-              static_cast<size_t>(G) * T * W);
+// The ACS loop's slots (4 bytes each), then G histories of T * W words,
+// then (prefix) G blocks of walk scratch: n_act * N maps, nc_e entry
+// states, n_decode / 32 window words. k = 0 for the butterfly.
+__host__ __device__ inline int acs_slots(int G, int log2n, int k, int R) {
+  return forward_smem_slots(G, log2n) + (k ? matrix_smem_slots(G, log2n, k, R) : 0);
 }
 
-template <int kStagesPerStep, bool kNarrow, typename Sym, typename Acc>
+size_t fused_smem_bytes(int G, int log2n, int T, int k, int R, int prefix_words) {
+  const int W = ((1 << log2n) + 31) >> 5;
+  return 4 * (static_cast<size_t>(acs_slots(G, log2n, k, R)) +
+              static_cast<size_t>(G) * T * W + static_cast<size_t>(G) * prefix_words);
+}
+
+// Phase 2 in prefix mode: the prefix walk of this parallel block over its
+// shared history. It is kept out of line: inlined into the kernel, it made
+// every instantiation slower, the serial radix-2 path by ~40 % on the H100
+// (PERF.md, PR 13), though ptxas counted no more registers.
+__device__ __noinline__ void prefix_tail(const unsigned* my_hist, int W, int G, int T, int B,
+                                         int b, int log2n, int n_words, unsigned* hist,
+                                         const int* __restrict__ start,
+                                         const pbvd::PrefixGeometry& geo, int* __restrict__ bits) {
+  const int N = 1 << log2n;
+  const int g = threadIdx.x >> log2n;
+  const bool valid = b < B;
+  const int s = threadIdx.x & (N - 1);
+  int* maps = reinterpret_cast<int*>(hist + static_cast<size_t>(G) * T * W) +
+              g * (geo.n_act * N + geo.nc_e + n_words);
+  int* entry = maps + geo.n_act * N;
+  unsigned* window = reinterpret_cast<unsigned*>(entry + geo.nc_e);
+  for (int w = s; w < n_words; w += N) window[w] = 0u;  // phase A's barrier orders it
+  auto sp_word = [&](int stage, unsigned w) -> unsigned {
+    return stage < 0 ? 0u : my_hist[static_cast<size_t>(stage) * W + w];
+  };
+  auto emit = [&](int idx, unsigned bit) {
+    if (bit) atomicOr(&window[idx >> 5], 1u << (idx & 31));
+  };
+  pbvd::prefix_traceback(geo, log2n, valid, valid ? static_cast<unsigned>(start[b]) : 0u,
+                         maps, entry, sp_word, emit);
+  __syncthreads();
+  if (valid) {
+    for (int w = s; w < n_words; w += N) {
+      bits[static_cast<size_t>(w) * B + b] = static_cast<int>(window[w]);
+    }
+  }
+}
+
+// kMatrix: kStagesPerStep is the matrix k (integer symbols, Acc = int);
+// otherwise 1 (radix 2) or 2 (radix 4). prefix selects the walk at run time.
+template <int kStagesPerStep, bool kMatrix, bool kNarrow, typename Sym, typename Acc>
 __global__ void fused_kernel(const Sym* __restrict__ y, const int* __restrict__ labels,
-                             const int* __restrict__ start, int T, int R, int B, int log2n,
-                             int norm_every, int qmax, int decode_start, int n_decode,
-                             int* __restrict__ bits) {
+                             const int* __restrict__ mtab, const int* __restrict__ start, int T,
+                             int R, int B, int log2n, int norm_every, int qmax,
+                             int decode_start, int n_decode, int prefix,
+                             pbvd::PrefixGeometry geo, int* __restrict__ bits) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int N = 1 << log2n;
   const int W = (N + 31) >> 5;
@@ -65,24 +121,36 @@ __global__ void fused_kernel(const Sym* __restrict__ y, const int* __restrict__ 
   const int g = threadIdx.x >> log2n;
   const int b = blockIdx.x * G + g;
   Acc* acc_smem = reinterpret_cast<Acc*>(smem_raw);
-  unsigned* hist = reinterpret_cast<unsigned*>(acc_smem + forward_smem_slots(G, log2n));
+  unsigned* hist = reinterpret_cast<unsigned*>(
+      acc_smem + acs_slots(G, log2n, kMatrix ? kStagesPerStep : 0, R));
   unsigned* my_hist = hist + static_cast<size_t>(g) * T * W;
 
   // ---- phase 1: forward ACS, survivor words into shared memory -------------
   auto store = [&](int t, int w, unsigned word) {
     my_hist[static_cast<size_t>(t) * W + w] = word;
   };
-  forward_acs<kStagesPerStep, kNarrow, Sym>(y, labels, T, R, B, log2n, norm_every, qmax,
-                                            acc_smem, store);  // ends with a __syncthreads()
+  // both end with a __syncthreads()
+  if constexpr (kMatrix) {
+    forward_acs_matrix<kStagesPerStep, kNarrow, Sym>(y, labels, mtab, T, R, B, log2n,
+                                                     norm_every, qmax, acc_smem, store);
+  } else {
+    forward_acs<kStagesPerStep, kNarrow, Sym>(y, labels, T, R, B, log2n, norm_every, qmax,
+                                              acc_smem, store);
+  }
 
-  // ---- phase 2: serial walk from shared memory, packed bits out ------------
+  const int n_words = n_decode >> 5;
+  if (prefix) {  // ---- phase 2 (prefix): chunked walk of the shared history
+    prefix_tail(my_hist, W, G, T, B, b, log2n, n_words, hist, start, geo, bits);
+    return;
+  }
+
+  // ---- phase 2 (serial): walk from shared memory, packed bits out ----------
   if ((threadIdx.x & (N - 1)) != 0 || b >= B) return;
   const unsigned n_mask = static_cast<unsigned>(N) - 1u;
   const unsigned half_mask = n_mask >> 1;
   // start states are in [0, N) by contract; the mask keeps the reads in
   // bounds whatever the caller passes
   unsigned state = static_cast<unsigned>(start[b]) & n_mask;
-  const int n_words = n_decode >> 5;
   const int top = T - 1 - decode_start;  // bit index of stage T-1
   for (int w = (top >> 5) + 1; w < n_words; ++w) bits[static_cast<size_t>(w) * B + b] = 0;
   unsigned word = 0;
@@ -101,70 +169,102 @@ __global__ void fused_kernel(const Sym* __restrict__ y, const int* __restrict__ 
   }
 }
 
-template <int kStagesPerStep, bool kNarrow, typename Sym, typename Acc>
-int launch(const void* y, const int* labels, const int* start, int T, int R, int B, int log2n,
-           int norm_every, int qmax, int decode_start, int n_decode, int G, int* bits,
-           cudaStream_t stream) {
-  const int threads = G << log2n;
-  const int grid = (B + G - 1) / G;
-  const size_t smem = fused_smem_bytes(G, log2n, T);
+struct Launch {
+  const void* y;
+  const int* labels;
+  const int* mtab;
+  const int* start;
+  int T, R, B, log2n, norm_every, qmax, decode_start, n_decode, prefix, G;
+  pbvd::PrefixGeometry geo;
+  int* bits;
+  cudaStream_t stream;
+};
+
+template <int kStagesPerStep, bool kMatrix, bool kNarrow, typename Sym, typename Acc>
+int launch(const Launch& a) {
+  const int k = kMatrix ? kStagesPerStep : 0;
+  const int prefix_words = a.prefix ? a.geo.n_act * (1 << a.log2n) + a.geo.nc_e + (a.n_decode >> 5) : 0;
+  const size_t smem = fused_smem_bytes(a.G, a.log2n, a.T, k, a.R, prefix_words);
   if (smem > kMaxSmem) return 1001;
-  auto kernel = fused_kernel<kStagesPerStep, kNarrow, Sym, Acc>;
+  auto kernel = fused_kernel<kStagesPerStep, kMatrix, kNarrow, Sym, Acc>;
   if (smem > kDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<grid, threads, smem, stream>>>(static_cast<const Sym*>(y), labels, start, T, R, B,
-                                          log2n, norm_every, qmax, decode_start, n_decode, bits);
+  kernel<<<(a.B + a.G - 1) / a.G, a.G << a.log2n, smem, a.stream>>>(
+      static_cast<const Sym*>(a.y), a.labels, a.mtab, a.start, a.T, a.R, a.B, a.log2n,
+      a.norm_every, a.qmax, a.decode_start, a.n_decode, a.prefix, a.geo, a.bits);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kStagesPerStep, bool kNarrow>
-int dispatch(const void* y, int dtype, const int* labels, const int* start, int T, int R, int B,
-             int log2n, int norm_every, int qmax, int decode_start, int n_decode, int G,
-             int* bits, cudaStream_t st) {
+template <int kStagesPerStep, bool kMatrix, bool kNarrow>
+int dispatch(const Launch& a, int dtype) {
   switch (dtype) {
-    case 0: return launch<kStagesPerStep, kNarrow, int8_t, int>(y, labels, start, T, R, B, log2n, norm_every, qmax, decode_start, n_decode, G, bits, st);
-    case 1: return launch<kStagesPerStep, kNarrow, int16_t, int>(y, labels, start, T, R, B, log2n, norm_every, qmax, decode_start, n_decode, G, bits, st);
-    case 2: return launch<kStagesPerStep, kNarrow, int32_t, int>(y, labels, start, T, R, B, log2n, norm_every, qmax, decode_start, n_decode, G, bits, st);
-    case 3: return kNarrow ? 1000 : launch<kStagesPerStep, false, float, float>(y, labels, start, T, R, B, log2n, norm_every, qmax, decode_start, n_decode, G, bits, st);
+    case 0: return launch<kStagesPerStep, kMatrix, kNarrow, int8_t, int>(a);
+    case 1: return launch<kStagesPerStep, kMatrix, kNarrow, int16_t, int>(a);
+    case 2: return launch<kStagesPerStep, kMatrix, kNarrow, int32_t, int>(a);
+    case 3:  // float symbols: the butterfly in f32 only
+      if constexpr (kMatrix || kNarrow) {
+        return 1000;
+      } else {
+        return launch<kStagesPerStep, false, false, float, float>(a);
+      }
     default: return 1000;
   }
+}
+
+template <int kStagesPerStep, bool kMatrix>
+int dispatch_mode(const Launch& a, int dtype) {
+  return a.norm_every > 0 ? dispatch<kStagesPerStep, kMatrix, true>(a, dtype)
+                          : dispatch<kStagesPerStep, kMatrix, false>(a, dtype);
 }
 
 }  // namespace
 
 // y: (T, R, B) symbols, dtype 0 = int8, 1 = int16, 2 = int32, 3 = float32.
-// labels: (N, 2) int32 even/odd predecessor labels; start: (B,) int32 start
-// states. norm_every, qmax, radix: as pbvd_acs_forward. G: parallel blocks
-// per CTA (G * N <= 1024). bits: (n_decode / 32, B) int32 out. Requires
+// labels: (N, 2) int32 even/odd predecessor labels; table: the matrix table
+// of pbvd_acs_forward_matrix (read only when k > 0); start: (B,) int32
+// start states. norm_every, qmax, radix: as pbvd_acs_forward; k: 0 for the
+// butterfly at radix, else the matrix steps' k (1..4, integer symbols).
+// prefix: 0 for the serial walk, 1 for the prefix walk with the geometry
+// C, P, n_chunks, c_lo, c_hi of prefix_chunk_geometry(T, decode_start,
+// min(n_decode, T - decode_start), tb_chunk). G: parallel blocks per CTA
+// (G * N <= 1024). bits: (n_decode / 32, B) int32 out. Requires
 // 0 <= decode_start < T, n_decode a multiple of 32.
 // Returns cudaGetLastError() after the launch (or the error of raising the
-// shared-memory limit); 1000 for a bad argument, 1001 for a history that
-// does not fit in shared memory.
+// shared-memory limit); 1000 for a bad argument, 1001 for a history (and
+// scratch) that does not fit in shared memory.
 extern "C" int pbvd_fused(const void* y, int dtype, int T, int R, int B, int log2n,
-                          const void* labels, const void* start, int decode_start, int n_decode,
-                          int norm_every, int qmax, int radix, int G, void* bits, void* stream) {
+                          const void* labels, const void* table, const void* start,
+                          int decode_start, int n_decode, int norm_every, int qmax, int radix,
+                          int k, int prefix, int C, int P, int n_chunks, int c_lo, int c_hi,
+                          int G, void* bits, void* stream) {
+  const int n_window = n_decode < T - decode_start ? n_decode : T - decode_start;
   if (log2n < 1 || log2n > 10 || R < 1 || R > pbvd::kMaxR || T < 1 || B < 1 || G < 1 ||
       (G << log2n) > 1024 || decode_start < 0 || decode_start >= T || n_decode < 32 ||
       (n_decode & 31) || norm_every < 0 || qmax < 0 || (norm_every > 0) != (qmax > 0) ||
-      !(radix == 2 || (radix == 4 && log2n >= 2))) {
+      !(radix == 2 || (radix == 4 && log2n >= 2)) || k < 0 || k > 4 || k > log2n ||
+      k * R > 8 || (k > 0 && table == nullptr) || (prefix != 0 && prefix != 1)) {
     return 1000;
   }
-  const int* lab = static_cast<const int*>(labels);
-  const int* st0 = static_cast<const int*>(start);
-  int* out = static_cast<int*>(bits);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool narrow = norm_every > 0;
-  if (radix == 4) {
-    return narrow ? dispatch<2, true>(y, dtype, lab, st0, T, R, B, log2n, norm_every, qmax,
-                                      decode_start, n_decode, G, out, st)
-                  : dispatch<2, false>(y, dtype, lab, st0, T, R, B, log2n, norm_every, qmax,
-                                       decode_start, n_decode, G, out, st);
+  if (prefix && (C < 1 || P < 0 || P >= C || n_chunks * C != T + P || c_lo < 0 ||
+                 c_hi < c_lo || c_hi >= n_chunks ||
+                 (decode_start + P + n_window - 1) / C != c_hi ||
+                 (decode_start + P) / C != c_lo)) {
+    return 1000;
   }
-  return narrow ? dispatch<1, true>(y, dtype, lab, st0, T, R, B, log2n, norm_every, qmax,
-                                    decode_start, n_decode, G, out, st)
-                : dispatch<1, false>(y, dtype, lab, st0, T, R, B, log2n, norm_every, qmax,
-                                     decode_start, n_decode, G, out, st);
+  Launch a{y, static_cast<const int*>(labels), static_cast<const int*>(table),
+           static_cast<const int*>(start), T, R, B, log2n, norm_every, qmax, decode_start,
+           n_decode, prefix, G,
+           pbvd::PrefixGeometry{C, P, c_lo, n_chunks - c_lo, c_hi - c_lo + 1,
+                                decode_start + P - c_lo * C, n_window},
+           static_cast<int*>(bits), static_cast<cudaStream_t>(stream)};
+  switch (k) {
+    case 0: return radix == 4 ? dispatch_mode<2, false>(a, dtype) : dispatch_mode<1, false>(a, dtype);
+    case 1: return dispatch_mode<1, true>(a, dtype);
+    case 2: return dispatch_mode<2, true>(a, dtype);
+    case 3: return dispatch_mode<3, true>(a, dtype);
+    default: return dispatch_mode<4, true>(a, dtype);
+  }
 }

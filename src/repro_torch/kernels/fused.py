@@ -2,20 +2,26 @@
 version, count.
 
 Replaces ``repro.kernels.fused._fused_kernel`` (driven by
-``pbvd_fused_pallas`` with ``tb_mode="serial"``), radix-2 and radix-4
-phases, in the metric modes ``f32``/``i16``/``i8``. :func:`pbvd_fused`
-takes the plain PyTorch version :func:`pbvd_fused_plain`
-(``repro_torch.kernels.ref.pbvd_fused_ref``) for a CPU tensor; for a CUDA
-tensor it launches the CUDA kernel or raises. What bounds the kernel on the
-card and what its design does about it is noted in the CUDA source.
+``pbvd_fused_pallas`` with ``tb_mode="serial"``) and
+``_fused_prefix_kernel`` (``tb_mode="prefix"``), with each of their ACS
+phases: radix 2 (``_acs_phase``), radix 4 (``_acs_phase_r4_dbuf``) and the
+k-stage matrix steps (``_acs_phase_mat_dbuf``), in the metric modes
+``f32``/``i16``/``i8``. :func:`pbvd_fused` takes the plain PyTorch version
+:func:`pbvd_fused_plain` (``repro_torch.kernels.ref.pbvd_fused_ref``) for a
+CPU tensor; for a CUDA tensor it launches the CUDA kernel or raises. Float
+symbols with ``impl="matrix"`` run the radix-2 body, as the reference
+lowers them. What bounds the kernel on the card and what its design does
+about it is noted in the CUDA source.
 
 The survivor history lives in shared memory, ``T·ceil(N/32)·4`` bytes per
-parallel block. :func:`smem_plan` picks the parallel blocks per CTA and
-refuses, with ``ValueError``, a history that does not fit the card's
-232,448 bytes even at one block per CTA; nothing falls back to the
-two-kernel path.
+parallel block, and in prefix mode the walk's scratch beside it.
+:func:`smem_plan` picks the parallel blocks per CTA and refuses, with
+``ValueError``, what does not fit the card's 232,448 bytes even at one
+block per CTA; nothing falls back to the two-kernel path or the serial walk.
 
-``launches`` counts the kernel's launches, and nothing else.
+``launches`` counts the kernel's launches, and nothing else;
+``matrix_launches`` and ``prefix_launches`` count those of them that ran
+the matrix ACS body and the prefix tail.
 """
 
 from __future__ import annotations
@@ -27,41 +33,81 @@ import torch
 from repro_torch.core.quantize import metric_mode_qmax, norm_interval
 from repro_torch.core.trellis import ConvCode
 from . import _build
-from .acs import _DTYPE_CODE, _MAX_R, _labels_on
-from .ref import _acc_dtype_for, pbvd_fused_ref as pbvd_fused_plain
+from .acs import _DTYPE_CODE, _MAX_MATRIX_K, _MAX_R, _labels_on, _matrix_table_on
+from .ref import (
+    DEFAULT_TB_CHUNK,
+    _acc_dtype_for,
+    pbvd_fused_ref as pbvd_fused_plain,
+    prefix_chunk_geometry,
+)
+from .traceback import SMEM_PER_CTA
 
-__all__ = ["pbvd_fused", "pbvd_fused_plain", "smem_plan", "launches", "SMEM_PER_CTA"]
+__all__ = [
+    "pbvd_fused",
+    "pbvd_fused_plain",
+    "smem_plan",
+    "launches",
+    "matrix_launches",
+    "prefix_launches",
+    "SMEM_PER_CTA",
+]
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of the CUDA kernel since the counts were last set to 0
 launches = 0
+#: those of them that ran the matrix ACS body / the prefix tail
+matrix_launches = 0
+prefix_launches = 0
 
-#: dynamic shared memory one CTA may use on the H100, in bytes
-SMEM_PER_CTA = 232448
 
-
-def smem_plan(T: int, n_states: int) -> tuple[int, int]:
+def smem_plan(
+    T: int,
+    n_states: int,
+    tb_mode: str = "serial",
+    tb_chunk: int = DEFAULT_TB_CHUNK,
+    *,
+    decode_start: int = 0,
+    n_decode: int | None = None,
+    matrix_k: int = 0,
+    R: int = 2,
+) -> tuple[int, int]:
     """(parallel blocks per CTA, shared bytes per CTA) of the fused kernel.
 
-    A CTA of G blocks holds two path-metric planes and the min-reduction
-    slots (``csrc/acs_core.cuh::forward_smem_slots``) plus G survivor
-    histories of T stages × ceil(N/32) words, 4 bytes each. G starts at
-    max(1, 128/N) and drops to 1 when that does not fit; a history that does
-    not fit at G = 1 raises ``ValueError`` naming T, N and the bytes.
+    Per parallel block, in 4-byte words: two path-metric planes and the
+    min-reduction slots (``csrc/acs_core.cuh::forward_smem_slots``), with
+    ``matrix_k`` > 0 also the 2^(kR-1) folded rows and k decision planes of
+    ceil(N/32) words (``matrix_smem_slots``); the survivor history of T
+    stages × ceil(N/32) words; and in prefix mode the walk's scratch: the
+    ``n_act`` composed maps of N entries, ``nc_e`` entry states and the
+    ``n_decode/32`` words of the decode window (geometry of
+    :func:`prefix_chunk_geometry` over the bits that exist). G starts at
+    max(1, 128/N) and drops to 1 when that does not fit; what does not fit
+    at G = 1 raises ``ValueError`` naming T, N and the bytes.
     """
     N = n_states
     W = -(-N // 32)
+    per_block = 2 * N + max(1, N // 32) + T * W
+    if matrix_k:
+        per_block += (1 << (matrix_k * R - 1)) + matrix_k * W
+    scratch = ""
+    if tb_mode == "prefix":
+        n_decode = T - decode_start if n_decode is None else n_decode
+        n_window = min(n_decode, T - decode_start)
+        C, _, n_chunks, c_lo, c_hi = prefix_chunk_geometry(T, decode_start, n_window, tb_chunk)
+        per_block += (n_chunks - c_lo) * N + (c_hi - c_lo + 1) + -(-n_decode // 32)
+        scratch = f" with the prefix scratch of tb_chunk={C}"
 
     def need(G: int) -> int:
-        return 4 * (2 * G * N + G * max(1, N // 32) + G * T * W)
+        return 4 * G * per_block
 
     G = max(1, 128 // N)
     if need(G) > SMEM_PER_CTA:
         G = 1
     if need(G) > SMEM_PER_CTA:
         raise ValueError(
-            f"the fused kernel's survivor history of T={T} stages at N={N} states needs "
-            f"{need(1)} bytes of shared memory per parallel block, above the "
+            f"the fused kernel's survivor history of T={T} stages at N={N} states{scratch} "
+            f"needs {need(1)} bytes of shared memory per parallel block, above the "
             f"{SMEM_PER_CTA} bytes a CTA may use; use a shorter block (D, L)"
+            + (" or a larger tb_chunk" if scratch else "")
         )
     return G, need(G)
 
@@ -71,7 +117,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pbvd_fused
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, i, i, i, p, p, i, i, i, i, i, i, p, p]
+        fn.argtypes = [p, i, i, i, i, i, p, p, p] + [i] * 13 + [p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -85,19 +131,26 @@ def pbvd_fused(
     start_state: torch.Tensor | int | None = None,
     metric_mode: str = "f32",
     radix: int = 2,
+    tb_mode: str = "serial",
+    tb_chunk: int = DEFAULT_TB_CHUNK,
+    impl: str = "butterfly",
+    k: int = 2,
 ) -> torch.Tensor:
     """One-kernel decode. y (T, R, B) → packed bits (n_decode/32, B) int32.
 
     The signature and result of :func:`pbvd_fused_plain`: ``n_decode`` a
     multiple of 32, ``start_state`` an int or a (B,) tensor of states in
-    [0, N) (zeros by default). On a CUDA tensor ``y`` must be contiguous,
-    int8/int16/int32 or float32; the narrow metric modes need integer
-    symbols.
+    [0, N) (zeros by default), ``tb_mode`` ``"serial"`` or ``"prefix"``
+    (chunks of ``tb_chunk`` stages), ``impl`` ``"butterfly"`` (at
+    ``radix``) or ``"matrix"`` (``k`` stages per step; ``radix`` ignored).
+    On a CUDA tensor ``y`` must be contiguous, int8/int16/int32 or float32;
+    the narrow metric modes need integer symbols.
     """
-    global launches
+    global launches, matrix_launches, prefix_launches
     if y.device.type == "cpu":
         return pbvd_fused_plain(y, code, decode_start=decode_start, n_decode=n_decode,
-                                start_state=start_state, metric_mode=metric_mode, radix=radix)
+                                start_state=start_state, metric_mode=metric_mode, radix=radix,
+                                tb_mode=tb_mode, tb_chunk=tb_chunk, impl=impl, k=k)
     if y.device.type != "cuda":
         raise ValueError(f"pbvd_fused runs on CPU or CUDA tensors, got {y.device}")
     if y.dim() != 3 or not y.is_contiguous():
@@ -109,14 +162,34 @@ def pbvd_fused(
         raise ValueError(f"n_decode must be a positive multiple of 32, got {n_decode}")
     if not 0 <= decode_start < T:
         raise ValueError(f"decode_start {decode_start} outside [0, {T})")
-    if radix not in (2, 4):
-        raise ValueError(f"radix must be 2 or 4, got {radix}")
-    if radix == 4 and code.n_states < 4:
-        raise ValueError(f"radix-4 ACS needs K >= 3 (got K={code.K})")
-    _acc_dtype_for(y.dtype, metric_mode)  # raises for other modes/dtypes
-    norm_every = norm_interval(code, metric_mode, radix)
+    if tb_mode not in ("serial", "prefix"):
+        raise ValueError(f"unknown tb_mode {tb_mode!r}")
+    if impl not in ("butterfly", "matrix"):
+        raise ValueError(f"impl must be 'butterfly' or 'matrix', got {impl!r}")
+    if impl == "matrix":
+        code.validate_matrix_k(k)
+        if k > _MAX_MATRIX_K:
+            raise ValueError(f"the CUDA matrix ACS takes acs_k <= {_MAX_MATRIX_K}, got {k}")
+    semantic = _acc_dtype_for(y.dtype, metric_mode)  # raises for other modes/dtypes
+    if impl == "matrix" and semantic == torch.float32:
+        impl, radix = "butterfly", 2  # the float lowering, as the reference's
+    if impl == "butterfly":
+        if radix not in (2, 4):
+            raise ValueError(f"radix must be 2 or 4, got {radix}")
+        if radix == 4 and code.n_states < 4:
+            raise ValueError(f"radix-4 ACS needs K >= 3 (got K={code.K})")
+        norm_every = norm_interval(code, metric_mode, radix)
+        k_launch = 0
+    else:
+        norm_every = norm_interval(code, metric_mode, stages_per_step=k)
+        k_launch = k
     qmax = metric_mode_qmax(code, metric_mode) if norm_every else 0
-    G, _ = smem_plan(T, code.n_states)
+    geometry = (1, 0, 1, 0, 0)  # C, P, n_chunks, c_lo, c_hi: unused when serial
+    if tb_mode == "prefix":
+        n_window = min(n_decode, T - decode_start)
+        geometry = prefix_chunk_geometry(T, decode_start, n_window, tb_chunk)
+    G, _ = smem_plan(T, code.n_states, tb_mode, tb_chunk, decode_start=decode_start,
+                     n_decode=n_decode, matrix_k=k_launch, R=R)
     start = torch.as_tensor(0 if start_state is None else start_state, dtype=torch.int32,
                             device=y.device)
     start = start.broadcast_to((B,)).contiguous()
@@ -124,14 +197,17 @@ def pbvd_fused(
     if B == 0:
         return bits
     labels = _labels_on(code, y.device)
+    table = _matrix_table_on(code, k_launch, y.device).data_ptr() if k_launch else None
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         rc = _lib().pbvd_fused(
-            y.data_ptr(), _DTYPE_CODE[y.dtype], T, R, B, code.v, labels.data_ptr(),
-            start.data_ptr(), decode_start, n_decode, norm_every, qmax, radix, G,
-            bits.data_ptr(), stream,
+            y.data_ptr(), _DTYPE_CODE[y.dtype], T, R, B, code.v, labels.data_ptr(), table,
+            start.data_ptr(), decode_start, n_decode, norm_every, qmax, radix, k_launch,
+            int(tb_mode == "prefix"), *geometry, G, bits.data_ptr(), stream,
         )
     if rc:
         raise RuntimeError(f"pbvd_fused launch failed (error {rc})")
     launches += 1
+    matrix_launches += bool(k_launch)
+    prefix_launches += tb_mode == "prefix"
     return bits

@@ -1,27 +1,32 @@
 """Decode backends and the eager-checking dispatcher of the port.
 
 The counterpart of ``repro.kernels.ops``. Three backends register here,
-each with the metric modes ``"f32"``/``"i16"``/``"i8"`` and radix 2 and 4:
+each with the metric modes ``"f32"``/``"i16"``/``"i8"``, radix 2 and 4, the
+serial and prefix tracebacks and the butterfly and matrix ACS:
 
 * ``"ref"`` — the plain PyTorch path (``kernels/ref.py``), on whatever
-  device the symbols are;
+  device the symbols are; its prefix traceback is the full-depth log-depth
+  scan, so it ignores ``tb_chunk``;
 * ``"cuda"`` — the two-kernel path, the counterpart of the reference's
-  ``"pallas"``: K1 (``kernels/acs.py``) then K2 (``kernels/traceback.py``).
-  On CPU tensors the wrappers run their plain versions, so ``"cuda"`` on the
-  CPU equals ``"ref"``;
+  ``"pallas"``: K1 or K1-matrix (``kernels/acs.py``) then K2 or K2-prefix
+  (``kernels/traceback.py``). On CPU tensors the wrappers run their plain
+  versions, so ``"cuda"`` on the CPU equals ``"ref"``;
 * ``"fused"`` — the single-kernel path (``kernels/fused.py``): forward ACS
-  and the serial walk in one kernel, bit-packed output words; zero start
-  only, as in the reference.
+  and the walk in one kernel, bit-packed output words; zero start only, as
+  in the reference.
 
 None pads the lane axis (the kernels mask the ragged edge) nor the stage
-axis (the CUDA ACS loops run the true T stages). So the argmin start is
-taken over the true stage-T metrics, as the reference's ``"ref"`` backend
-does; the reference's ``"pallas"`` backend takes it after its zero pad
-stages and may start from another of several tied states.
+axis (the CUDA ACS loops run the true T stages, the matrix loop T // k
+steps and then T mod k radix-2 stages, as the reference's ``"ref"``). So
+the argmin start is taken over the true stage-T metrics, as the
+reference's ``"ref"`` backend does; the reference's ``"pallas"`` backend
+takes it after its zero pad stages and may start from another of several
+tied states.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Literal
 
 import torch
@@ -32,13 +37,16 @@ from . import acs as _acs
 from . import fused as _fused
 from . import ref as _ref
 from . import traceback as _traceback
+from .ref import DEFAULT_TB_CHUNK
 from .registry import (
+    DEFAULT_ACS_K,
     FramedBlocks,
     available_backends,
     backend_acs_impl,
     backend_acs_radix,
     backend_metric_modes,
     backend_start_policies,
+    backend_tb_chunk_sensitive,
     backend_tb_modes,
     get_backend,
     knob_error,
@@ -49,11 +57,14 @@ from .registry import (
 # the registry accessors are re-exported: importing them from here also
 # registers this module's backends
 __all__ = [
+    "DEFAULT_ACS_K",
+    "DEFAULT_TB_CHUNK",
     "pbvd_decode_blocks",
     "available_backends",
     "backend_start_policies",
     "backend_metric_modes",
     "backend_tb_modes",
+    "backend_tb_chunk_sensitive",
     "backend_acs_radix",
     "backend_acs_impl",
     "knob_error",
@@ -66,19 +77,19 @@ def _start_states(pm: torch.Tensor, start_policy: str) -> torch.Tensor | int:
     return 0
 
 
-def _two_phase(blocks: FramedBlocks, code: ConvCode, forward, walk, start_policy, metric_mode,
-               acs_radix):
-    sp, pm = forward(blocks.y, code, metric_mode=metric_mode, radix=acs_radix)
+def _two_phase(blocks: FramedBlocks, code: ConvCode, forward, walk, *, start_policy,
+               metric_mode, acs_radix, acs_impl, acs_k):
+    sp, pm = forward(blocks.y, code, metric_mode, acs_radix, acs_impl, acs_k)
     start = _start_states(pm, start_policy)
     bits = walk(sp, code, blocks.decode_start, blocks.n_decode, start)
     return bits[:, : blocks.n_real_blocks]
 
 
-_MODES = ("f32", "i16", "i8")
-_RADIXES = (2, 4)
+_KNOBS = dict(metric_modes=("f32", "i16", "i8"), tb_modes=("serial", "prefix"),
+              acs_radix=(2, 4), acs_impl=("butterfly", "matrix"))
 
 
-@register_backend("ref", metric_modes=_MODES, acs_radix=_RADIXES)
+@register_backend("ref", tb_chunk_sensitive=False, **_KNOBS)
 def _decode_ref(
     blocks: FramedBlocks,
     code: ConvCode,
@@ -86,17 +97,24 @@ def _decode_ref(
     start_policy: str = "zero",
     metric_mode: str = "f32",
     tb_mode: str = "serial",
+    tb_chunk: int = DEFAULT_TB_CHUNK,
     acs_radix: int = 2,
     acs_impl: str = "butterfly",
+    acs_k: int = DEFAULT_ACS_K,
 ) -> torch.Tensor:
-    """Plain PyTorch path (the oracle)."""
-    return _two_phase(
-        blocks, code, _ref.acs_forward_ref, _ref.traceback_ref, start_policy, metric_mode,
-        acs_radix,
-    )
+    """Plain PyTorch path (the oracle). ``tb_mode="prefix"`` runs the
+    log-depth scan over the whole history, so ``tb_chunk`` is ignored."""
+
+    def forward(y, code, mode, radix, impl, k):
+        return _ref.acs_forward_ref(y, code, mode, radix, impl, matrix_k=k)
+
+    walk = _ref.traceback_prefix_ref if tb_mode == "prefix" else _ref.traceback_ref
+    return _two_phase(blocks, code, forward, walk, start_policy=start_policy,
+                      metric_mode=metric_mode, acs_radix=acs_radix, acs_impl=acs_impl,
+                      acs_k=acs_k)
 
 
-@register_backend("cuda", metric_modes=_MODES, acs_radix=_RADIXES)
+@register_backend("cuda", **_KNOBS)
 def _decode_cuda(
     blocks: FramedBlocks,
     code: ConvCode,
@@ -104,17 +122,22 @@ def _decode_cuda(
     start_policy: str = "zero",
     metric_mode: str = "f32",
     tb_mode: str = "serial",
+    tb_chunk: int = DEFAULT_TB_CHUNK,
     acs_radix: int = 2,
     acs_impl: str = "butterfly",
+    acs_k: int = DEFAULT_ACS_K,
 ) -> torch.Tensor:
-    """Two-kernel path: K1 forward ACS, then K2 serial traceback."""
-    return _two_phase(
-        blocks, code, _acs.acs_forward, _traceback.traceback, start_policy, metric_mode,
-        acs_radix,
-    )
+    """Two-kernel path: K1 (or K1-matrix), then K2 (or K2-prefix)."""
+    if tb_mode == "prefix":
+        walk = functools.partial(_traceback.traceback_prefix, tb_chunk=tb_chunk)
+    else:
+        walk = _traceback.traceback
+    return _two_phase(blocks, code, _acs.acs_forward, walk, start_policy=start_policy,
+                      metric_mode=metric_mode, acs_radix=acs_radix, acs_impl=acs_impl,
+                      acs_k=acs_k)
 
 
-@register_backend("fused", start_policies=("zero",), metric_modes=_MODES, acs_radix=_RADIXES)
+@register_backend("fused", start_policies=("zero",), **_KNOBS)
 def _decode_fused(
     blocks: FramedBlocks,
     code: ConvCode,
@@ -122,10 +145,12 @@ def _decode_fused(
     start_policy: str = "zero",
     metric_mode: str = "f32",
     tb_mode: str = "serial",
+    tb_chunk: int = DEFAULT_TB_CHUNK,
     acs_radix: int = 2,
     acs_impl: str = "butterfly",
+    acs_k: int = DEFAULT_ACS_K,
 ) -> torch.Tensor:
-    """Single-kernel path (ACS + on-chip serial walk, bit-packed output),
+    """Single-kernel path (ACS + on-chip walk, bit-packed output),
     unpacked here to the common ``(n_decode, n_real)`` bits."""
     if start_policy != "zero":
         # direct backend callers bypass the dispatcher's eager check; fail
@@ -134,7 +159,8 @@ def _decode_fused(
     nd = -(-blocks.n_decode // 32) * 32  # the kernel emits 32-bit words
     packed = _fused.pbvd_fused(
         blocks.y, code, decode_start=blocks.decode_start, n_decode=nd,
-        metric_mode=metric_mode, radix=acs_radix,
+        metric_mode=metric_mode, radix=acs_radix, tb_mode=tb_mode, tb_chunk=tb_chunk,
+        impl=acs_impl, k=acs_k,
     )
     # unpack only what is kept: the real lanes, and the live rows of the
     # ragged last word
@@ -161,8 +187,10 @@ def pbvd_decode_blocks(
     frame_counts: tuple[int, ...] | None = None,
     metric_mode: str = "f32",
     tb_mode: str = "serial",
+    tb_chunk: int = DEFAULT_TB_CHUNK,
     acs_radix: int = 2,
     acs_impl: str = "butterfly",
+    acs_k: int = DEFAULT_ACS_K,
 ) -> torch.Tensor:
     """Decode framed parallel blocks via the named backend.
 
@@ -170,13 +198,18 @@ def pbvd_decode_blocks(
         exact quantized path), framed [trunc M | decode D | traceback L]. The
         lane axis may pack several frames (``frame_counts``, see
         :class:`FramedBlocks`).
+    ``tb_mode`` is ``"serial"``, ``"prefix"`` (chunks of ``tb_chunk``
+    stages) or ``"auto"`` (the backend's declared mode); ``acs_impl`` is
+    ``"butterfly"`` (at ``acs_radix``) or ``"matrix"`` (``acs_k`` stages per
+    step; ``acs_radix`` is then ignored, as in the reference).
     Returns (n_decode, n_real_blocks) int32 decoded bits.
 
     Backend and knobs are validated before anything runs: an unknown
     backend raises ``KeyError``; an unsupported start policy, metric mode,
     tb mode, radix or impl raises :func:`knob_error`'s ``ValueError``, and
-    so do radix 4 on a code with K < 3 and a narrow metric mode whose
-    saturation budget cannot take the radix (``norm_interval``).
+    so do ``tb_chunk < 1``, an ``acs_k`` outside ``validate_matrix_k``'s
+    bounds, radix 4 on a code with K < 3 and a narrow metric mode whose
+    saturation budget cannot take the radix or k (``norm_interval``).
     """
     supported = backend_start_policies(backend)  # KeyError for unknown backend
     if start_policy not in supported:
@@ -188,24 +221,36 @@ def pbvd_decode_blocks(
     supported_tb = backend_tb_modes(backend)
     if tb_mode not in supported_tb:
         raise knob_error(backend, "tb_mode", tb_mode, supported_tb)
+    if tb_chunk < 1:
+        raise ValueError(f"tb_chunk must be >= 1, got {tb_chunk}")
     supported_impl = backend_acs_impl(backend)
     if acs_impl not in supported_impl:
         raise knob_error(backend, "acs_impl", acs_impl, supported_impl)
-    supported_radix = backend_acs_radix(backend)
-    if acs_radix not in supported_radix:
-        raise knob_error(backend, "acs_radix", acs_radix, supported_radix)
-    if acs_radix == 4 and code.n_states < 4:
-        raise ValueError(f"acs_radix=4 needs K >= 3 (got K={code.K})")
-    # narrow modes: the normalization cadence must exist at this radix —
-    # norm_interval raises before anything launches when the budget cannot
-    # absorb the fused double-stage accumulation
-    norm_interval(code, metric_mode, acs_radix)
+    if acs_impl == "matrix":
+        # the fusion depth's structural bounds, then the narrow modes' budget
+        # for k unnormalized stages per step; the radix is inert here
+        code.validate_matrix_k(acs_k)
+        norm_interval(code, metric_mode, stages_per_step=acs_k)
+        acs_radix = 2
+    else:
+        supported_radix = backend_acs_radix(backend)
+        if acs_radix not in supported_radix:
+            raise knob_error(backend, "acs_radix", acs_radix, supported_radix)
+        if acs_radix == 4 and code.n_states < 4:
+            raise ValueError(f"acs_radix=4 needs K >= 3 (got K={code.K})")
+        # narrow modes: the normalization cadence must exist at this radix
+        norm_interval(code, metric_mode, acs_radix)
+        acs_k = DEFAULT_ACS_K
+    if tb_mode == "serial" or not backend_tb_chunk_sensitive(backend):
+        tb_chunk = DEFAULT_TB_CHUNK  # inert: the launch ignores it
     return get_backend(backend)(
         FramedBlocks(y_blocks, decode_start, n_decode, frame_counts),
         code,
         start_policy=start_policy,
         metric_mode=metric_mode,
         tb_mode=tb_mode,
+        tb_chunk=tb_chunk,
         acs_radix=acs_radix,
         acs_impl=acs_impl,
+        acs_k=acs_k,
     )

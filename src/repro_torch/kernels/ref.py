@@ -13,10 +13,15 @@ The counterpart of ``repro.kernels.ref`` on the slice the port covers:
 3. ``pbvd_decode_ref`` — the block decoder composed of (2), and
    ``pbvd_fused_ref`` — the same decode with the fused kernel's output: the
    decoded bits of the window packed 32 to an int32 word.
+4. The k-stage (min,+) matrix ACS (``_matrix_step``,
+   ``acs_forward_ref(impl="matrix")``) and the prefix traceback: the
+   log-depth oracle ``traceback_prefix_ref`` and the chunked three-phase
+   walk ``traceback_prefix_chunked_ref``, the plain version of the CUDA
+   prefix kernels.
 
-The metric modes ``"f32"``, ``"i16"`` and ``"i8"`` and the radix-2 and
-radix-4 butterflies are ported; the matrix formulation and other knob
-values raise ``ValueError``.
+The metric modes ``"f32"``, ``"i16"`` and ``"i8"``, the radix-2 and radix-4
+butterflies, the matrix formulation and the prefix traceback are ported;
+other knob values raise ``ValueError``.
 
 Conventions:
   state ``d``; transition with input x: next = (x << (v-1)) | (d >> 1)
@@ -41,8 +46,15 @@ __all__ = [
     "expand_folded_bm",
     "folded_radix4_bm_table",
     "expand_folded_radix4_bm",
+    "folded_matrix_bm_table",
+    "expand_folded_matrix_bm",
     "acs_forward_ref",
     "traceback_ref",
+    "stage_maps_ref",
+    "traceback_prefix_ref",
+    "DEFAULT_TB_CHUNK",
+    "prefix_chunk_geometry",
+    "traceback_prefix_chunked_ref",
     "pbvd_decode_ref",
     "pbvd_fused_ref",
 ]
@@ -151,6 +163,21 @@ def folded_radix4_bm_table(y2: torch.Tensor, code: ConvCode, dim: int = -1) -> t
 def expand_folded_radix4_bm(bm2_folded: torch.Tensor, code: ConvCode, dim: int = -1):
     """(2^(2R-1) along ``dim``) combined folded table → full 2^(2R) table."""
     return _expand_signed(bm2_folded, code.fold_index4, code.fold_sign4, dim)
+
+
+def folded_matrix_bm_table(yk: torch.Tensor, code: ConvCode, k: int, dim: int = -1):
+    """Combined k-stage folded BM table along ``dim`` (kR → 2^(kR-1)).
+
+    ``yk`` is the stage window ``[y_t; ...; y_{t+k-1}]`` stacked along
+    ``dim``. The combined label stays antipodal, so only the 2^(kR-1) fold
+    representatives are computed, as static add/sub chains.
+    """
+    return _signed_rows(yk, code.folded_matrix_codeword_signs(k), dim)
+
+
+def expand_folded_matrix_bm(bmk_folded: torch.Tensor, code: ConvCode, k: int, dim: int = -1):
+    """(2^(kR-1) along ``dim``) combined folded table → full 2^(kR) table."""
+    return _expand_signed(bmk_folded, code.fold_index_matrix(k), code.fold_sign_matrix(k), dim)
 
 
 def _pack_decisions(dec_bits: torch.Tensor) -> torch.Tensor:
@@ -272,6 +299,44 @@ def _radix4_step(
     return torch.cat(outs, dim=0), dec1, torch.cat(d2, dim=0)
 
 
+def _matrix_step(pm: torch.Tensor, ys: torch.Tensor, code: ConvCode, k: int) -> tuple:
+    """One k-stage (min,+) matrix ACS step (integer accumulators only).
+
+    pm (N, B) at time t; ys (k, R, B) symbols of stages t..t+k-1 in the
+    accumulator dtype. Returns (new_pm (N, B) at time t+k, [dec_0 ..
+    dec_{k-1}]), dec_i the standard radix-2 survivor plane of stage t+i.
+
+    Target ``n' = c·U + u`` (U = N/2^k) has the 2^k predecessors
+    ``2^k·u + j``; its candidates are ``pm[2^k·u + j] + BMk(cc[c, j, u])``
+    with BMk from the 2^(kR-1) folded combined metrics. A suffix-min
+    tournament from j's LSB reduces them; round i compares ``j = 2h`` with
+    ``2h + 1`` (strict ``<`` on the odd one, so ties keep the even) and its
+    decisions are the stage-(t+i) plane, read off the groups c < 2^(i+1)
+    at state ``c·N/2^(i+1) + u·2^(k-1-i) + h``. Exact because integer
+    addition is associative and the later stages' terms are a common
+    offset to both compared candidates; float never reaches here (the
+    callers lower float to the radix-2 butterfly).
+    """
+    if pm.is_floating_point():
+        raise ValueError("_matrix_step is integer-exact only; float lowers to radix 2")
+    N, B = pm.shape
+    nk = 1 << k
+    U = N >> k
+    yk = ys.reshape(k * code.R, B)  # stage-major stack [y_t; ...; y_{t+k-1}]
+    bmk = expand_folded_matrix_bm(folded_matrix_bm_table(yk, code, k, dim=0), code, k, dim=0)
+    cc = torch.as_tensor(code.matrix_acs_tables(k)["cc"], dtype=torch.long, device=pm.device)
+    pmk = pm.reshape(U, nk, B).transpose(0, 1)  # [j, u] = pm[2^k·u + j]
+    cand = pmk[None] + bmk[cc]  # (c, j, u, B)
+    planes = []
+    for i in range(k):
+        even, odd = cand[:, 0::2], cand[:, 1::2]
+        dec = (odd < even).to(torch.int32)  # (c, h, u, B)
+        cand = torch.minimum(even, odd)
+        # groups c < 2^(i+1) cover every intermediate state exactly once
+        planes.append(dec[: 2 << i].permute(0, 2, 1, 3).reshape(N, B))
+    return cand[:, 0].reshape(N, B), planes
+
+
 def _min_subtract(pm: torch.Tensor) -> torch.Tensor:
     return pm - pm.min(dim=0, keepdim=True).values
 
@@ -283,37 +348,51 @@ def acs_forward_ref(
     radix: int = 2,
     impl: str = "butterfly",
     r4_combine: bool = False,
+    matrix_k: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward ACS over a batch of parallel blocks (paper K1).
 
     y: (T, R, B) soft symbols, int8/int16/int32 or float32. Integer symbols
     accumulate exactly: int32 for ``metric_mode="f32"``, int16/int8 for
     ``"i16"``/``"i8"``, which clip the symbols to ±``metric_mode_qmax`` and
-    min-subtract every ``norm_interval(code, mode, radix)`` ACS steps (the
-    step count is global: ``step % norm_every == norm_every - 1``). Symbols
-    are widened to the accumulator type before any negation, as in the
-    reference.
+    min-subtract every ``norm_every`` ACS steps (the step count is global:
+    ``step % norm_every == norm_every - 1``; ``norm_every`` is
+    ``norm_interval(code, mode, radix)``, or ``stages_per_step=matrix_k``
+    for the matrix impl). Symbols are widened to the accumulator type
+    before any negation, as in the reference.
 
     ``radix=4`` runs ceil(T/2) stage-fused steps (odd T: one trailing
     radix-2 step, min-subtracted unconditionally in narrow modes) and emits
     the same two radix-2 survivor planes per step, so ``sp`` equals radix
     2's; ``r4_combine`` picks the combined-metric form of the step (see
-    :func:`_radix4_step`). Returns (sp, pm_final):
+    :func:`_radix4_step`). ``impl="matrix"`` runs T // matrix_k k-stage
+    (min,+) steps (:func:`_matrix_step`) and then the T mod k trailing
+    stages radix 2, each min-subtracted unconditionally in narrow modes;
+    ``radix`` is ignored. Float accumulators lower the matrix impl to the
+    radix-2 butterfly (IEEE addition is not associative), so ``sp`` and
+    ``pm`` are the butterfly's. Returns (sp, pm_final):
       sp: (T, ceil(N/32), B) int32 bit-packed survivor decisions
       pm_final: (N, B) final path metrics (float32/int32, or int16/int8
       normalized in the narrow modes).
     """
-    if impl != "butterfly":
-        raise ValueError(f"acs impl {impl!r} is not ported yet; supported: ('butterfly',)")
+    if impl not in ("butterfly", "matrix"):
+        raise ValueError(f"impl must be 'butterfly' or 'matrix', got {impl!r}")
     if radix not in (2, 4):
         raise ValueError(f"radix must be 2 or 4, got {radix}")
     T, R, B = y.shape
     if R != code.R:
         raise ValueError(f"symbol rank {R} != code R {code.R}")
-    if radix == 4 and code.n_states < 4:
+    if impl == "butterfly" and radix == 4 and code.n_states < 4:
         raise ValueError(f"radix-4 ACS needs K >= 3 (got K={code.K})")
     acc_dtype = _acc_dtype_for(y.dtype, metric_mode)
-    norm_every = norm_interval(code, metric_mode, radix)  # 0 → never (f32)
+    if impl == "matrix":
+        code.validate_matrix_k(matrix_k)
+        if acc_dtype.is_floating_point:
+            impl, radix = "butterfly", 2  # the float lowering
+    if impl == "matrix":
+        norm_every = norm_interval(code, metric_mode, stages_per_step=matrix_k)
+    else:
+        norm_every = norm_interval(code, metric_mode, radix)  # 0 → never (f32)
     if norm_every:
         # saturate out-of-budget pre-quantized symbols on ingestion: the
         # no-saturation guarantee assumes |y| ≤ metric_mode_qmax
@@ -324,7 +403,7 @@ def acs_forward_ref(
         k: torch.as_tensor(code.acs_tables[k], dtype=torch.long, device=dev)
         for k in ("cw_top_even", "cw_top_odd", "cw_bot_even", "cw_bot_odd")
     }
-    if radix == 4:
+    if impl == "butterfly" and radix == 4:
         tabs["cc"] = torch.as_tensor(code.radix4_acs_tables["cc"], dtype=torch.long, device=dev)
     y = y.to(acc_dtype)
     # every stage's folded table at once: elementwise, so the same arithmetic
@@ -337,6 +416,22 @@ def acs_forward_ref(
             return _min_subtract(pm)
         return pm
 
+    if impl == "matrix":
+        n_steps = T // matrix_k
+        for r in range(n_steps):
+            t = r * matrix_k
+            pm, planes = _matrix_step(pm, y[t : t + matrix_k], code, matrix_k)
+            pm = norm(pm, r)
+            for i, dec in enumerate(planes):
+                sp[t + i] = _pack_decisions(dec)
+        for t in range(n_steps * matrix_k, T):
+            # trailing radix-2 stages (T mod k); narrow modes normalize here
+            # unconditionally — a uniform shift, decision- and argmin-invariant
+            pm, dec = _radix2_stage(pm, bm_all[t], tabs)
+            if norm_every:
+                pm = _min_subtract(pm)
+            sp[t] = _pack_decisions(dec)
+        return sp, pm
     if radix == 2:
         for t in range(T):
             pm, dec = _radix2_stage(pm, bm_all[t], tabs)
@@ -395,6 +490,139 @@ def traceback_ref(
     return bits
 
 
+def stage_maps_ref(sp: torch.Tensor, code: ConvCode) -> torch.Tensor:
+    """Per-stage predecessor maps from packed survivor words.
+
+    sp: (T, W, B) → f: (T, N, B) int32, ``f[t, n]`` the state the walk moves
+    to from state ``n`` after stage t: ``2·(n mod N/2) + sp_bit_t(n)``.
+    """
+    N = code.n_states
+    states = torch.arange(N, dtype=torch.int32, device=sp.device)
+    words = sp[:, (states >> 5).long(), :]  # (T, N, B)
+    bits = (words >> (states & 31)[None, :, None]) & 1  # arithmetic >> then & 1
+    return 2 * (states % (N // 2))[None, :, None] + bits
+
+
+def traceback_prefix_ref(
+    sp: torch.Tensor,
+    code: ConvCode,
+    decode_start: int,
+    n_decode: int,
+    start_state: torch.Tensor | int = 0,
+) -> torch.Tensor:
+    """Parallel-prefix traceback, the log-depth oracle: bits equal
+    :func:`traceback_ref`'s for any survivor history.
+
+    The stage maps reversed in time, ``x[i] = f_{T-1-i}``, are scanned with
+    the composition ``compose(a, b) = b.gather(1, a)`` ("b after a"), by
+    Hillis–Steele doubling: after the round of distance d, ``x[i]`` is the
+    composition of the 2d maps ending at i. That is exact, since it
+    composes integer maps. Prefix i applied to the start state is the walk
+    state at time T-1-i; the bit of stage t is the MSB of the state at time
+    t+1. Returns (n_decode, B) int32 bits of [decode_start, +n_decode).
+    """
+    T, W, B = sp.shape
+    if not 0 <= decode_start <= T - n_decode:
+        raise ValueError(
+            f"decode region [{decode_start}, {decode_start + n_decode}) outside [0, {T})"
+        )
+    x = stage_maps_ref(sp, code).flip(0)
+    d = 1
+    while d < T:
+        nxt = x.clone()
+        nxt[d:] = x[d:].gather(1, x[:-d].long())
+        x, d = nxt, 2 * d
+    start = torch.as_tensor(start_state, dtype=torch.int32, device=sp.device)
+    start = start.broadcast_to((B,))
+    walked = x.gather(1, start.long().broadcast_to((T, 1, B)))[:, 0]  # (T, B)
+    # states at times [T, T-1, ..., 1]; bit t = MSB of the state at time t+1
+    states_desc = torch.cat([start[None], walked[: T - 1]], dim=0)
+    bits = (states_desc >> (code.v - 1)).flip(0)
+    return bits[decode_start : decode_start + n_decode].contiguous()
+
+
+#: stages per chunk of the prefix traceback unless the caller says otherwise
+DEFAULT_TB_CHUNK = 64
+
+
+def prefix_chunk_geometry(T: int, decode_start: int, n_decode: int, tb_chunk: int):
+    """Static chunk geometry of the prefix traceback, as the reference's.
+
+    Returns ``(C, P, n_chunks, c_lo, c_hi)``: the chunk size ``min(tb_chunk,
+    T)``, the padding below stage 0 that makes ``T + P`` a chunk multiple
+    (the top stage stays T-1), the chunk count, and the first and last chunk
+    (after padding) that touch the decode region. Chunks below ``c_lo`` are
+    skipped; chunks above ``c_hi`` are composed and walked, not expanded.
+    """
+    if tb_chunk < 1:
+        raise ValueError(f"tb_chunk must be >= 1, got {tb_chunk}")
+    if not 0 <= decode_start <= T - n_decode:
+        raise ValueError(
+            f"decode region [{decode_start}, {decode_start + n_decode}) "
+            f"outside [0, {T})"
+        )
+    C = min(tb_chunk, T)
+    P = (-T) % C
+    n_chunks = (T + P) // C
+    ds = decode_start + P
+    c_lo = ds // C
+    c_hi = (ds + n_decode - 1) // C
+    return C, P, n_chunks, c_lo, c_hi
+
+
+def traceback_prefix_chunked_ref(
+    sp: torch.Tensor,
+    code: ConvCode,
+    decode_start: int,
+    n_decode: int,
+    start_state: torch.Tensor | int = 0,
+    tb_chunk: int = DEFAULT_TB_CHUNK,
+) -> torch.Tensor:
+    """The chunked prefix traceback in three phases, as the reference's
+    ``_prefix_traceback_phases``: the plain version of the CUDA kernels.
+
+    sp (T, W, B) gets P zero stages *below* stage 0 and is cut into chunks
+    of C stages; chunks below ``c_lo`` are skipped. Phase A composes each
+    active chunk's C stage maps, top down, into one N-entry map; phase B
+    walks the composed maps from ``start_state`` (the only serial chain,
+    ``n_chunks - c_lo`` steps) and records each expansion chunk's entry
+    state; phase C re-walks the expansion chunks ``c_lo..c_hi`` in parallel
+    and emits their bits. Returns (n_decode, B) int32, equal to
+    :func:`traceback_ref`'s bits.
+    """
+    T, W, B = sp.shape
+    C, P, n_chunks, c_lo, c_hi = prefix_chunk_geometry(T, decode_start, n_decode, tb_chunk)
+    N, v, dev = code.n_states, code.v, sp.device
+    half = N // 2
+    if P:
+        sp = torch.cat([sp.new_zeros((P, W, B)), sp], dim=0)
+    spr = sp.reshape(n_chunks, C, W, B)[c_lo:]  # the active chunks
+    n_act, nc_e = n_chunks - c_lo, c_hi - c_lo + 1
+    # ---- phase A: compose, all active chunks x states at once ----
+    maps = torch.arange(N, dtype=torch.int32, device=dev)[None, :, None]
+    maps = maps.expand(n_act, N, B).contiguous()
+    for row in range(C - 1, -1, -1):  # stages top down within each chunk
+        word = spr[:, row].gather(1, (maps >> 5).long())  # (n_act, N, B)
+        maps = 2 * (maps % half) + ((word >> (maps & 31)) & 1)
+    # ---- phase B: walk the composed maps, record entry states ----
+    state = torch.as_tensor(start_state, dtype=torch.int32, device=dev)
+    state = state.broadcast_to((B,)).clone()
+    entry = torch.empty((nc_e, B), dtype=torch.int32, device=dev)
+    for c in range(n_act - 1, -1, -1):
+        if c < nc_e:
+            entry[c] = state  # walk state at the top of chunk c
+        state = maps[c].gather(0, state.long()[None])[0]
+    # ---- phase C: expand the decode chunks in parallel ----
+    bits = torch.empty((nc_e, C, B), dtype=torch.int32, device=dev)
+    state = entry
+    for row in range(C - 1, -1, -1):
+        bits[:, row] = state >> (v - 1)
+        word = spr[:nc_e, row].gather(1, (state >> 5).long()[:, None])[:, 0]
+        state = 2 * (state % half) + ((word >> (state & 31)) & 1)
+    ds_local = decode_start + P - c_lo * C
+    return bits.reshape(nc_e * C, B)[ds_local : ds_local + n_decode].contiguous()
+
+
 def pbvd_decode_ref(
     y_blocks: torch.Tensor,
     code: ConvCode,
@@ -418,24 +646,37 @@ def pbvd_fused_ref(
     start_state: torch.Tensor | int | None = None,
     metric_mode: str = "f32",
     radix: int = 2,
+    tb_mode: str = "serial",
+    tb_chunk: int = DEFAULT_TB_CHUNK,
+    impl: str = "butterfly",
+    k: int = 2,
 ) -> torch.Tensor:
     """The fused decode: y (T, R, B) → packed bits (n_decode/32, B) int32.
 
-    Forward ACS, the serial walk from ``start_state`` (zeros by default)
-    and the packing: bit ``b & 31`` of word ``b >> 5`` is the decoded bit
-    of stage ``decode_start + b``, bit 31 being the int32 sign bit.
-    ``n_decode`` must be a multiple of 32; bits of stages at or beyond T
-    (a packed width that overhangs the block) stay 0.
+    Forward ACS (butterfly at ``radix``, or the k-stage matrix impl), the
+    walk from ``start_state`` (zeros by default) — serial, or the chunked
+    prefix walk (:func:`traceback_prefix_chunked_ref`, chunk geometry over
+    the bits that exist) — and the packing: bit ``b & 31`` of word
+    ``b >> 5`` is the decoded bit of stage ``decode_start + b``, bit 31
+    being the int32 sign bit. ``n_decode`` must be a multiple of 32; bits
+    of stages at or beyond T (a packed width that overhangs the block)
+    stay 0.
     """
     T = y.shape[0]
     if n_decode % 32:
         raise ValueError("n_decode must be a multiple of 32")
     if not 0 <= decode_start < T:
         raise ValueError(f"decode_start {decode_start} outside [0, {T})")
-    sp, _ = acs_forward_ref(y, code, metric_mode=metric_mode, radix=radix)
+    if tb_mode not in ("serial", "prefix"):
+        raise ValueError(f"unknown tb_mode {tb_mode!r}")
+    sp, _ = acs_forward_ref(y, code, metric_mode=metric_mode, radix=radix, impl=impl,
+                            matrix_k=k)
     n_window = min(n_decode, T - decode_start)
-    bits = traceback_ref(sp, code, decode_start, n_window,
-                         0 if start_state is None else start_state)
+    start = 0 if start_state is None else start_state
+    if tb_mode == "prefix":
+        bits = traceback_prefix_chunked_ref(sp, code, decode_start, n_window, start, tb_chunk)
+    else:
+        bits = traceback_ref(sp, code, decode_start, n_window, start)
     if n_window < n_decode:
         bits = torch.cat([bits, bits.new_zeros((n_decode - n_window, bits.shape[1]))])
     return _pack_decisions(bits)

@@ -4,18 +4,17 @@ The counterpart of ``repro.kernels.registry``. Every backend is a function
 with the common contract
 
     backend(blocks: FramedBlocks, code: ConvCode, *,
-            start_policy, metric_mode, tb_mode, acs_radix, acs_impl)
+            start_policy, metric_mode, tb_mode, tb_chunk, acs_radix,
+            acs_impl, acs_k)
         -> (n_decode, B_real) int32 bits
 
 registered under a name via ``@register_backend("name")``. Backends declare
 the knob values they implement; the dispatcher and ``PBVDConfig`` reject
 any other value eagerly with :func:`knob_error`.
 
-The knob contracts below hold only what the port implements so far: the
-metric modes ``"f32"``, ``"i16"`` and ``"i8"``, the serial traceback, the
-radix-2 and radix-4 butterflies. The reference's prefix traceback and
-matrix ACS are still to be ported; a backend cannot declare them until
-their contract entries land here.
+The knob contracts below hold what the port implements: the metric modes
+``"f32"``, ``"i16"`` and ``"i8"``, the serial and prefix tracebacks, the
+radix-2 and radix-4 butterflies and the k-stage (min,+) matrix ACS.
 """
 
 from __future__ import annotations
@@ -30,12 +29,14 @@ __all__ = [
     "TB_MODES",
     "ACS_RADIX",
     "ACS_IMPL",
+    "DEFAULT_ACS_K",
     "register_backend",
     "get_backend",
     "available_backends",
     "backend_start_policies",
     "backend_metric_modes",
     "backend_tb_modes",
+    "backend_tb_chunk_sensitive",
     "backend_acs_radix",
     "backend_acs_impl",
     "backend_preferred_tb_mode",
@@ -71,11 +72,22 @@ METRIC_MODES: dict[str, dict[str, Any]] = {
     ),
 }
 
+# Both traceback modes are bit-exact for every survivor history; the choice
+# trades the walk's dependent chain against work and scratch. ``tb_chunk``
+# sizes the prefix chunks; a backend registered with
+# ``tb_chunk_sensitive=False`` (``"ref"``'s full-depth scan) ignores it.
 TB_MODES: dict[str, dict[str, Any]] = {
     "serial": dict(
         serial_steps="T - decode_start (early exit below the decode region)",
         scratch="none beyond the survivor history",
-        when="the paper's walk; the only traceback ported so far",
+        when="the paper's walk; what tb_mode='auto' resolves to on every backend",
+    ),
+    "prefix": dict(
+        serial_steps="ceil(T/tb_chunk) composed-map walk",
+        scratch="composed maps (n_active·N·4 B per block) + entry states + "
+        "(fused) the decode window's bits",
+        when="the walk's O(T) chain becomes O(T/C), with the composition and "
+        "the expansion parallel over chunks × states",
     ),
 }
 
@@ -98,9 +110,19 @@ ACS_IMPL: dict[str, dict[str, Any]] = {
     "butterfly": dict(
         serial_steps="T compare-select steps",
         metrics_per_step="2^(R-1) folded branch metrics",
-        when="the paper's formulation; the only one ported so far",
+        when="the paper's formulation",
+    ),
+    "matrix": dict(
+        serial_steps="T // acs_k (min,+) steps + T mod acs_k radix-2 stages",
+        metrics_per_step="2^(kR-1) folded combined k-stage metrics",
+        when="a k-fold shorter forward chain; integer symbols only (float "
+        "lowers to the radix-2 butterfly); 1 <= k <= v and k·R <= 8, and the "
+        "narrow modes' budget must absorb k unnormalized stages",
     ),
 }
+
+#: matrix-ACS fusion depth unless the caller says otherwise
+DEFAULT_ACS_K = 2
 
 
 def knob_error(backend: str, knob: str, value: Any, allowed) -> ValueError:
@@ -158,8 +180,10 @@ class DecodeBackend(Protocol):
         start_policy: str,
         metric_mode: str,
         tb_mode: str,
+        tb_chunk: int,
         acs_radix: int,
         acs_impl: str,
+        acs_k: int,
     ) -> Any: ...
 
 
@@ -172,6 +196,7 @@ def register_backend(
     start_policies: tuple[str, ...] = ("zero", "argmin"),
     metric_modes: tuple[str, ...] = ("f32",),
     tb_modes: tuple[str, ...] = ("serial",),
+    tb_chunk_sensitive: bool = True,
     preferred_tb_mode: str = "serial",
     acs_radix: tuple[int, ...] = (2,),
     acs_impl: tuple[str, ...] = ("butterfly",),
@@ -180,7 +205,9 @@ def register_backend(
 
     Each keyword declares the values of one knob the backend implements; the
     declared values must exist in the matching contract above.
-    ``preferred_tb_mode`` is what ``tb_mode="auto"`` resolves to.
+    ``preferred_tb_mode`` is what ``tb_mode="auto"`` resolves to;
+    ``tb_chunk_sensitive=False`` declares that the backend's prefix
+    traceback ignores ``tb_chunk``.
     """
     for knob, declared, contract in (
         ("metric modes", metric_modes, METRIC_MODES),
@@ -204,6 +231,7 @@ def register_backend(
         fn.start_policies = tuple(start_policies)  # type: ignore[attr-defined]
         fn.metric_modes = tuple(metric_modes)  # type: ignore[attr-defined]
         fn.tb_modes = tuple(tb_modes)  # type: ignore[attr-defined]
+        fn.tb_chunk_sensitive = bool(tb_chunk_sensitive)  # type: ignore[attr-defined]
         fn.preferred_tb_mode = str(preferred_tb_mode)  # type: ignore[attr-defined]
         fn.acs_radix = tuple(acs_radix)  # type: ignore[attr-defined]
         fn.acs_impl = tuple(acs_impl)  # type: ignore[attr-defined]
@@ -234,6 +262,11 @@ def backend_metric_modes(name: str) -> tuple[str, ...]:
 def backend_tb_modes(name: str) -> tuple[str, ...]:
     """Traceback modes the named backend supports (see :data:`TB_MODES`)."""
     return get_backend(name).tb_modes
+
+
+def backend_tb_chunk_sensitive(name: str) -> bool:
+    """Whether the named backend's prefix traceback depends on ``tb_chunk``."""
+    return get_backend(name).tb_chunk_sensitive
 
 
 def backend_acs_radix(name: str) -> tuple[int, ...]:

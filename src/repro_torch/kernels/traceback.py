@@ -1,13 +1,18 @@
-"""K2, the serial traceback kernel (``csrc/traceback.cu``): wrapper, plain
-version, count.
+"""The traceback kernels (``csrc/traceback.cu``): wrappers, plain versions,
+counts.
 
-Replaces ``repro.kernels.traceback._traceback_kernel`` (driven by
-``traceback_pallas``). :func:`traceback` takes the plain PyTorch version
-:func:`traceback_plain` (``repro_torch.kernels.ref.traceback_ref``) for a
-CPU tensor; for a CUDA tensor it launches the CUDA kernel or raises. What
-bounds the kernel on the card is noted in the CUDA source.
+K2 replaces ``repro.kernels.traceback._traceback_kernel`` (driven by
+``traceback_pallas``); K2-prefix replaces ``_traceback_prefix_kernel``
+(driven by ``traceback_prefix_pallas``), the chunked parallel-prefix walk
+whose three phases (``csrc/traceback_core.cuh``) it shares with the fused
+kernel. :func:`traceback` and :func:`traceback_prefix` take the plain
+PyTorch versions :func:`traceback_plain` (``ref.traceback_ref``) and
+:func:`traceback_prefix_plain` (``ref.traceback_prefix_chunked_ref``) for a
+CPU tensor; for a CUDA tensor they launch their kernel or raise. What
+bounds each kernel on the card is noted in the CUDA source.
 
-``launches`` counts the kernel's launches, and nothing else.
+``launches`` counts K2's launches and ``prefix_launches`` K2-prefix's, and
+nothing else.
 """
 
 from __future__ import annotations
@@ -18,12 +23,33 @@ import torch
 
 from repro_torch.core.trellis import ConvCode
 from . import _build
-from .ref import traceback_ref as traceback_plain
+from .ref import (
+    DEFAULT_TB_CHUNK,
+    prefix_chunk_geometry,
+    traceback_prefix_chunked_ref as traceback_prefix_plain,
+    traceback_ref as traceback_plain,
+)
 
-__all__ = ["traceback", "traceback_plain", "launches"]
+__all__ = [
+    "DEFAULT_TB_CHUNK",
+    "prefix_chunk_geometry",
+    "prefix_smem_plan",
+    "traceback",
+    "traceback_plain",
+    "traceback_prefix",
+    "traceback_prefix_plain",
+    "launches",
+    "prefix_launches",
+    "SMEM_PER_CTA",
+]
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of K2 since the count was last set to 0
 launches = 0
+#: launches of K2-prefix since the count was last set to 0
+prefix_launches = 0
+
+#: dynamic shared memory one CTA may use on the H100, in bytes
+SMEM_PER_CTA = 232448
 
 
 def _lib() -> ctypes.CDLL:
@@ -33,7 +59,31 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, i, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
+        fn = lib.pbvd_traceback_prefix
+        fn.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, i, i, p, p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def prefix_smem_plan(n_states: int, n_act: int, nc_e: int) -> tuple[int, int]:
+    """(parallel blocks per CTA, shared bytes per CTA) of K2-prefix.
+
+    A parallel block holds its ``n_act`` composed maps of N int32 entries
+    and ``nc_e`` entry states. G starts at max(1, 128/N) and drops to 1
+    when that does not fit; scratch that does not fit at G = 1 raises
+    ``ValueError`` (no fallback to the serial walk).
+    """
+    per_block = 4 * (n_act * n_states + nc_e)
+    G = max(1, 128 // n_states)
+    if G * per_block > SMEM_PER_CTA:
+        G = 1
+    if per_block > SMEM_PER_CTA:
+        raise ValueError(
+            f"the prefix traceback's scratch of {n_act} composed maps at N={n_states} states "
+            f"needs {per_block} bytes of shared memory per parallel block, above the "
+            f"{SMEM_PER_CTA} bytes a CTA may use; use a larger tb_chunk"
+        )
+    return G, G * per_block
 
 
 def traceback(
@@ -79,4 +129,49 @@ def traceback(
     if rc:
         raise RuntimeError(f"pbvd_traceback launch failed (error {rc})")
     launches += 1
+    return bits
+
+
+def traceback_prefix(
+    sp: torch.Tensor,
+    code: ConvCode,
+    decode_start: int,
+    n_decode: int,
+    start_state: torch.Tensor | int = 0,
+    tb_chunk: int = DEFAULT_TB_CHUNK,
+) -> torch.Tensor:
+    """Chunked parallel-prefix traceback. sp: (T, W, B) → bits (n_decode, B)
+    int32, equal to :func:`traceback`'s for every ``tb_chunk``.
+
+    The signature and result of :func:`traceback_prefix_plain`. On a CUDA
+    tensor ``sp`` must be contiguous int32.
+    """
+    global prefix_launches
+    if sp.device.type == "cpu":
+        return traceback_prefix_plain(sp, code, decode_start, n_decode, start_state, tb_chunk)
+    if sp.device.type != "cuda":
+        raise ValueError(f"traceback_prefix runs on CPU or CUDA tensors, got {sp.device}")
+    if sp.dim() != 3 or sp.dtype != torch.int32 or not sp.is_contiguous():
+        raise ValueError(
+            f"sp must be a contiguous int32 (T, W, B) tensor, got {sp.dtype} {tuple(sp.shape)}"
+        )
+    T, W, B = sp.shape
+    if W != -(-code.n_states // 32):
+        raise ValueError(f"sp has {W} words per stage, code needs {-(-code.n_states // 32)}")
+    C, P, n_chunks, c_lo, c_hi = prefix_chunk_geometry(T, decode_start, n_decode, tb_chunk)
+    G, _ = prefix_smem_plan(code.n_states, n_chunks - c_lo, c_hi - c_lo + 1)
+    start = torch.as_tensor(start_state, dtype=torch.int32, device=sp.device)
+    start = start.broadcast_to((B,)).contiguous()
+    bits = torch.empty((n_decode, B), dtype=torch.int32, device=sp.device)
+    if n_decode == 0 or B == 0:
+        return bits
+    with torch.cuda.device(sp.device):
+        stream = torch.cuda.current_stream(sp.device).cuda_stream
+        rc = _lib().pbvd_traceback_prefix(
+            sp.data_ptr(), start.data_ptr(), T, W, B, code.v, decode_start, n_decode,
+            C, P, n_chunks, c_lo, c_hi, G, bits.data_ptr(), stream,
+        )
+    if rc:
+        raise RuntimeError(f"pbvd_traceback_prefix launch failed (error {rc})")
+    prefix_launches += 1
     return bits

@@ -203,6 +203,7 @@ def test_convert_config_round_trips(name):
         puncture=None if jcfg.spec.puncture is None else np.array(jcfg.spec.puncture),
         D=jcfg.D, L=jcfg.L, q=jcfg.q, start_policy=jcfg.start_policy,
         metric_mode=jcfg.metric_mode, acs_radix=jcfg.acs_radix, backend=jcfg.backend,
+        tb_mode=jcfg.tb_mode, tb_chunk=jcfg.tb_chunk, acs_impl=jcfg.acs_impl, acs_k=jcfg.acs_k,
     )
     cfg = convert_config(fields)
     assert cfg.codespec.name == name and cfg.backend == "ref" and cfg.acs_radix == 2
@@ -230,8 +231,9 @@ def test_convert_config_custom_code_and_missing_fields():
 
 def test_config_matches_reference_defaults():
     j, t = JConfig(), PBVDConfig()
-    assert (t.D, t.L, t.T, t.q, t.start_policy, t.metric_mode, t.tb_mode, t.acs_radix,
-            t.acs_impl) == (j.D, j.L, j.T, j.q, j.start_policy, j.metric_mode,
-                             j.tb_mode, j.acs_radix, j.acs_impl)
+    assert (t.D, t.L, t.T, t.q, t.start_policy, t.metric_mode, t.tb_mode, t.tb_chunk,
+            t.acs_radix, t.acs_impl, t.acs_k) == (j.D, j.L, j.T, j.q, j.start_policy,
+                                                  j.metric_mode, j.tb_mode, j.tb_chunk,
+                                                  j.acs_radix, j.acs_impl, j.acs_k)
     assert t.code.polys == j.code.polys and t.backend == "cuda"
     assert t.codespec.name == j.codespec.name

@@ -47,10 +47,11 @@ def test_port_declares_ref_and_cuda_backends():
         starts = ("zero",) if be == "fused" else ("zero", "argmin")
         assert registry.backend_start_policies(be) == starts
         assert registry.backend_metric_modes(be) == ("f32", "i16", "i8")
-        assert registry.backend_tb_modes(be) == ("serial",)
+        assert registry.backend_tb_modes(be) == ("serial", "prefix")
+        assert registry.backend_tb_chunk_sensitive(be) == (be != "ref")
         assert registry.backend_preferred_tb_mode(be) == "serial"
         assert registry.backend_acs_radix(be) == (2, 4)
-        assert registry.backend_acs_impl(be) == ("butterfly",)
+        assert registry.backend_acs_impl(be) == ("butterfly", "matrix")
 
 
 @pytest.mark.parametrize("backend", ["ref", "cuda"])
@@ -132,16 +133,13 @@ def test_default_device_is_cuda_and_refuses_without_it(monkeypatch):
 def test_unported_knobs_raise_knob_error(backend, knob, value):
     blocks = torch.zeros((8, 2, 1), dtype=torch.int8)
     ccsds = get_code_spec("ccsds").code
-    if knob in ("metric_mode", "acs_radix"):  # ported: now accepted everywhere
+    if knob != "start_policy":  # ported: now accepted everywhere
         assert getattr(PBVDConfig(backend=backend, **{knob: value}), knob) == value
         bits = pbvd_decode_blocks(blocks, ccsds, decode_start=2, n_decode=4, backend=backend,
                                   **{knob: value})
         assert bits.shape == (4, 1) and bits.dtype == torch.int32
         return
-    allowed = {
-        "tb_mode": ("serial", "auto"), "acs_impl": ("butterfly",),
-        "start_policy": ("zero",) if backend == "fused" else ("zero", "argmin"),
-    }[knob]
+    allowed = ("zero",) if backend == "fused" else ("zero", "argmin")
     with pytest.raises(ValueError) as info:
         PBVDConfig(backend=backend, **{knob: value})
     assert str(info.value) == str(registry.knob_error(backend, knob, value, allowed))
@@ -183,6 +181,14 @@ import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
+# and drive the prefix walk and the matrix ACS through their plain versions
+import torch
+from repro_torch.core.engine import DecoderEngine
+from repro_torch.core.pbvd import PBVDConfig
+for be in ("ref", "cuda", "fused"):
+    cfg = PBVDConfig(D=32, L=8, backend=be, tb_mode="prefix", tb_chunk=5, acs_impl="matrix")
+    DecoderEngine(cfg, device="cpu").decode(torch.ones((70, 2)))
+assert "repro_torch.kernels.traceback" in mods and "repro_torch.kernels.fused" in mods
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
 print(len(mods), bad)

@@ -158,3 +158,25 @@ def test_interop_carries_radix_and_backend(jax_backend, port_backend):
     assert convert_config(back) == cfg
     with pytest.raises(KeyError, match="no counterpart"):
         convert_config({**fields, "backend": "tpu"})
+
+
+@pytest.mark.parametrize("jax_backend", ["pallas", "ref", "fused"])
+def test_interop_carries_tb_and_acs_knobs(jax_backend):
+    jcfg = JConfig(spec=j_get_code_spec("is95-k9"), D=64, L=24, q=8, backend=jax_backend,
+                   metric_mode="i8", tb_mode="prefix", tb_chunk=12, acs_impl="matrix", acs_k=2)
+    fields = dict(
+        polys=np.array(jcfg.spec.code.polys), puncture=None, D=jcfg.D, L=jcfg.L, q=jcfg.q,
+        start_policy=jcfg.start_policy, metric_mode=jcfg.metric_mode, backend=jcfg.backend,
+        acs_radix=jcfg.acs_radix, tb_mode=jcfg.tb_mode, tb_chunk=jcfg.tb_chunk,
+        acs_impl=jcfg.acs_impl, acs_k=jcfg.acs_k,
+    )
+    cfg = convert_config(fields)
+    assert (cfg.tb_mode, cfg.tb_chunk, cfg.acs_impl, cfg.acs_k) == ("prefix", 12, "matrix", 2)
+    back = config_fields(cfg)
+    assert {k: back[k] for k in ("tb_mode", "tb_chunk", "acs_impl", "acs_k")} == dict(
+        tb_mode="prefix", tb_chunk=12, acs_impl="matrix", acs_k=2)
+    assert convert_config(back) == cfg
+    # absent knobs keep the config's defaults
+    base = convert_config({k: v for k, v in fields.items()
+                           if k not in ("tb_mode", "tb_chunk", "acs_impl", "acs_k")})
+    assert (base.tb_mode, base.tb_chunk, base.acs_impl, base.acs_k) == ("auto", 64, "butterfly", 2)

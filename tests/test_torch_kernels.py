@@ -192,10 +192,11 @@ def test_wrappers_refuse_other_devices():
 @pytest.mark.parametrize(
     "kwargs,match",
     [(dict(metric_mode="i16"), "metric_mode"), (dict(radix=3), "radix"),
-     (dict(impl="matrix"), "impl")],
+     (dict(impl="systolic"), "impl")],
 )
 def test_plain_acs_rejects_unported_knobs(kwargs, match):
-    # i16 and radix 4 are ported: float symbols with i16 and radix 3 are not
+    # i16, radix 4 and the matrix impl are ported: float symbols with i16,
+    # radix 3 and an impl that does not exist are not
     y = torch.zeros((3, 2, 2), dtype=torch.float32 if "metric_mode" in kwargs else torch.int8)
     with pytest.raises(ValueError, match=match):
         acs.acs_forward(y, CODES["ccsds"], **kwargs)

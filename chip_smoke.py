@@ -53,7 +53,8 @@ Then the prefix traceback and the matrix ACS:
 11. K2-prefix against its plain version: tb_chunk 1, 7, 64 and T+5, the
     main window and one whose first chunk is chunk 0 (c_lo = 0), W = 1, 2
     and 8, a ragged batch, random start states (scratch that does not fit
-    printed as refused);
+    printed as refused; the ``"cuda"`` and ``"fused"`` backends refuse it
+    before any kernel launches);
 12. the fused kernel against its plain version in prefix, in matrix and in
     both, including the K = 9, D = 4096, L = 64 history with the prefix
     scratch and a geometry whose scratch does not fit (printed as refused);
@@ -64,7 +65,10 @@ Then the prefix traceback and the matrix ACS:
     K2-prefix; ``"fused"``: one fused launch, no K1 or K2);
 14. times of K1-matrix (k = 2, 3), K2-prefix and the fused variants beside
     their plain versions and bounds, and end-to-end Mb/s of the new paths
-    in turns.
+    in turns. A kernel's bound is that of the function it computes, which
+    is the function of K1, K2 or the fused serial kernel; the work of the
+    algorithm it chose (the k-stage tournament, the composed maps) is
+    printed beside it as a separate figure.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -157,7 +161,8 @@ def fused_cost(code, T: int, B: int, sym_bytes: int, decode_start: int,
 
 
 def k1_matrix_cost(code, T: int, B: int, sym_bytes: int, k: int) -> tuple[float, float]:
-    """(bytes, operations) of K1-matrix: K1's bytes; per k-step and target
+    """(bytes, operations) of the matrix algorithm, not a bound of the
+    function (K1's is): K1's bytes; per k-step and target
     2^k adds and 2^k - 1 compare-selects (two operations each), plus kR - 1
     adds per folded combined row and block; the T mod k trailing stages as
     K1's."""
@@ -178,7 +183,8 @@ def prefix_geometry(T: int, decode_start: int, n_decode: int, tb_chunk: int):
 
 def k2_prefix_cost(code, T: int, B: int, decode_start: int, n_decode: int,
                    tb_chunk: int) -> tuple[float, float]:
-    """(bytes, operations) of K2-prefix: the start states and the survivor
+    """(bytes, operations) of the prefix algorithm, not a bound of the
+    function (K2's is): the start states and the survivor
     words of the stages the active chunks hold in, the bits out; about six
     integer operations per composed (chunk, state, stage), per walked map
     and per expanded stage."""
@@ -214,6 +220,7 @@ def main() -> int:
     from repro_torch.core.trellis import ConvCode
     from repro_torch.core.quantize import norm_interval
     from repro_torch.kernels import _build, acs, fused, traceback
+    from repro_torch.kernels.ops import pbvd_decode_blocks
 
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
@@ -620,6 +627,22 @@ def main() -> int:
                 pre_err = max(pre_err, float((bits_k - bits_p).abs().max()))
                 log(f"[11 K2-prefix] {tag}: bits equal (and equal to the serial walk)")
 
+    # a prefix scratch that does not fit is refused before anything launches
+    y_big = torch.randint(-127, 128, (T, 2, 64), generator=gen, device=dev).to(i8)
+    for be, impl in (("cuda", "matrix"), ("cuda", "butterfly"), ("fused", "matrix")):
+        acs.launches = acs.matrix_launches = fused.launches = 0
+        try:
+            pbvd_decode_blocks(y_big, is95, decode_start=L, n_decode=D, backend=be,
+                               tb_mode="prefix", tb_chunk=1, acs_impl=impl)
+        except ValueError as err:
+            torch.cuda.synchronize()
+            if (acs.launches, acs.matrix_launches, fused.launches) != (0, 0, 0):
+                raise AssertionError(f"{be} {impl} launched a kernel before refusing")
+            log(f"[11 refused] is95-k9 backend={be} acs_impl={impl} tb_chunk=1: refused before "
+                f"any launch: {err}")
+        else:
+            raise AssertionError(f"{be} {impl} with tb_chunk=1 at K = 9 was not refused")
+
     # ---- 12. the fused kernel in prefix, matrix and both ------------------------
     # label, code, dtype, B, T, decode_start, n_decode, mode, tb_mode, impl, radix/k,
     # tb_chunk, start
@@ -717,30 +740,31 @@ def main() -> int:
 
     # ---- 14. times of the new kernels --------------------------------------------
     sym = blocks.element_size()
-    k1m_ms, k1m_plain_ms, k1m_bound = {}, {}, {}
+    k1m_ms, k1m_plain_ms = {}, {}
     for k in (2, 3):
         k1m_ms[k] = cuda_ms(torch, lambda: acs.acs_forward(blocks, cfg.code, impl="matrix", k=k),
                             reps=20)
         k1m_plain_ms[k] = cuda_ms(torch, lambda: acs.acs_forward_plain(
             blocks, cfg.code, impl="matrix", matrix_k=k), reps=3, warmup=1)
         nb_, no_ = k1_matrix_cost(cfg.code, cfg.T, n_blocks, sym, k)
-        k1m_bound[k] = bound(nb_, no_, INT32_OPS_PER_S)
         log(f"[14 times] K1-matrix k={k}: {k1m_ms[k]:.4f} ms (plain {k1m_plain_ms[k]:.3f} ms, "
-            f"bound {k1m_bound[k][0]:.4f} ms by {k1m_bound[k][1]}: {nb_:.0f} B, {no_:.0f} int32 "
-            f"op; K1 butterfly {k1_ms:.4f} ms)")
+            f"bound {k1_bound:.4f} ms by {k1_by}, K1's function; the tournament's own work "
+            f"{no_:.0f} int32 op, {bound(nb_, no_, INT32_OPS_PER_S)[0]:.4f} ms; K1 butterfly "
+            f"{k1_ms:.4f} ms)")
     tb64 = 64
     k2p_ms = cuda_ms(torch, lambda: traceback.traceback_prefix(sp_keep["ccsds main"][1], cfg.code,
                                                                cfg.L, cfg.D, 0, tb64), reps=20)
     k2p_plain_ms = cuda_ms(torch, lambda: traceback.traceback_prefix_plain(
         sp_keep["ccsds main"][1], cfg.code, cfg.L, cfg.D, 0, tb64), reps=3, warmup=1)
     p_bytes, p_ops = k2_prefix_cost(cfg.code, cfg.T, n_blocks, cfg.L, cfg.D, tb64)
-    k2p_bound = bound(p_bytes, p_ops, INT32_OPS_PER_S)
+    p_algo = bound(p_bytes, p_ops, INT32_OPS_PER_S)
     log(f"[14 times] K2-prefix tb_chunk={tb64}: {k2p_ms:.4f} ms (plain {k2p_plain_ms:.3f} ms, "
-        f"bound {k2p_bound[0]:.4f} ms by {k2p_bound[1]}: {p_bytes:.0f} B, {p_ops:.0f} int32 op; "
-        f"K2 serial {k2_ms:.4f} ms)")
+        f"bound {k2_bound:.4f} ms by {k2_by}, K2's function; the composed maps' own work "
+        f"{p_bytes:.0f} B, {p_ops:.0f} int32 op, {p_algo[0]:.4f} ms by {p_algo[1]}; K2 serial "
+        f"{k2_ms:.4f} ms)")
     fvar = {"prefix": dict(tb_mode="prefix"), "matrix": dict(impl="matrix", k=2),
             "matrix+prefix": dict(impl="matrix", k=2, tb_mode="prefix")}
-    fnew_ms, fnew_plain_ms, fnew_bound = {}, {}, {}
+    fnew_ms, fnew_plain_ms = {}, {}
     walk_ops = n_blocks * (cfg.T - cfg.L) * 6
     for vname, kw in fvar.items():
         fnew_ms[vname] = cuda_ms(torch, lambda: fused.pbvd_fused(blocks, cfg.code, **fkw, **kw),
@@ -750,11 +774,11 @@ def main() -> int:
         acs_ops = (k1_matrix_cost(cfg.code, cfg.T, n_blocks, sym, 2)[1] if "matrix" in vname
                    else k1_cost(cfg.code, cfg.T, n_blocks, sym)[1])
         ops = acs_ops + (p_ops if "prefix" in vname else walk_ops)
-        fnew_bound[vname] = bound(f_bytes, ops, INT32_OPS_PER_S)
+        algo = bound(f_bytes, ops, INT32_OPS_PER_S)
         log(f"[14 times] fused {vname}: {fnew_ms[vname]:.4f} ms (plain "
-            f"{fnew_plain_ms[vname]:.3f} ms, bound {fnew_bound[vname][0]:.4f} ms by "
-            f"{fnew_bound[vname][1]}: {f_bytes:.0f} B, {ops:.0f} int32 op; fused serial "
-            f"butterfly {fused_ms['f32', 2]:.4f} ms)")
+            f"{fnew_plain_ms[vname]:.3f} ms, bound {f_bound:.4f} ms by {f_by}, the fused "
+            f"kernel's function; the chosen algorithms' own work {ops:.0f} int32 op, "
+            f"{algo[0]:.4f} ms by {algo[1]}; fused serial butterfly {fused_ms['f32', 2]:.4f} ms)")
     for vname in variants:
         e2e_new = {"cuda": [], "fused": []}
         for be in ("cuda", "fused", "fused", "cuda"):
@@ -794,31 +818,33 @@ def main() -> int:
              max_abs_err=fused_err[4], ms=fused_ms["f32", 4], plain_ms=fused_plain_ms[4],
              bound_ms=f_bound, bound_by=f_by, library_ms=None),
         # the prefix and matrix rows, timed at the main shapes (k = 2, tb_chunk
-        # = 64); their launches are those of the matrix+prefix main paths
+        # = 64); their launches are those of the matrix+prefix main paths, and
+        # their bounds those of the functions they compute (K1's, K2's, the
+        # fused kernel's)
         dict(name="acs_forward_matrix (K1-matrix)", route="cuda",
              source="src/repro_torch/kernels/csrc/acs.cu",
              replaces="src/repro/kernels/acs.py:429",
              launches=new_launches["cuda", "matrix+prefix"]["acs_matrix"], max_abs_err=mat_err,
-             ms=k1m_ms[2], plain_ms=k1m_plain_ms[2], bound_ms=k1m_bound[2][0],
-             bound_by=k1m_bound[2][1], library_ms=None),
+             ms=k1m_ms[2], plain_ms=k1m_plain_ms[2], bound_ms=k1_bound, bound_by=k1_by,
+             library_ms=None),
         dict(name="traceback_prefix (K2-prefix)", route="cuda",
              source="src/repro_torch/kernels/csrc/traceback.cu",
              replaces="src/repro/kernels/traceback.py:254",
              launches=new_launches["cuda", "matrix+prefix"]["traceback_prefix"],
-             max_abs_err=pre_err, ms=k2p_ms, plain_ms=k2p_plain_ms, bound_ms=k2p_bound[0],
-             bound_by=k2p_bound[1], library_ms=None),
+             max_abs_err=pre_err, ms=k2p_ms, plain_ms=k2p_plain_ms, bound_ms=k2_bound,
+             bound_by=k2_by, library_ms=None),
         dict(name="pbvd_fused matrix", route="cuda", source="src/repro_torch/kernels/csrc/fused.cu",
              replaces="src/repro/kernels/fused.py:177",
              launches=new_launches["fused", "matrix+prefix"]["fused_matrix"],
              max_abs_err=fused_new_err["matrix"], ms=fnew_ms["matrix"],
-             plain_ms=fnew_plain_ms["matrix"], bound_ms=fnew_bound["matrix"][0],
-             bound_by=fnew_bound["matrix"][1], library_ms=None),
+             plain_ms=fnew_plain_ms["matrix"], bound_ms=f_bound, bound_by=f_by,
+             library_ms=None),
         dict(name="pbvd_fused prefix", route="cuda", source="src/repro_torch/kernels/csrc/fused.cu",
              replaces="src/repro/kernels/fused.py:414",
              launches=new_launches["fused", "matrix+prefix"]["fused_prefix"],
              max_abs_err=fused_new_err["prefix"], ms=fnew_ms["prefix"],
-             plain_ms=fnew_plain_ms["prefix"], bound_ms=fnew_bound["prefix"][0],
-             bound_by=fnew_bound["prefix"][1], library_ms=None),
+             plain_ms=fnew_plain_ms["prefix"], bound_ms=f_bound, bound_by=f_by,
+             library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

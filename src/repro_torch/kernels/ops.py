@@ -129,6 +129,9 @@ def _decode_cuda(
 ) -> torch.Tensor:
     """Two-kernel path: K1 (or K1-matrix), then K2 (or K2-prefix)."""
     if tb_mode == "prefix":
+        if blocks.y.is_cuda:  # refuse a prefix scratch that does not fit before K1 launches
+            _traceback.prefix_plan(code.n_states, blocks.y.shape[0], blocks.decode_start,
+                                   blocks.n_decode, tb_chunk)
         walk = functools.partial(_traceback.traceback_prefix, tb_chunk=tb_chunk)
     else:
         walk = _traceback.traceback
@@ -209,7 +212,10 @@ def pbvd_decode_blocks(
     tb mode, radix or impl raises :func:`knob_error`'s ``ValueError``, and
     so do ``tb_chunk < 1``, an ``acs_k`` outside ``validate_matrix_k``'s
     bounds, radix 4 on a code with K < 3 and a narrow metric mode whose
-    saturation budget cannot take the radix or k (``norm_interval``).
+    saturation budget cannot take the radix or k (``norm_interval``). On
+    CUDA tensors a kernel's shared-memory plan that does not fit (the fused
+    kernel's history and scratch, K2-prefix's composed maps) raises
+    ``ValueError`` before the backend launches anything.
     """
     supported = backend_start_policies(backend)  # KeyError for unknown backend
     if start_policy not in supported:
@@ -231,7 +237,7 @@ def pbvd_decode_blocks(
         # for k unnormalized stages per step; the radix is inert here
         code.validate_matrix_k(acs_k)
         norm_interval(code, metric_mode, stages_per_step=acs_k)
-        acs_radix = 2
+        acs_radix = 2  # inert here, and then not refused by the plain version's radix check
     else:
         supported_radix = backend_acs_radix(backend)
         if acs_radix not in supported_radix:
@@ -240,9 +246,6 @@ def pbvd_decode_blocks(
             raise ValueError(f"acs_radix=4 needs K >= 3 (got K={code.K})")
         # narrow modes: the normalization cadence must exist at this radix
         norm_interval(code, metric_mode, acs_radix)
-        acs_k = DEFAULT_ACS_K
-    if tb_mode == "serial" or not backend_tb_chunk_sensitive(backend):
-        tb_chunk = DEFAULT_TB_CHUNK  # inert: the launch ignores it
     return get_backend(backend)(
         FramedBlocks(y_blocks, decode_start, n_decode, frame_counts),
         code,

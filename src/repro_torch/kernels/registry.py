@@ -207,7 +207,9 @@ def register_backend(
     declared values must exist in the matching contract above.
     ``preferred_tb_mode`` is what ``tb_mode="auto"`` resolves to;
     ``tb_chunk_sensitive=False`` declares that the backend's prefix
-    traceback ignores ``tb_chunk``.
+    traceback ignores ``tb_chunk``; nothing in the port branches on it (it
+    has no compile cache to key, as the reference's jit has), and it is
+    kept for parity with the reference's registry.
     """
     for knob, declared, contract in (
         ("metric modes", metric_modes, METRIC_MODES),

@@ -33,6 +33,7 @@ from .ref import (
 __all__ = [
     "DEFAULT_TB_CHUNK",
     "prefix_chunk_geometry",
+    "prefix_plan",
     "prefix_smem_plan",
     "traceback",
     "traceback_plain",
@@ -84,6 +85,18 @@ def prefix_smem_plan(n_states: int, n_act: int, nc_e: int) -> tuple[int, int]:
             f"{SMEM_PER_CTA} bytes a CTA may use; use a larger tb_chunk"
         )
     return G, G * per_block
+
+
+def prefix_plan(
+    n_states: int, T: int, decode_start: int, n_decode: int, tb_chunk: int
+) -> tuple[tuple[int, int, int, int, int], int]:
+    """(chunk geometry, parallel blocks per CTA) of a K2-prefix launch:
+    :func:`prefix_chunk_geometry` and :func:`prefix_smem_plan`, with their
+    ``ValueError`` s."""
+    geometry = prefix_chunk_geometry(T, decode_start, n_decode, tb_chunk)
+    _, _, n_chunks, c_lo, c_hi = geometry
+    G, _ = prefix_smem_plan(n_states, n_chunks - c_lo, c_hi - c_lo + 1)
+    return geometry, G
 
 
 def traceback(
@@ -158,8 +171,8 @@ def traceback_prefix(
     T, W, B = sp.shape
     if W != -(-code.n_states // 32):
         raise ValueError(f"sp has {W} words per stage, code needs {-(-code.n_states // 32)}")
-    C, P, n_chunks, c_lo, c_hi = prefix_chunk_geometry(T, decode_start, n_decode, tb_chunk)
-    G, _ = prefix_smem_plan(code.n_states, n_chunks - c_lo, c_hi - c_lo + 1)
+    (C, P, n_chunks, c_lo, c_hi), G = prefix_plan(code.n_states, T, decode_start, n_decode,
+                                                   tb_chunk)
     start = torch.as_tensor(start_state, dtype=torch.int32, device=sp.device)
     start = start.broadcast_to((B,)).contiguous()
     bits = torch.empty((n_decode, B), dtype=torch.int32, device=sp.device)

@@ -10,9 +10,10 @@ normalization countdown and trailing stages) and held against the plain
 version, so its index arithmetic is checked without a card; ``chip_smoke.py``
 holds the kernels themselves against the plain versions on the card.
 
-At k = 4 the JAX oracle runs with ``jax.disable_jit()``: its scan then
-steps in Python, which costs far less here than compiling the 4-stage step;
-below k = 4 compiling is the cheaper way.
+On the short blocks at k = 4 the JAX oracle runs with ``jax.disable_jit()``:
+its scan then steps in Python, which costs far less here than compiling
+the 4-stage step. Below k = 4, and on the long blocks that span several
+normalization intervals, compiling is the cheaper way.
 """
 
 import contextlib
@@ -74,7 +75,16 @@ def _cases(name):
     return out
 
 
+def _t_norm(code, k, mode):
+    """T ≢ 0 mod k spanning three normalization intervals of k-steps, so
+    the global ``step % norm_every`` cadence fires against JAX."""
+    return 3 * norm_interval(code, mode, stages_per_step=k) * k + 1
+
+
 CASES = [(name, k, mode, T) for name in available_code_specs() for k, mode, T in _cases(name)]
+# the narrow modes at k = 3 and 4, on CCSDS (the JAX oracle compiles once each)
+CASES += [("ccsds", k, mode, _t_norm(get_code_spec("ccsds").code, k, mode))
+          for mode in ("i8", "i16") for k in (3, 4)]
 
 
 def _symbols(T, R, seed):
@@ -89,7 +99,7 @@ def _jax_matrix(polys, k, mode, T, seed):
     jcode = JConvCode(polys=polys)
     y = _symbols(T, jcode.R, seed)
     try:
-        with jax.disable_jit() if k == 4 else contextlib.nullcontext():
+        with jax.disable_jit() if k == 4 and T <= k + 1 else contextlib.nullcontext():
             sp, pm = j_ref.acs_forward_ref(jnp.asarray(y), jcode, metric_mode=mode,
                                            impl="matrix", matrix_k=k)
     except ValueError as err:

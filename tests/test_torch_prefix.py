@@ -216,6 +216,10 @@ def test_smem_plans_count_the_prefix_scratch():
     assert traceback.prefix_smem_plan(256, 65, 64)[0] == 1
     with pytest.raises(ValueError, match="use a larger tb_chunk"):
         traceback.prefix_smem_plan(256, 554, 512)
+    # the plan a K2-prefix launch (and the "cuda" backend, before K1) checks
+    assert traceback.prefix_plan(64, 596, 42, 512, 64) == ((64, 44, 10, 1, 9), 2)
+    with pytest.raises(ValueError, match="use a larger tb_chunk"):
+        traceback.prefix_plan(256, 596, 42, 512, 1)
 
 
 def _noisy_stream(name, n_bits, seed):

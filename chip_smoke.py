@@ -70,6 +70,30 @@ Then the prefix traceback and the matrix ACS:
     algorithm it chose (the k-stage tournament, the composed maps) is
     printed beside it as a separate figure.
 
+Then the LM serving path, StarCoder2-3B at full width and depth:
+
+15. the flash-attention kernel against its plain version ``ref_mha``:
+    causal, windowed (window < S and window >= S), non-causal with and
+    without a window, T != S, G = 1, 2 and 12, head dims 16 to 128, float32
+    (atol 2e-5, rtol 1e-5) and bf16 (atol 2e-5, rtol 2^-8: one rounding of
+    the float32 result), and the main shapes (B=2,
+    S=T=8192, Hkv=2, G=12, dh=128, bf16, causal, window 4096); the
+    ``ValueError`` of an S that ``q_chunk`` does not divide;
+16. StarCoder2-3B with random weights drawn on the card: the parameter
+    count; ``make_prefill_step`` on 2 prompts of 8192 tokens with one flash
+    launch per layer counted; the same forward with the flash kernel off
+    (the streaming path), last-position logits within a stated tolerance;
+    at float32 compute, cached ``apply_decode`` over 64 tokens against
+    ``apply_train``; ``greedy_generate`` for 4 requests (prompt 16, 64 new
+    tokens); the ring-buffered cache past its window on a two-layer
+    StarCoder2 with the window cut to 64, 160 cached steps against
+    ``apply_train``;
+17. the flash kernel's time at the main shapes beside its plain version's,
+    its bound and ``scaled_dot_product_attention``'s time on the same
+    inputs and band mask (timed only; the port never calls it), end to end
+    prefill tokens/s and decode ms per step, and a ``torch.profiler`` window
+    over one prefill and 16 decode steps (device busy share, top kernels).
+
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 torch finds no CUDA device or when the port's sources are missing.
@@ -96,6 +120,14 @@ N_STREAMS, STREAM_BITS = 64, 65536
 # ALU peak is 132 × 64 × 1.98e9 op/s. Rates assume the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+BF16_FLOPS_PER_S = 989e12  # dense tensor-core peak
+F32_FLOPS_PER_S = 67e12  # outside the tensor cores
+
+# the LM path: StarCoder2-3B prefill of 2 prompts × 8192 tokens
+LM_BATCH, LM_SEQ = 2, 8192
+LM_PARAMS = 3_029_818_368  # count_params; n_params_estimate leaves out biases and norms
+PREFILL_LOGIT_ATOL = 0.25  # bf16 compute over 30 layers: flash (f32 p) vs streaming (bf16 p)
+DECODE_LOGIT_ATOL = 1e-3  # float32 compute: cached decode vs full forward, roundoff only
 
 
 def log(msg: str) -> None:
@@ -198,6 +230,277 @@ def k2_prefix_cost(code, T: int, B: int, decode_start: int, n_decode: int,
 def bound(nbytes: float, ops: float, op_rate: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / op_rate
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_cost(B: int, S: int, T: int, Hkv: int, G: int, dh: int, causal: bool,
+               window: int | None, elem_bytes: int) -> tuple[float, float]:
+    """(bytes, FLOP) of band attention: q, k, v read once and o written once;
+    4·dh FLOP (two products) per (query head, valid key) pair of the band."""
+    keys = 0
+    for p in range(S):
+        lo = max(0, p - window + 1) if window else 0
+        hi = min(T, p + 1) if causal else T
+        keys += max(0, hi - lo)
+    nbytes = elem_bytes * (2 * B * S * Hkv * G * dh + 2 * B * T * Hkv * dh)
+    return float(nbytes), float(4 * dh * B * Hkv * G * keys)
+
+
+def device_profile(torch, fn, top: int = 6):
+    """One run of ``fn`` under ``torch.profiler``: (wall ms, the ``top``
+    kernels by device time as (name, ms, count), device busy ms). The wall
+    time includes the profiler's own cost; kernels of one stream do not
+    overlap, so their sum over the wall time is the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            kernels.append((e.key[:70], us / 1e3, e.count))
+    kernels.sort(key=lambda k: -k[1])
+    return wall, kernels[:top], sum(k[1] for k in kernels)
+
+
+def lm_phases(torch, dev, gen, decoder_counters) -> dict:
+    """Phases 15-17: the flash kernel and the StarCoder2-3B serving path.
+    Returns the flash kernel's row of the ``kernels`` line."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+    from repro_torch._unused import flash_attention as fa
+    from repro_torch._unused.models import attention, lm
+    from repro_torch._unused.serve.serve_step import (
+        greedy_generate, make_decode_step, make_prefill_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def qkv(B, S, T, Hkv, G, dh, dtype):
+        return (torch.randn((B, S, Hkv, G, dh), generator=gen, device=dev).to(dtype),
+                torch.randn((B, T, Hkv, dh), generator=gen, device=dev).to(dtype),
+                torch.randn((B, T, Hkv, dh), generator=gen, device=dev).to(dtype))
+
+    # ---- 15. the flash kernel against its plain version -------------------------
+    main_shape = (LM_BATCH, LM_SEQ, LM_SEQ, 2, 12, 128, bf16, True, 4096)
+    cases = [
+        ("causal", (2, 256, 256, 2, 2, 64, f32, True, None)),
+        ("window < S", (1, 512, 512, 2, 12, 128, f32, True, 100)),
+        ("window >= S", (1, 256, 256, 2, 2, 64, f32, True, 1000)),
+        ("non-causal", (2, 128, 128, 2, 1, 32, f32, False, None)),
+        ("non-causal window", (1, 256, 256, 1, 2, 64, bf16, False, 77)),
+        ("T != S non-causal", (1, 128, 512, 2, 2, 128, f32, False, None)),
+        ("T != S non-causal", (1, 256, 64, 1, 3, 16, bf16, False, None)),
+        ("G = 1", (2, 320, 320, 2, 1, 128, bf16, True, None)),
+        ("G = 2", (1, 192, 192, 4, 2, 64, f32, True, 50)),
+        ("G = 12", (1, 1024, 1024, 2, 12, 128, bf16, True, 256)),
+        ("ragged rows", (1, 100, 100, 1, 5, 128, f32, True, 33)),
+        ("main shapes", main_shape),
+    ]
+    flash_err, main_qkv = 0.0, None
+    for label, (B, S, T, Hkv, G, dh, dtype, causal, window) in cases:
+        q, k, v = qkv(B, S, T, Hkv, G, dh, dtype)
+        fa.launches = 0
+        out = fa.flash_attention(q, k, v, causal=causal, window=window, q_chunk=S, kv_chunk=T)
+        torch.cuda.synchronize()
+        if fa.launches != 1 or out.dtype != dtype or out.shape != q.shape:
+            raise AssertionError(f"flash {label}: {fa.launches} launches, {out.dtype} {out.shape}")
+        ref = fa.ref_mha(q, k, v, causal=causal, window=window)
+        diff = (out.float() - ref).abs()
+        err = float(diff.max())
+        # float32: another summation order. bf16: the kernel rounds its
+        # float32 result once, which moves it by at most the bf16 unit
+        # roundoff 2^-8 of the value; atol covers the float32 part.
+        atol, rtol = (2e-5, 1e-5) if dtype == f32 else (2e-5, 2.0 ** -8)
+        worst = float((diff / (atol + rtol * ref.abs())).max())
+        if not bool(torch.isfinite(out).all()) or not worst <= 1.0:
+            raise AssertionError(f"flash {label}: max abs error {err}, {worst:.3f} of the limit "
+                                 f"atol {atol} + rtol {rtol}·|ref|")
+        flash_err = max(flash_err, err)
+        log(f"[15 flash] {label:18s} B={B} S={S} T={T} Hkv={Hkv} G={G} dh={dh} {str(dtype):14s} "
+            f"causal={causal} window={window}: max abs err {err:.3e}, {worst:.3f} of the limit "
+            f"(atol {atol}, rtol {rtol:.3e})")
+        del diff
+        if label == "main shapes":
+            main_qkv = (q, k, v)
+        del ref, out
+    q, k, v = qkv(1, 96, 96, 1, 2, 64, f32)
+    fa.launches = 0
+    try:
+        fa.flash_attention(q, k, v, q_chunk=64, kv_chunk=64)
+    except ValueError as err:
+        if fa.launches:
+            raise AssertionError("flash launched before refusing S % q_chunk") from err
+        log(f"[15 flash] S=96, q_chunk=64: ValueError: {err}")
+    else:
+        raise AssertionError("flash took S=96 with q_chunk=64")
+
+    # ---- 16. StarCoder2-3B at full width and depth --------------------------------
+    cfg = get_config("starcoder2-3b")
+    params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+    n_params = lm.count_params(params)
+    if n_params != LM_PARAMS:
+        raise AssertionError(f"starcoder2-3b has {n_params} parameters, want {LM_PARAMS}")
+    log(f"[16 lm] {cfg.name}: {n_params:,} parameters ({cfg.param_dtype}; n_params_estimate "
+        f"{cfg.n_params_estimate:,} + {n_params - cfg.n_params_estimate:,} biases and norms), "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"window {cfg.sliding_window}, compute {cfg.compute_dtype}")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen, device=dev)}
+    prefill = make_prefill_step(cfg)
+    prefill(params, {"tokens": batch["tokens"][:, :256]})  # warm up
+    torch.cuda.synchronize()
+    for mod, attr in decoder_counters:
+        setattr(mod, attr, 0)
+    fa.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    next_tok = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_launches = fa.launches
+    others = {attr: getattr(mod, attr) for mod, attr in decoder_counters if getattr(mod, attr)}
+    if prefill_launches != cfg.n_layers or others:
+        raise AssertionError(f"prefill launched flash {prefill_launches} times (want "
+                             f"{cfg.n_layers}) and decoder kernels {others}")
+    log(f"[16 lm] make_prefill_step, {LM_BATCH} × {LM_SEQ} tokens: flash launches "
+        f"{prefill_launches} (one per layer), next tokens {next_tok.tolist()}, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    last = lm.apply_train(params, batch, cfg)[:, -1]
+    with attention.flash_enabled("off"):
+        fa.launches = 0
+        last_plain = lm.apply_train(params, batch, cfg)[:, -1]
+        if fa.launches:
+            raise AssertionError("flash launched with flash_enabled('off')")
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(last).all()) and torch.equal(last.argmax(-1).int(), next_tok)):
+        raise AssertionError("prefill logits not finite or not the prefill step's tokens")
+    diff = float((last - last_plain).abs().max())
+    if diff > PREFILL_LOGIT_ATOL:
+        raise AssertionError(f"flash vs streaming prefill: last logits differ by {diff}")
+    top, top_plain = last.argmax(-1), last_plain.argmax(-1)
+    gaps = [float(last_plain[i, top_plain[i]] - last_plain[i, top[i]]) for i in range(LM_BATCH)]
+    log(f"[16 lm] flash vs streaming prefill (flash_enabled('off')): last-position logits max "
+        f"abs diff {diff:.4f} (atol {PREFILL_LOGIT_ATOL}, bf16 compute), argmax "
+        f"{top.tolist()} vs {top_plain.tolist()}"
+        f"{'' if torch.equal(top, top_plain) else f', streaming logit gap {gaps}'}")
+    del last, last_plain
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    n_dec = 64
+    toks = batch["tokens"][:, :n_dec]
+    full = lm.apply_train(params, {"tokens": toks}, cfg32)
+    cache = lm.init_cache(cfg32, LM_BATCH, n_dec, dtype=f32, device=dev)
+    dec = []
+    for t in range(n_dec):
+        lg, cache = lm.apply_decode(params, toks[:, t:t + 1], cache, t, cfg32)
+        dec.append(lg[:, 0])
+    dec_err = float((torch.stack(dec, 1) - full).abs().max())
+    if not dec_err <= DECODE_LOGIT_ATOL:
+        raise AssertionError(f"cached decode vs apply_train at float32: {dec_err}")
+    log(f"[16 lm] float32 compute, cached apply_decode × {n_dec} vs apply_train: logits max abs "
+        f"diff {dec_err:.3e} (atol {DECODE_LOGIT_ATOL})")
+    del full, cache, dec
+
+    prompt = torch.randint(0, cfg.vocab, (4, 16), generator=gen, device=dev)
+    gen_toks = greedy_generate(params, cfg, prompt, 64)
+    torch.cuda.synchronize()
+    if gen_toks.shape != (4, 64) or not bool(((gen_toks >= 0) & (gen_toks < 49152)).all()):
+        raise AssertionError(f"greedy_generate gave {gen_toks.shape}")
+    log(f"[16 lm] greedy_generate, 4 requests × (prompt 16, 64 new): first tokens "
+        f"{gen_toks[:, :4].tolist()}")
+
+    ring_cfg = dataclasses.replace(cfg, n_layers=2, sliding_window=64, compute_dtype="float32")
+    ring_params = lm.init_params(ring_cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+                                 device=dev)
+    n_ring = 160
+    rtoks = torch.randint(0, cfg.vocab, (LM_BATCH, n_ring), generator=gen, device=dev)
+    full = lm.apply_train(ring_params, {"tokens": rtoks}, ring_cfg)
+    cache = lm.init_cache(ring_cfg, LM_BATCH, n_ring, dtype=f32, device=dev)
+    slots = cache["groups"][0][0]["l0"]["mixer"].k.shape[1]
+    dec = []
+    for t in range(n_ring):
+        lg, cache = lm.apply_decode(ring_params, rtoks[:, t:t + 1], cache, t, ring_cfg)
+        dec.append(lg[:, 0])
+    ring_err = float((torch.stack(dec, 1) - full).abs().max())
+    if slots != 64 or not ring_err <= DECODE_LOGIT_ATOL:
+        raise AssertionError(f"ring buffer: {slots} slots, decode vs apply_train {ring_err}")
+    log(f"[16 lm] ring buffer: 2-layer StarCoder2 (full width, window 64), {slots} cache slots, "
+        f"{n_ring} cached steps vs apply_train at float32: logits max abs diff {ring_err:.3e} "
+        f"(atol {DECODE_LOGIT_ATOL})")
+    del ring_params, full, cache, dec
+
+    # ---- 17. times ------------------------------------------------------------------
+    q, k, v = main_qkv
+    B, S, T, Hkv, G, dh, dtype, causal, window = main_shape
+    flash_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+                       reps=10)
+    plain_ms = cuda_ms(torch, lambda: fa.ref_mha(q, k, v, causal=causal, window=window), reps=3,
+                       warmup=1)
+    nbytes, flops = flash_cost(B, S, T, Hkv, G, dh, causal, window, q.element_size())
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    pos = torch.arange(S, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    qs, ks, vs = q.reshape(B, S, Hkv * G, dh).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    try:
+        F.scaled_dot_product_attention(qs, ks, vs, attn_mask=band, enable_gqa=True)
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=band, enable_gqa=True)
+        how = "enable_gqa=True"
+    except TypeError:
+        kr, vr = ks.repeat_interleave(G, dim=1), vs.repeat_interleave(G, dim=1)
+        sdpa = lambda: F.scaled_dot_product_attention(qs, kr, vr, attn_mask=band)
+        how = "K/V repeated G times"
+    library_ms = cuda_ms(torch, sdpa, reps=10)
+    log(f"[17 times] flash_attention, B={B} S=T={S} Hkv={Hkv} G={G} dh={dh} bf16 causal window "
+        f"{window}: {flash_ms:.3f} ms (plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by "
+        f"{bound_by}: {flops:.4e} FLOP at {BF16_FLOPS_PER_S:.3g}/s, {nbytes:.4e} B at "
+        f"{HBM_BYTES_PER_S:.3g} B/s; {flops / flash_ms / 1e9:.2f} TFLOP/s achieved, "
+        f"{flops / F32_FLOPS_PER_S * 1e3:.2f} ms at the float32 CUDA-core peak; "
+        f"scaled_dot_product_attention with the band mask, {how}: {library_ms:.3f} ms); "
+        f"launches per prefill {prefill_launches}")
+    n_tok = LM_BATCH * LM_SEQ
+    pre = [wall_ms(torch, lambda: prefill(params, batch), reps=1) for _ in range(3)]
+    log(f"[17 times] prefill end to end, {LM_BATCH} × {LM_SEQ} tokens: ms {pre}, median "
+        f"{statistics.median(pre):.1f} ms → {n_tok / statistics.median(pre) * 1e3:.0f} tokens/s")
+    n_prompt, n_steps, n_req = 16, 32, 4
+    step = make_decode_step(cfg, n_prompt + 2 * n_steps)
+    cache = lm.init_cache(cfg, n_req, n_prompt + 2 * n_steps, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (n_req, n_prompt), generator=gen, device=dev)
+    for t in range(n_prompt):
+        nxt, cache = step(params, prompt[:, t:t + 1], cache, t)
+    state = {"tok": nxt[:, None], "t": n_prompt}
+
+    def decode_steps():  # the cache is written in place
+        for _ in range(n_steps // 2):
+            nxt, _ = step(params, state["tok"], cache, state["t"])
+            state["tok"], state["t"] = nxt[:, None], state["t"] + 1
+
+    dec_ms = [wall_ms(torch, decode_steps, reps=1) / (n_steps // 2) for _ in range(2)]
+    log(f"[17 times] decode end to end, batch {n_req}, cache of "
+        f"{n_prompt + 2 * n_steps} slots: ms per step {dec_ms} → "
+        f"{n_req / statistics.median(dec_ms) * 1e3:.1f} tokens/s")
+    for what, fn in (("prefill", lambda: prefill(params, batch)),
+                     (f"{n_steps // 2} decode steps", decode_steps)):
+        wall, kernels, busy = device_profile(torch, fn)
+        if busy <= 0:
+            log(f"[17 profile] {what}: the profiler saw no device time (not measured)")
+            continue
+        log(f"[17 profile] {what}: wall {wall:.1f} ms under the profiler, device busy "
+            f"{busy:.1f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; top kernels: "
+            + "; ".join(f"{n} {ms:.1f} ms × {c}" for n, ms, c in kernels))
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/_unused/flash_attention.py:54", launches=prefill_launches,
+                max_abs_err=flash_err, ms=flash_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def main() -> int:
@@ -789,6 +1092,8 @@ def main() -> int:
             f"{n_bits / statistics.mean(e2e_new['cuda']) / 1e3:.1f}, fused "
             f"{n_bits / statistics.mean(e2e_new['fused']) / 1e3:.1f}")
 
+    flash_row = lm_phases(torch, dev, gen, [(mod, attr) for _, mod, attr in counters])
+
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith(("jax.", "jaxlib")) or mod == "repro" or mod.startswith("repro."):
             raise AssertionError(f"the port imported {mod}")
@@ -845,6 +1150,7 @@ def main() -> int:
              max_abs_err=fused_new_err["prefix"], ms=fnew_ms["prefix"],
              plain_ms=fnew_plain_ms["prefix"], bound_ms=f_bound, bound_by=f_by,
              library_ms=None),
+        flash_row,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

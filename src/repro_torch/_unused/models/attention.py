@@ -1,0 +1,222 @@
+"""GQA attention: the chunked streaming softmax, single-token decode against
+a KV cache (ring-buffered for sliding-window models), and the flash switch.
+
+The counterpart of the GQA half of ``repro._unused.models.attention``.
+Full-sequence attention runs the flash kernel when :func:`_use_flash` says
+so (``"auto"``: the tensors are on a CUDA device, as ``"auto"`` means a TPU
+in the reference) and the streaming softmax :func:`_attend_chunked`
+otherwise. The port runs inference only: there is no backward, so the
+reference's ``_flash_with_xla_bwd`` is a plain call here. The cache write is
+in place (the reference returns a new buffer); the returned cache holds the
+same tensors. There is no context-parallel write and no cross-attention;
+MLA waits (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import os
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch._unused.flash_attention import flash_attention
+from .layers import Dense, apply_rope, cdtype, dense_apply, dense_init, rope_sin_cos
+
+__all__ = ["GQA", "gqa_init", "gqa_apply", "KVCache", "flash_enabled"]
+
+NEG_INF = -1e30
+
+_FLASH = {"on": os.environ.get("REPRO_FLASH", "auto")}
+
+
+@contextlib.contextmanager
+def flash_enabled(mode: str = "on"):
+    prev = _FLASH["on"]
+    _FLASH["on"] = mode
+    try:
+        yield
+    finally:
+        _FLASH["on"] = prev
+
+
+def _use_flash(x: torch.Tensor) -> bool:
+    mode = _FLASH["on"]
+    if mode == "off" or mode == "0":
+        return False
+    if mode in ("on", "1", "force"):
+        return True
+    return x.device.type == "cuda"  # auto
+
+
+class KVCache(NamedTuple):
+    """Decode-time cache: k/v (B, S_max, Hkv, dh); S_max = window (a ring
+    buffer) for sliding-window models decoding past the window."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def _cache_write(buf: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Tensor:
+    """Write ``new`` (B, 1, ...) at position ``slot`` of ``buf``'s seq axis, in place."""
+    buf[:, slot : slot + 1] = new.to(buf.dtype)
+    return buf
+
+
+# =====================================================================================
+# chunked streaming attention core
+# =====================================================================================
+def _attend_chunked(
+    q: torch.Tensor,  # (B, S, Hkv, G, dh) — grouped query
+    k: torch.Tensor,  # (B, T, Hkv, dh)
+    v: torch.Tensor,  # (B, T, Hkv, dhv)
+    *,
+    causal: bool,
+    window: Optional[int],
+    scale: float,
+    kv_chunk: int = 1024,
+    softcap: Optional[float] = None,
+    p_dtype=torch.bfloat16,  # probability-tensor storage before the PV product
+):
+    """Streaming-softmax attention over KV chunks. Returns (B,S,Hkv,G,dhv) f32.
+
+    The probabilities are rounded to ``p_dtype`` and multiplied with V
+    rounded to ``p_dtype``, with a float32 product and sum, as the
+    reference's ``preferred_element_type=float32`` einsum does.
+    """
+    B, S, Hkv, G, dh = q.shape
+    T = k.shape[1]
+    dhv = v.shape[-1]
+    n_chunks = -(-T // kv_chunk)
+    dev = q.device
+    q32 = q.float() * scale
+    qpos = torch.arange(S, device=dev)
+    m = torch.full((B, Hkv, G, S), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, G, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, G, S, dhv), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        k_i = k[:, ci * kv_chunk : (ci + 1) * kv_chunk]
+        v_i = v[:, ci * kv_chunk : (ci + 1) * kv_chunk]
+        kpos = ci * kv_chunk + torch.arange(k_i.shape[1], device=dev)
+        s_ij = torch.einsum("bshgd,bthd->bhgst", q32, k_i.float())
+        if softcap is not None:
+            s_ij = softcap * torch.tanh(s_ij / softcap)
+        mask = kpos[None, :] <= (qpos[:, None] if causal else T)
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s_ij = s_ij.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s_ij.amax(-1))
+        p = torch.exp(s_ij - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgst,bthd->bhgsd", p.to(p_dtype).float(), v_i.to(p_dtype).float()
+        )
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4)  # (B,S,Hkv,G,dhv)
+
+
+def _attend_decode(
+    q: torch.Tensor,  # (B, 1, Hkv, G, dh)
+    k: torch.Tensor,  # (B, T, Hkv, dh)
+    v: torch.Tensor,  # (B, T, Hkv, dhv)
+    *,
+    scale: float,
+    valid: torch.Tensor,  # (B, T) bool — which cache slots participate
+    softcap: Optional[float] = None,
+):
+    """Single-token attention against the cache → (B,1,Hkv,G,dhv) f32."""
+    q32 = q.float() * scale
+    s = torch.einsum("bxhgd,bthd->bhgxt", q32, k.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhgxt,bthd->bhgxd", p / torch.clamp_min(l, 1e-30), v.float())
+    return out.permute(0, 3, 1, 2, 4)  # (B,1,Hkv,G,dhv)
+
+
+# =====================================================================================
+# GQA
+# =====================================================================================
+class GQA(nn.Module):
+    """``wq`` (d, H, dh), ``wk``/``wv`` (d, Hkv, dh), each with ``b`` when
+    ``qkv_bias``, and ``wo`` (H·dh, d)."""
+
+    def __init__(self, wq: Dense, wk: Dense, wv: Dense, wo: Dense):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+
+
+def gqa_init(cfg: ModelConfig, *, gen=None, device=None) -> GQA:
+    d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(gen=gen, device=device)
+    return GQA(
+        dense_init(d, (H, dh), cfg, bias=cfg.qkv_bias, **kw),
+        dense_init(d, (Hkv, dh), cfg, bias=cfg.qkv_bias, **kw),
+        dense_init(d, (Hkv, dh), cfg, bias=cfg.qkv_bias, **kw),
+        dense_init(H * dh, (d,), cfg, **kw),
+    )
+
+
+def gqa_apply(
+    p: GQA,
+    x: torch.Tensor,  # (B, S, d)
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,  # (S,) absolute positions of x
+    causal: bool = True,
+    cache: Optional[KVCache] = None,
+    cache_len: Optional[int] = None,  # tokens already in cache
+):
+    """Returns (out (B,S,d), new_cache)."""
+    B, S, d = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(dh)
+
+    q = dense_apply(p.wq, x, cfg)  # (B,S,H,dh)
+    k = dense_apply(p.wk, x, cfg)
+    v = dense_apply(p.wv, x, cfg)
+    sin, cos = rope_sin_cos(positions, dh, cfg.rope_theta)
+    q = apply_rope(q, sin[None], cos[None])
+    k = apply_rope(k, sin[None], cos[None])  # the same positions as q
+    qg = q.reshape(B, S, Hkv, G, dh)
+    new_cache = None
+
+    if cache is not None:
+        # decode: write k,v at the cache cursor, attend to the whole cache
+        cache_len = int(cache_len)
+        S_max = cache.k.shape[1]
+        ring = bool(cfg.sliding_window) and S_max == cfg.sliding_window
+        slot = cache_len % cfg.sliding_window if ring else cache_len
+        ck = _cache_write(cache.k, k, slot)
+        cv = _cache_write(cache.v, v, slot)
+        new_cache = KVCache(ck, cv)
+        t_idx = torch.arange(S_max, device=x.device)
+        if ring:
+            valid = t_idx <= min(cache_len, S_max - 1)
+        else:
+            valid = t_idx <= cache_len
+            if cfg.sliding_window:
+                valid &= t_idx > cache_len - cfg.sliding_window
+        out = _attend_decode(qg, ck, cv, scale=scale, valid=valid.expand(B, S_max),
+                             softcap=cfg.attn_logit_softcap)
+    else:
+        win = cfg.sliding_window
+        if _use_flash(x) and cfg.attn_logit_softcap is None:
+            out = flash_attention(qg, k, v, causal=causal, window=win, scale=scale)
+        else:
+            out = _attend_chunked(
+                qg, k, v, causal=causal, window=win, scale=scale,
+                softcap=cfg.attn_logit_softcap, p_dtype=cdtype(cfg),
+            )
+
+    out = out.reshape(B, S, H * dh).to(cdtype(cfg))
+    return dense_apply(p.wo, out, cfg), new_cache

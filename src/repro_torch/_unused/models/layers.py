@@ -1,0 +1,191 @@
+"""Foundational layers: dense, norms, embeddings, RoPE, FFNs.
+
+The counterpart of ``repro._unused.models.layers``. A JAX pytree of
+parameters becomes an ``nn.Module`` whose parameter names are the pytree's
+keys (``w``, ``b``, ``scale``, ``bias``, ``table``; an FFN holds ``wi``,
+``wo`` and for SwiGLU ``wg``); the ``*_apply`` functions take the module and
+tensors as the reference's take the pytree and arrays. Parameters stay in
+``param_dtype`` and are cast to ``compute_dtype`` at each use; norms compute
+in float32 and cast back to the input's dtype. Initializers draw from an
+explicit ``torch.Generator`` on the parameters' device, so their numbers
+differ from ``jax.random``'s: the tests carry the reference's weights across
+with :func:`repro_torch.interop.convert_lm_params`. The RWKV channel mix
+waits for the RWKV slice (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+__all__ = [
+    "Dense", "dense_init", "dense_apply",
+    "Norm", "norm_init", "norm_apply",
+    "Embed", "round_vocab", "embed_init",
+    "rope_sin_cos", "apply_rope",
+    "FFN", "ffn_init", "ffn_apply",
+    "cdtype", "pdtype",
+]
+
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def pdtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def _normal(shape, cfg, gen, device, std: float) -> nn.Parameter:
+    t = torch.empty(shape, dtype=pdtype(cfg), device=device)
+    if t.device.type != "meta":
+        t.normal_(generator=gen).mul_(std)
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _const(shape, cfg, device, value: float) -> nn.Parameter:
+    return nn.Parameter(torch.full(shape, value, dtype=pdtype(cfg), device=device),
+                        requires_grad=False)
+
+
+# ---- dense / linear -----------------------------------------------------------
+class Dense(nn.Module):
+    """``w`` (in_dim, *out_dims) and, with a bias, ``b`` (*out_dims)."""
+
+    def __init__(self, w: nn.Parameter, b: nn.Parameter | None = None):
+        super().__init__()
+        self.w = w
+        self.b = b
+
+
+def dense_init(in_dim: int, out_dims: Sequence[int], cfg, *, gen=None, device=None,
+               bias=False, scale=None) -> Dense:
+    if scale is None:
+        scale = 1.0 / np.sqrt(in_dim)
+    w = _normal((in_dim, *out_dims), cfg, gen, device, float(scale))
+    return Dense(w, _const(tuple(out_dims), cfg, device, 0.0) if bias else None)
+
+
+def dense_apply(p: Dense, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x (..., in_dim) → (..., *out_dims) in the compute dtype: the
+    reference's ``"...d,dh->...h"`` and ``"bsd,dhe->bshe"`` contractions."""
+    w = p.w.to(cdtype(cfg))
+    out_dims = w.shape[1:]
+    y = (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *out_dims)
+    if p.b is not None:
+        y = y + p.b.to(cdtype(cfg))
+    return y
+
+
+# ---- norms ---------------------------------------------------------------------
+class Norm(nn.Module):
+    """``scale`` and, for LayerNorm, ``bias``."""
+
+    def __init__(self, scale: nn.Parameter, bias: nn.Parameter | None = None):
+        super().__init__()
+        self.scale = scale
+        self.bias = bias
+
+
+def norm_init(dim: int, cfg, *, device=None) -> Norm:
+    bias = _const((dim,), cfg, device, 0.0) if cfg.norm_type == "layernorm" else None
+    return Norm(_const((dim,), cfg, device, 1.0), bias)
+
+
+def norm_apply(p: Norm, x: torch.Tensor, cfg) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm_type == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p.scale.float() + p.bias.float()
+    else:  # rmsnorm
+        ms = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * p.scale.float()
+    return y.to(x.dtype)
+
+
+# ---- embeddings ------------------------------------------------------------------
+def round_vocab(vocab: int, multiple: int = 256) -> int:
+    return -(-vocab // multiple) * multiple
+
+
+class Embed(nn.Module):
+    """``table`` (round_vocab(vocab), d_model)."""
+
+    def __init__(self, table: nn.Parameter):
+        super().__init__()
+        self.table = table
+
+
+def embed_init(cfg, *, gen=None, device=None) -> Embed:
+    return Embed(_normal((round_vocab(cfg.vocab), cfg.d_model), cfg, gen, device, 0.02))
+
+
+# ---- rotary position embeddings ---------------------------------------------------
+@functools.lru_cache(maxsize=64)
+def _inv_freq(dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The reference's float32 numpy inverse frequencies, copied to the
+    device once (a copy per call would synchronize every layer)."""
+    inv = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+    return torch.as_tensor(inv, device=device)
+
+
+def rope_sin_cos(positions: torch.Tensor, dim: int, theta: float):
+    """positions (...,) int → sin, cos (..., dim/2) f32."""
+    inv = _inv_freq(dim, theta, positions.device)
+    ang = positions.float()[..., None] * inv[None, :]
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, dh) with sin/cos (..., S, dh/2): rotate-half, the halves
+    concatenated (not interleaved)."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    s, c = sin[..., None, :], cos[..., None, :]  # broadcast over heads
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ---- feed-forward variants ---------------------------------------------------------
+class FFN(nn.Module):
+    """``wi``, ``wo`` and, for SwiGLU, ``wg``."""
+
+    def __init__(self, wi: Dense, wo: Dense, wg: Dense | None = None):
+        super().__init__()
+        self.wi = wi
+        self.wg = wg
+        self.wo = wo
+
+
+def ffn_init(cfg: ModelConfig, d_ff: int, *, gen=None, device=None) -> FFN:
+    d = cfg.d_model
+    if cfg.ffn_act == "rwkv_cm":
+        raise NotImplementedError("the RWKV channel mix waits for the RWKV slice (ROADMAP A10)")
+    kw = dict(gen=gen, device=device)
+    wi = dense_init(d, (d_ff,), cfg, **kw)
+    wg = dense_init(d, (d_ff,), cfg, **kw) if cfg.ffn_act == "swiglu" else None
+    return FFN(wi, dense_init(d_ff, (d,), cfg, **kw), wg)
+
+
+def ffn_apply(p: FFN, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, d) → (B, S, d). GELU is the tanh approximation, as
+    ``jax.nn.gelu``'s default."""
+    if cfg.ffn_act == "swiglu":
+        h = F.silu(dense_apply(p.wg, x, cfg)) * dense_apply(p.wi, x, cfg)
+        return dense_apply(p.wo, h, cfg)
+    if cfg.ffn_act == "rwkv_cm":
+        raise NotImplementedError("the RWKV channel mix waits for the RWKV slice (ROADMAP A10)")
+    h = dense_apply(p.wi, x, cfg)
+    if cfg.ffn_act == "relu2":
+        h = torch.square(F.relu(h))
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return dense_apply(p.wo, h, cfg)

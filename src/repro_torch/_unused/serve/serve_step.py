@@ -1,0 +1,57 @@
+"""Serving: batched greedy single-token decode steps and the prefill.
+
+The counterpart of ``repro._unused.serve.serve_step`` on one device: there
+is no mesh, so no context-parallel cache (ROADMAP A8). The decode step
+attends one new token against the KV cache (ring-buffered to the window for
+sliding-window models); the prefill is the full-sequence forward, where the
+flash kernel runs on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch._unused.models import lm
+
+__all__ = ["make_decode_step", "make_prefill_step", "greedy_generate"]
+
+
+def make_decode_step(cfg: ModelConfig, s_max: int):
+    def step(params, tokens: torch.Tensor, cache, cache_len: int):
+        logits, new_cache = lm.apply_decode(params, tokens, cache, cache_len, cfg)
+        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        return next_tok, new_cache
+
+    return step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """Full-sequence forward producing the last position's greedy token."""
+
+    def step(params, batch: dict):
+        logits = lm.apply_train(params, batch, cfg)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    return step
+
+
+def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_new: int, s_max: int = 0):
+    """Simple greedy loop. prompt: (B, S0) int → (B, n_new) int32 on its device.
+
+    The prompt is fed token by token through the decode step, as the
+    reference does (the prefill path covers the fast case).
+    """
+    B, S0 = prompt.shape
+    s_max = s_max or (S0 + n_new)
+    cache = lm.init_cache(cfg, B, s_max, device=prompt.device)
+    step = make_decode_step(cfg, s_max)
+    for t in range(S0):
+        nxt, cache = step(params, prompt[:, t : t + 1], cache, t)
+    tok = nxt[:, None]
+    out = []
+    for t in range(n_new):
+        out.append(tok)
+        nxt, cache = step(params, tok, cache, S0 + t)
+        tok = nxt[:, None]
+    return torch.cat(out, dim=1)

@@ -29,29 +29,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import DeviceUnavailableError, resolve_device
 from repro_torch.kernels.ops import pbvd_decode_blocks
 from repro_torch.launch.faults import SymbolError, check_finite_symbols
 
 from .codespec import CodeSpec
 from .pbvd import PBVDConfig, frame_stream
 
-__all__ = ["DecoderEngine", "DeviceUnavailableError"]
-
-
-class DeviceUnavailableError(RuntimeError):
-    """The engine was asked for a CUDA device and the host has none."""
-
-
-def _resolve_device(device: str | torch.device | None) -> torch.device:
-    """``None`` → ``"cuda"``; a CUDA device must exist."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise DeviceUnavailableError(
-            f"DecoderEngine wants device {str(dev)!r} but torch finds no CUDA "
-            f"device; pass device='cpu' to decode on the CPU with the kernels' "
-            f"plain PyTorch versions"
-        )
-    return dev
+__all__ = ["DecoderEngine", "DeviceUnavailableError", "resolve_device"]
 
 
 class DecoderEngine:
@@ -66,7 +51,7 @@ class DecoderEngine:
     def __init__(self, cfg: PBVDConfig | None = None, *, device=None):
         self.cfg = cfg if cfg is not None else PBVDConfig()
         self.spec: CodeSpec = self.cfg.codespec
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ one-shot
     def decode(self, y, n_bits: int | None = None) -> torch.Tensor:

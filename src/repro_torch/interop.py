@@ -15,17 +15,22 @@ the JAX package can describe it without the port importing that package:
 ``backend`` is the reference's name and maps to the port's counterpart:
 ``"pallas"`` → ``"cuda"``, ``"ref"`` → ``"ref"``, ``"fused"`` → ``"fused"``.
 :func:`config_fields` is the inverse.
+
+The LM path has weights: :func:`convert_lm_params` carries the reference's
+parameter pytree, with every leaf a numpy array, into the port's modules.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.codespec import CodeSpec, available_code_specs, get_code_spec
 from repro_torch.core.pbvd import PBVDConfig
 from repro_torch.core.trellis import ConvCode
+from repro_torch.device import resolve_device
 
-__all__ = ["convert_config", "config_fields"]
+__all__ = ["convert_config", "config_fields", "convert_lm_params"]
 
 _KEYS = ("polys", "puncture", "D", "L", "q", "start_policy", "metric_mode")
 #: the reference's backend names → the port's
@@ -102,3 +107,39 @@ def config_fields(cfg: PBVDConfig) -> dict:
         acs_k=cfg.acs_k,
         backend={port: ref for ref, port in BACKENDS.items()}[cfg.backend],
     )
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _leaves(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def convert_lm_params(params: dict, cfg, device=None):
+    """The reference's LM parameter pytree (numpy leaves) → the port's
+    :class:`~repro_torch._unused.models.lm.LM` on ``device`` (``None``:
+    ``"cuda"``).
+
+    ``params["groups"][gi]`` leaves carry a leading ``repeat`` axis (the
+    reference scans over it); layer r of the group becomes
+    ``groups[gi][r]``. A tied model has no ``lm_head``. Every parameter of
+    the port must be matched by one leaf, and no leaf may be left over.
+    """
+    from repro_torch._unused.models import lm
+
+    dev = resolve_device(device, user="convert_lm_params")
+    model = lm.init_params(cfg, device="meta")
+    state = {}
+    for key in ("embed", "final_norm", "lm_head"):
+        if key in params:
+            for name, leaf in _leaves(params[key], f"{key}."):
+                state[name] = torch.tensor(np.array(leaf))
+    for gi, group in enumerate(params["groups"]):
+        for name, leaf in _leaves(group):
+            leaf = np.array(leaf)
+            for r in range(leaf.shape[0]):
+                state[f"groups.{gi}.{r}.{name}"] = torch.tensor(leaf[r])
+    model.load_state_dict(state, strict=True, assign=True)
+    return model.to(dev)

@@ -1,0 +1,72 @@
+"""Serving driver: batched greedy decoding through the port's LM path.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --preset full \\
+        --batch 4 --new-tokens 64
+
+The counterpart of ``repro.launch.serve`` with the same flags, on one card
+and without a mesh (ROADMAP A8). The default ``--arch`` is
+``starcoder2-3b``, not the reference's ``rwkv6-3b``, until the RWKV slice
+ports that card (ROADMAP A10). Weights are random, drawn on the device from
+a generator seeded with 0. The prompt is fed token by token through the
+decode step, then ``--new-tokens`` steps are timed on the card (host clock
+around work that ends in a synchronize). ``--device cpu`` runs a rehearsal
+on the CPU, whose time is the CPU's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.device import resolve_device
+from repro_torch._unused.models import lm
+from repro_torch._unused.serve.serve_step import make_decode_step
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="starcoder2-3b")
+    ap.add_argument("--preset", default="tiny", choices=["tiny", "full"])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=64)
+    ap.add_argument("--device", default=None, help="cuda (the default) or cpu for a rehearsal")
+    args = ap.parse_args()
+
+    cfg = get_config(args.arch)
+    if args.preset == "tiny":
+        cfg = cfg.reduced()
+    dev = resolve_device(args.device, user="serve")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    rng = np.random.default_rng(0)
+    s_max = args.prompt_len + args.new_tokens
+
+    params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    cache = lm.init_cache(cfg, args.batch, s_max, device=dev)
+    step = make_decode_step(cfg, s_max)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)), device=dev)
+
+    for t in range(args.prompt_len):
+        nxt, cache = step(params, prompt[:, t : t + 1], cache, t)
+    sync()
+
+    t0 = time.perf_counter()
+    tok = nxt[:, None]
+    for t in range(args.new_tokens):
+        nxt, cache = step(params, tok, cache, args.prompt_len + t)
+        tok = nxt[:, None]
+    sync()
+    dt = time.perf_counter() - t0
+
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
+    total = args.batch * args.new_tokens
+    print(f"[serve] {cfg.name} on {where}: {total} tokens in {dt*1e3:.0f} ms "
+          f"→ {total/dt:.0f} tok/s ({dt/args.new_tokens*1e3:.1f} ms/step)")
+
+
+if __name__ == "__main__":
+    main()

@@ -188,7 +188,18 @@ from repro_torch.core.pbvd import PBVDConfig
 for be in ("ref", "cuda", "fused"):
     cfg = PBVDConfig(D=32, L=8, backend=be, tb_mode="prefix", tb_chunk=5, acs_impl="matrix")
     DecoderEngine(cfg, device="cpu").decode(torch.ones((70, 2)))
+# and the LM serving path: prefill (flash's plain version) and greedy decode
+from repro_torch.configs.base import get_config
+from repro_torch._unused.models import attention, lm
+from repro_torch._unused.serve.serve_step import greedy_generate, make_prefill_step
+lcfg = get_config("starcoder2-3b").reduced()
+params = lm.init_params(lcfg, device="cpu")
+toks = torch.zeros((1, 16), dtype=torch.long)
+with attention.flash_enabled("on"):
+    make_prefill_step(lcfg)(params, {"tokens": toks})
+assert greedy_generate(params, lcfg, toks[:, :4], 3).shape == (1, 3)
 assert "repro_torch.kernels.traceback" in mods and "repro_torch.kernels.fused" in mods
+assert "repro_torch._unused.flash_attention" in mods and "repro_torch.launch.serve" in mods
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
 print(len(mods), bad)
@@ -196,5 +207,5 @@ print(len(mods), bad)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
                          check=True).stdout.split(None, 1)
-    assert int(out[0]) >= 15
+    assert int(out[0]) >= 28
     assert out[1].strip() == "[]"

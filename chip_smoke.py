@@ -10,7 +10,13 @@ non-zero and prints no result:
 2. K1 (forward ACS) against its plain PyTorch version on the card, at the
    main path's shapes and for several codes, symbol dtypes and ragged batch
    widths: survivor words equal, path metrics equal (float32: allclose,
-   rtol 1e-6, though the same add order makes them exact);
+   rtol 1e-6, though the same add order makes them exact); then every
+   mother code with a warp-body instantiation (CCSDS, IS-95, LTE) at each
+   of its S variants, and the runtime-table body ((2,1,5)), at B = 5, 33,
+   40, 300, 1001 and 8192 + 17, T = 1, 97, 596 and 597 (odd T at radix 4),
+   f32/i16/i8 (many normalization intervals; refused where the budget
+   refuses), each launch counted on the body its code chose, words and
+   metrics equal;
 3. K2 (serial traceback) against its plain version: zero, argmin and random
    start states, bits equal;
 4. the main path, ``DecoderEngine(PBVDConfig()).decode`` on a 4,194,304-bit
@@ -20,8 +26,9 @@ non-zero and prints no result:
 5. the serving path, ``decode_batch`` of 64 streams × 65,536 bits (and a
    small ragged fleet) equal to per-stream ``decode``;
 6. times: each kernel's median CUDA-event time at the main-path shapes, its
-   plain version's, its bound, decoded Mb/s end to end and on the device,
-   bytes per decoded bit and the host phases.
+   plain version's, its bound and K1's share of it, K1's S variants for
+   each mother code, decoded Mb/s end to end and on the device, bytes per
+   decoded bit and the host phases.
 
 Then the fused backend, the narrow metric modes and radix 4:
 
@@ -31,17 +38,22 @@ Then the fused backend, the narrow metric modes and radix 4:
    main shapes, K=9, rate 1/3, a 16-state code, a ragged batch, int8/int16/
    float32 symbols, odd T, zero and random start states, a packed width that
    overhangs the block and a K=9 block (D=4096, L=64) whose survivor history
-   needs more than 48 KB of shared memory. Combinations whose saturation
-   budget ``norm_interval`` refuses are printed as refused;
+   needs more than 48 KB of shared memory; and, as in phase 2, every mother
+   code at each S variant of the warp body and the runtime-table body, each
+   launch counted on its body. Combinations whose saturation budget
+   ``norm_interval`` refuses are printed as refused;
 8. the fused main path, ``DecoderEngine(PBVDConfig(backend="fused")).decode``
    on the 4,194,304-bit stream: equal to ``"ref"`` and ``"cuda"``, i16 equal
    to f32, i8 at radix 4 through ``"fused"`` and ``"cuda"`` equal to
    ``"ref"`` in that configuration (each radix-4 path's launches counted), a
    noiseless stream with 0 errors, one fused launch and no K1/K2 launch per
    decode, and ``decode_batch`` of 64 × 65,536 bits in one fused launch;
-9. times of the fused kernel (radix 2 and 4, f32 and i8) and of K1 at radix
-   4 and in i8, beside their plain versions and bounds, and end-to-end Mb/s
-   of ``"fused"`` beside ``"cuda"``.
+9. times of the fused kernel (radix 2 and 4, f32 and i8; its S variants
+   with their blocks per CTA and the CTAs, blocks and warps an SM holds)
+   and of K1 at radix 4 and in i8, beside their plain versions, bounds and
+   shares of them, end-to-end Mb/s of ``"fused"`` beside ``"cuda"``, and a
+   ``torch.profiler`` window over five decodes of each (device busy share,
+   top kernels).
 
 Then the prefix traceback and the matrix ACS:
 
@@ -119,6 +131,11 @@ N_STREAMS, STREAM_BITS = 64, 65536
 # (FMA) × 1.98 GHz; a Hopper SM has 64 INT32 lanes, so the 32-bit integer
 # ALU peak is 132 × 64 × 1.98e9 op/s. Rates assume the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
+# Only the INT32 pipe: IMAD (on the FMA pipe) and DPX may issue beside it,
+# so a kernel could in principle beat this rate. A share of the bound above
+# 100 % would mean that the operation count or this peak is wrong, never
+# the timing; the script refuses such a reading (below, before the kernels
+# line).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BF16_FLOPS_PER_S = 989e12  # dense tensor-core peak
 F32_FLOPS_PER_S = 67e12  # outside the tensor cores
@@ -575,6 +592,58 @@ def main() -> int:
         sp_keep[label] = (code, sp_k, pm_k)
         log(f"[2 K1] {label:13s} {str(dtype):14s} T={T} B={B}: sp equal, pm max abs err {err}")
 
+    # every instantiated mother code at each S variant of the warp body, and
+    # the runtime-table body; ragged, tiny and one-stage batches, odd T at
+    # radix 4, the narrow modes over many normalization intervals. Each
+    # launch is counted on the body the code chose.
+    is95, lte = get_code_spec("is95-k9").code, get_code_spec("lte-1/3").code
+    i8, i16, f32 = torch.int8, torch.int16, torch.float32
+    body_cases = []  # label, code, symbol dtype, B, T, mode, radix, S
+    for label, code in (("ccsds", ccsds), ("is95-k9", is95), ("lte-1/3", lte)):
+        for S in acs.warp_states(code):
+            body_cases += [(label, code, i8, N_MAIN_BLOCKS + 17, T, "f32", 2, S),
+                           (label, code, i16, 5, T + 1, "i16", 4, S),
+                           (label, code, i8, 1001, T, "i8", 2, S),
+                           (label, code, i8, 300, 97, "i8", 4, S),
+                           (label, code, f32, 33, 1, "f32", 2, S),
+                           (label, code, f32, 40, T + 1, "f32", 4, S)]
+    body_cases += [("(2,1,5)", k5, i16, 5, T + 1, "i16", 4, None),
+                   ("(2,1,5)", k5, i8, N_MAIN_BLOCKS + 17, T, "f32", 2, None),
+                   ("(2,1,5)", k5, f32, 33, 1, "f32", 2, None),
+                   ("(2,1,5)", k5, i8, 300, 97, "i8", 2, None)]
+    k1_err_r4 = 0.0
+    for label, code, dtype, B, Tc, mode, radix, S in body_cases:
+        body = acs.kernel_body(code)
+        tag = (f"{label:8s} {body} body S={S} {str(dtype):13s} T={Tc} B={B} {mode} r{radix}")
+        try:
+            norm_every = norm_interval(code, mode, radix)
+        except ValueError as err:
+            log(f"[2 refused] {tag}: {err}")
+            continue
+        if dtype == f32:
+            y2 = torch.randn((Tc, code.R, B), generator=gen, device=dev) * 2.0
+        else:
+            y2 = torch.randint(-127, 128, (Tc, code.R, B), generator=gen, device=dev).to(dtype)
+        acs.launches = acs.table_launches = 0
+        sp_k, pm_k = acs.acs_forward(y2, code, mode, radix, states_per_thread=S)
+        torch.cuda.synchronize()
+        if (acs.launches, acs.table_launches) != (1, int(body == "table")):
+            raise AssertionError(f"K1 {tag}: launches {acs.launches}, table body "
+                                 f"{acs.table_launches}")
+        sp_p, pm_p = acs.acs_forward_plain(y2, code, mode, radix)
+        if not torch.equal(sp_k, sp_p):
+            raise AssertionError(f"K1 {tag}: {int((sp_k != sp_p).sum())} survivor words differ")
+        if not torch.equal(pm_k, pm_p.to(pm_k.dtype)):
+            raise AssertionError(f"K1 {tag}: path metrics differ")
+        err = float((pm_k.double() - pm_p.double()).abs().max())
+        if radix == 4:
+            k1_err_r4 = max(k1_err_r4, err)
+        else:
+            k1_err = max(k1_err, err)
+        n_norm = (Tc // (radix // 2)) // norm_every if norm_every else 0
+        log(f"[2 K1] {tag}: sp and pm equal (launches {acs.launches}, table body "
+            f"{acs.table_launches}; {n_norm} normalizations)")
+
     # ---- 3. K2 against its plain version ---------------------------------------
     L, D = PBVDConfig().L, PBVDConfig().D
     k2_err = 0.0
@@ -607,12 +676,13 @@ def main() -> int:
     engine = DecoderEngine(cfg, device=dev)
     engine.decode(y[: 4 * cfg.D], 4 * cfg.D)  # first call loads the kernels
     torch.cuda.synchronize()
-    acs.launches = traceback.launches = 0
+    acs.launches = acs.table_launches = traceback.launches = 0
     bits = engine.decode(y, n_bits)
     torch.cuda.synchronize()
     main_launches = {"acs": acs.launches, "traceback": traceback.launches}
-    if min(main_launches.values()) < 1:
-        raise AssertionError(f"main path did not launch every kernel: {main_launches}")
+    if min(main_launches.values()) < 1 or acs.table_launches:
+        raise AssertionError(f"main path did not launch every kernel on the warp body: "
+                             f"{main_launches}, table body {acs.table_launches}")
     ref_bits = DecoderEngine(PBVDConfig(backend="ref"), device=dev).decode(y, n_bits)
     if bits.shape != (n_bits,) or bits.dtype != torch.int32 or not torch.equal(bits, ref_bits):
         raise AssertionError("main path: backend='cuda' differs from backend='ref'")
@@ -673,7 +743,19 @@ def main() -> int:
     k1_bound, k1_by = bound(k1_bytes, k1_ops, INT32_OPS_PER_S)
     k2_bound, k2_by = bound(k2_bytes, k2_ops, INT32_OPS_PER_S)
     log(f"[6 times] K1 {k1_ms:.4f} ms (plain {k1_plain_ms:.3f} ms, bound {k1_bound:.4f} ms by "
-        f"{k1_by}: {k1_bytes:.0f} B, {k1_ops:.0f} int32 op)")
+        f"{k1_by}: {k1_bytes:.0f} B, {k1_ops:.0f} int32 op; {k1_bound / k1_ms:.1%} of the "
+        f"bound; warp body, S={acs.warp_states(cfg.code)[0]})")
+    for name_s, code_s in (("ccsds", cfg.code), ("lte-1/3", lte), ("is95-k9", is95)):
+        y_s = blocks if code_s is cfg.code else torch.randint(
+            -127, 128, (cfg.T, code_s.R, n_blocks), generator=gen, device=dev).to(torch.int8)
+        nb_s, no_s = k1_cost(code_s, cfg.T, n_blocks, 1)
+        b_s = bound(nb_s, no_s, INT32_OPS_PER_S)[0]
+        for S in acs.warp_states(code_s):
+            ms_s = cuda_ms(torch, lambda: acs.acs_forward(y_s, code_s, states_per_thread=S),
+                           reps=20)
+            log(f"[6 times] K1 {name_s} S={S} ({code_s.n_states // S} lanes per block, "
+                f"{-(-n_blocks * code_s.n_states // S // 32)} warps): {ms_s:.4f} ms, bound "
+                f"{b_s:.4f} ms, {b_s / ms_s:.1%} of it")
     log(f"[6 times] K2 {k2_ms:.4f} ms (plain {k2_plain_ms:.3f} ms, bound {k2_bound:.4f} ms by "
         f"{k2_by}: {k2_bytes:.0f} B, {k2_ops:.0f} int32 op)")
     log(f"[6 times] host phases: frame (check+quantize+frame) {frame_ms:.3f} ms, "
@@ -685,8 +767,6 @@ def main() -> int:
         f"{(k1_bytes + k2_bytes) / n_bits:.3f}")
 
     # ---- 7. narrow modes, radix 4 and the fused kernel against plain -----------
-    is95, lte = get_code_spec("is95-k9").code, get_code_spec("lte-1/3").code
-    i8, i16, f32 = torch.int8, torch.int16, torch.float32
     # label, code, symbol dtype, B, T, decode_start, n_decode, mode, radix, start
     cases = [
         ("ccsds main", ccsds, i8, N_MAIN_BLOCKS, T, L, D, "f32", 2, "zero"),
@@ -712,10 +792,22 @@ def main() -> int:
         # G drops to 1: CTAs of 16 threads, one partly filled warp
         ("(2,1,5) long", k5, i8, 50, 8000, 64, 7904, "i16", 4, "random"),
     ]
+    # the warp body's codes and S variants, and the runtime-table body
+    for label, code in (("ccsds", ccsds), ("is95-k9", is95), ("lte-1/3", lte)):
+        for S in acs.warp_states(code):
+            cases += [(label, code, i8, N_MAIN_BLOCKS + 17, T, L, D, "f32", 2, "zero", S),
+                      (label, code, i16, 5, T + 1, L, D, "i16", 4, "random", S),
+                      (label, code, i8, 1001, T, L, D, "i8", 2, "random", S),
+                      (label, code, f32, 33, 1, 0, 32, "f32", 4, "random", S),
+                      (label, code, i8, 300, 97, 9, 64, "i8", 4, "zero", S)]
+    cases += [("(2,1,5)", k5, i8, 5, 1, 0, 32, "i8", 4, "random", None),
+              ("(2,1,5)", k5, i16, N_MAIN_BLOCKS + 17, T, L, D, "i16", 2, "zero", None)]
     fused_err = {2: 0.0, 4: 0.0}  # by radix; K1's radix-4 errors go to k1_err_r4
-    k1_err_r4 = 0.0
-    for label, code, dtype, B, Tc, ds, nd, mode, radix, policy in cases:
-        tag = f"{label:14s} {str(dtype):13s} T={Tc} B={B} {mode} r{radix} start={policy}"
+    for label, code, dtype, B, Tc, ds, nd, mode, radix, policy, *states in cases:
+        S = states[0] if states else None
+        body = acs.kernel_body(code)
+        tag = (f"{label:14s} {body} S={S} {str(dtype):13s} T={Tc} B={B} {mode} r{radix} "
+               f"start={policy}")
         try:
             norm_interval(code, mode, radix)
         except ValueError as err:
@@ -728,7 +820,7 @@ def main() -> int:
         start = (torch.randint(0, code.n_states, (B,), generator=gen, device=dev,
                                dtype=torch.int32) if policy == "random" else None)
         if mode != "f32" or radix == 4:
-            sp_k, pm_k = acs.acs_forward(y7, code, mode, radix)
+            sp_k, pm_k = acs.acs_forward(y7, code, mode, radix, states_per_thread=S)
             torch.cuda.synchronize()
             sp_p, pm_p = acs.acs_forward_plain(y7, code, mode, radix)
             if not torch.equal(sp_k, sp_p):
@@ -740,16 +832,21 @@ def main() -> int:
                 k1_err_r4 = max(k1_err_r4, err)
             else:
                 k1_err = max(k1_err, err)
+        fused.launches = fused.table_launches = 0
         words_k = fused.pbvd_fused(y7, code, decode_start=ds, n_decode=nd, start_state=start,
-                                   metric_mode=mode, radix=radix)
+                                   metric_mode=mode, radix=radix, states_per_thread=S)
         torch.cuda.synchronize()
+        if (fused.launches, fused.table_launches) != (1, int(body == "table")):
+            raise AssertionError(f"fused {tag}: launches {fused.launches}, table body "
+                                 f"{fused.table_launches}")
         words_p = fused.pbvd_fused_plain(y7, code, decode_start=ds, n_decode=nd,
                                          start_state=start, metric_mode=mode, radix=radix)
         if not torch.equal(words_k, words_p):
             raise AssertionError(f"fused {tag}: {int((words_k != words_p).sum())} words differ")
         fused_err[radix] = max(fused_err[radix],
                                float((words_k.double() - words_p.double()).abs().max()))
-        G, smem = fused.smem_plan(Tc, code.n_states)
+        lanes = code.n_states // (S or acs.warp_states(code)[0]) if body == "warp" else None
+        G, smem = fused.smem_plan(Tc, code.n_states, lanes=lanes)
         log(f"[7 fused] {tag}: words equal (G={G}, {smem} B shared)"
             + ("; K1 sp and pm equal" if mode != "f32" or radix == 4 else ""))
 
@@ -758,12 +855,12 @@ def main() -> int:
     fengine = DecoderEngine(fcfg, device=dev)
     fengine.decode(y[: 4 * cfg.D], 4 * cfg.D)
     torch.cuda.synchronize()
-    acs.launches = traceback.launches = fused.launches = 0
+    acs.launches = traceback.launches = fused.launches = fused.table_launches = 0
     fbits = fengine.decode(y, n_bits)
     torch.cuda.synchronize()
     fused_launches = {"acs": acs.launches, "traceback": traceback.launches,
                       "fused": fused.launches}
-    if fused_launches != {"acs": 0, "traceback": 0, "fused": 1}:
+    if fused_launches != {"acs": 0, "traceback": 0, "fused": 1} or fused.table_launches:
         raise AssertionError(f"fused main path launched {fused_launches}")
     if fbits.shape != (n_bits,) or not (torch.equal(fbits, ref_bits) and torch.equal(fbits, bits)):
         raise AssertionError("fused main path differs from backend='ref' or 'cuda'")
@@ -827,7 +924,18 @@ def main() -> int:
             torch, lambda: fused.pbvd_fused(blk, cfg.code, metric_mode=mode, radix=radix, **fkw),
             reps=20)
         log(f"[9 times] fused {mode} radix {radix}: {fused_ms[mode, radix]:.4f} ms "
-            f"(bound {f_bound:.4f} ms by {f_by}: {f_bytes:.0f} B, {f_ops:.0f} int32 op)")
+            f"(bound {f_bound:.4f} ms by {f_by}: {f_bytes:.0f} B, {f_ops:.0f} int32 op; "
+            f"{f_bound / fused_ms[mode, radix]:.1%} of the bound)")
+    for S in acs.warp_states(cfg.code):
+        lanes = cfg.code.n_states // S
+        G, smem = fused.smem_plan(cfg.T, cfg.code.n_states, lanes=lanes)
+        ctas, warps = fused.residency(G, smem, lanes)
+        for mode, blk in (("f32", blocks), ("i8", i8_blocks)):
+            ms_s = cuda_ms(torch, lambda: fused.pbvd_fused(blk, cfg.code, metric_mode=mode,
+                                                           states_per_thread=S, **fkw), reps=20)
+            log(f"[9 times] fused {mode} radix 2 S={S}: {ms_s:.4f} ms, {f_bound / ms_s:.1%} of "
+                f"the bound; G={G} blocks per CTA ({G * lanes} threads), {smem} B shared, "
+                f"{ctas} CTAs = {ctas * G} blocks = {warps} warps per SM by shared memory")
     fused_plain_ms = {r: cuda_ms(torch, lambda: fused.pbvd_fused_plain(blocks, cfg.code, radix=r,
                                                                       **fkw), reps=3, warmup=1)
                       for r in (2, 4)}
@@ -849,6 +957,17 @@ def main() -> int:
         f"{n_bits / statistics.mean(e2e['fused']) / 1e3:.1f}; on the device: K1+K2 "
         f"{n_bits / (k1_ms + k2_ms) / 1e3:.1f}, fused {n_bits / fused_ms['f32', 2] / 1e3:.1f}; "
         f"bytes per decoded bit: fused {f_bytes / n_bits:.3f}")
+    for be, eng in (("cuda", engine), ("fused", fengine)):
+        eng.decode(y, n_bits)
+        wall, kernels_p, busy = device_profile(
+            torch, lambda: [eng.decode(y, n_bits) for _ in range(5)])
+        if busy <= 0:
+            log(f"[9 profile] {be}: the profiler saw no device time (not measured)")
+            continue
+        log(f"[9 profile] {be}, 5 decodes of {n_bits} bits: wall {wall:.3f} ms under the "
+            f"profiler, device busy {busy:.3f} ms ({busy / wall:.1%}), idle "
+            f"{1 - busy / wall:.1%}; top kernels: "
+            + "; ".join(f"{n} {ms:.3f} ms × {c}" for n, ms, c in kernels_p))
 
     # ---- 10. K1-matrix against its plain version ------------------------------
     mcases = [  # label, code, symbol dtype, B, T, mode, k
@@ -1012,10 +1131,12 @@ def main() -> int:
                 "prefix": dict(tb_mode="prefix")}
     new_engines, new_launches = {}, {}
     counters = (("acs", acs, "launches"), ("acs_matrix", acs, "matrix_launches"),
+                ("acs_table", acs, "table_launches"),
                 ("traceback", traceback, "launches"),
                 ("traceback_prefix", traceback, "prefix_launches"), ("fused", fused, "launches"),
                 ("fused_matrix", fused, "matrix_launches"),
-                ("fused_prefix", fused, "prefix_launches"))
+                ("fused_prefix", fused, "prefix_launches"),
+                ("fused_table", fused, "table_launches"))
     for vname, knobs in variants.items():
         for be in ("cuda", "fused"):
             eng = DecoderEngine(PBVDConfig(backend=be, **knobs), device=dev)
@@ -1031,8 +1152,9 @@ def main() -> int:
             if be == "cuda":
                 want_counts.update({"acs_matrix" if mat else "acs": 1,
                                     "traceback_prefix" if pre else "traceback": 1})
-            else:
-                want_counts.update(fused=1, fused_matrix=int(mat), fused_prefix=int(pre))
+            else:  # the prefix walk runs on the runtime-table body
+                want_counts.update(fused=1, fused_matrix=int(mat), fused_prefix=int(pre),
+                                   fused_table=int(pre and not mat))
             if counts != want_counts:
                 raise AssertionError(f"{be} {vname} main path launched {counts}")
             if got.shape != (n_bits,) or not torch.equal(got, ref_bits):
@@ -1152,6 +1274,10 @@ def main() -> int:
              library_ms=None),
         flash_row,
     ]
+    for row in kernels:  # the bound is the least time the card could take
+        if row["bound_ms"] > row["ms"]:
+            raise AssertionError(f"{row['name']}: {row['ms']} ms is below its bound "
+                                 f"{row['bound_ms']} ms: the operation count or the peak is wrong")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

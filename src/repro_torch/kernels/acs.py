@@ -16,8 +16,16 @@ return them as int32; the plain version stores int16/int8. The values are
 equal (the saturation budget keeps them inside the narrow dtype), so
 comparisons cast to int32.
 
-``launches`` counts K1's (butterfly) launches and ``matrix_launches``
-K1-matrix's, and nothing else: set them to 0, run, read them.
+The butterfly has two bodies, chosen by the code (:func:`kernel_body`):
+the warp body for the mother codes in :data:`WARP_CODES` (CCSDS, IS-95,
+LTE), whose trellis tables are fixed at compile time, and the
+runtime-table body for any other code. Before a warp-body launch the
+wrapper holds the labels that the instantiation derived at compile time
+against :func:`kernel_labels` and raises on a difference.
+
+``launches`` counts K1's (butterfly) launches, ``table_launches`` those of
+them that ran the runtime-table body, and ``matrix_launches`` K1-matrix's,
+and nothing else: set them to 0, run, read them.
 """
 
 from __future__ import annotations
@@ -28,28 +36,44 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from repro_torch.core.codespec import IS95_29, LTE_37
 from repro_torch.core.quantize import metric_mode_qmax, norm_interval
-from repro_torch.core.trellis import ConvCode
+from repro_torch.core.trellis import CCSDS_27, ConvCode
 from . import _build
 from .ref import _acc_dtype_for, acs_forward_ref as acs_forward_plain
 
 __all__ = [
     "acs_forward",
     "acs_forward_plain",
+    "kernel_body",
     "kernel_labels",
     "kernel_matrix_table",
     "launches",
     "matrix_launches",
+    "table_launches",
+    "warp_code_id",
+    "warp_states",
+    "WARP_CODES",
 ]
 
-#: launches of K1 (the butterfly kernel) since the count was last set to 0
+#: launches of K1 (the butterfly kernel, either body) since the count was last set to 0
 launches = 0
+#: those of them that ran the runtime-table body
+table_launches = 0
 #: launches of K1-matrix since the count was last set to 0
 matrix_launches = 0
 
 _DTYPE_CODE = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3}
 _MAX_R = 4
 _MAX_MATRIX_K = 4  # the kernels' template instances: every k of the R >= 2 codes
+
+#: the mother codes with a warp-body instantiation (``csrc/acs_core.cuh``),
+#: by the C interfaces' code id (0 is the runtime-table body)
+WARP_CODES = {1: CCSDS_27, 2: IS95_29, 3: LTE_37}
+#: the S variants (path metrics per lane) built for each, the default first:
+#: the fastest on the H100 for CCSDS and IS-95; LTE's 16 and 32 are within
+#: run-to-run noise (PERF.md)
+_WARP_STATES = {1: (32, 64, 16), 2: (64, 32), 3: (16, 32, 64)}
 
 
 def kernel_labels(code: ConvCode) -> np.ndarray:
@@ -73,6 +97,58 @@ def kernel_matrix_table(code: ConvCode, k: int) -> np.ndarray:
     return (2 * t["fold_idx"] + (t["fold_sgn"] < 0)).astype(np.int32)
 
 
+def warp_code_id(code: ConvCode) -> int:
+    """The code id of ``code``'s warp-body instantiation, 0 if it has none."""
+    for cid, mother in WARP_CODES.items():
+        if code.polys == mother.polys:
+            return cid
+    return 0
+
+
+def kernel_body(code: ConvCode) -> str:
+    """``"warp"`` for a mother code in :data:`WARP_CODES`, else ``"table"``."""
+    return "warp" if warp_code_id(code) else "table"
+
+
+def warp_states(code: ConvCode) -> tuple[int, ...]:
+    """The S variants built for ``code``'s warp body, the default first."""
+    cid = warp_code_id(code)
+    if not cid:
+        raise ValueError(f"K={code.K} R={code.R} {code.polys} runs the runtime-table body")
+    return _WARP_STATES[cid]
+
+
+def warp_states_arg(code: ConvCode, states_per_thread: int | None) -> int:
+    """The S to launch: the default, or ``states_per_thread`` if it is built
+    for ``code``'s warp body (``ValueError`` otherwise)."""
+    built = warp_states(code)
+    S = built[0] if states_per_thread is None else states_per_thread
+    if S not in built:
+        raise ValueError(f"the warp body of K={code.K} R={code.R} is built for S in {built}, "
+                         f"got states_per_thread={states_per_thread}")
+    return S
+
+
+def check_warp_labels(lib: ctypes.CDLL, fn: str, code: ConvCode) -> int:
+    """The warp body's code id for ``code`` (0: the table body), after
+    holding the labels its instantiation in ``lib`` derived at compile time
+    (``fn``) against :func:`kernel_labels`; ``RuntimeError`` on a
+    difference, before anything launches."""
+    cid = warp_code_id(code)
+    if cid and (lib._name, cid) not in _checked:
+        out = (ctypes.c_int * (2 * code.n_states))()
+        n = getattr(lib, fn)(cid, out)
+        got = np.frombuffer(out, dtype=np.int32).reshape(-1, 2)
+        if n != code.n_states or not np.array_equal(got, kernel_labels(code)):
+            raise RuntimeError(f"{fn}: the compile-time labels of code id {cid} differ from "
+                               f"kernel_labels of {code.polys}")
+        _checked.add((lib._name, cid))
+    return cid
+
+
+_checked: set = set()
+
+
 @lru_cache(maxsize=None)
 def _labels_on(code: ConvCode, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(kernel_labels(code), device=device)
@@ -88,8 +164,10 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pbvd_acs_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, i, i, i, p, i, i, i, p, p, p]
+        fn.argtypes = [p, i, i, i, i, i, p, i, i, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
+        lib.pbvd_acs_code_labels.argtypes = [i, p]
+        lib.pbvd_acs_code_labels.restype = i
         fn = lib.pbvd_acs_forward_matrix
         fn.argtypes = [p, i, i, i, i, i, p, p, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
@@ -103,6 +181,8 @@ def acs_forward(
     radix: int = 2,
     impl: str = "butterfly",
     k: int = 2,
+    *,
+    states_per_thread: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward ACS over parallel blocks. y: (T, R, B) → (sp (T, W, B), pm (N, B)).
 
@@ -110,9 +190,11 @@ def acs_forward(
     ``matrix_k``), except that the kernels' metrics are int32 in the narrow
     modes. On a CUDA tensor ``y`` must be contiguous, int8/int16/int32 or
     float32; the kernels write int32 survivor words and int32 (float32 for
-    float symbols) metrics.
+    float symbols) metrics. ``states_per_thread`` picks one of the warp
+    body's S variants (:func:`warp_states`, default the first), to hold
+    them against each other; the runtime-table body takes none.
     """
-    global launches, matrix_launches
+    global launches, matrix_launches, table_launches
     if y.device.type == "cpu":
         return acs_forward_plain(y, code, metric_mode=metric_mode, radix=radix, impl=impl,
                                  matrix_k=k)
@@ -148,6 +230,14 @@ def acs_forward(
     if T == 0 or B == 0:
         return sp, pm.zero_()
     labels = _labels_on(code, y.device)
+    cid, S = 0, 0
+    if impl == "butterfly":
+        cid = check_warp_labels(_lib(), "pbvd_acs_code_labels", code)
+        if cid:
+            S = warp_states_arg(code, states_per_thread)
+        elif states_per_thread is not None:
+            raise ValueError(f"K={code.K} R={code.R} {code.polys} runs the runtime-table body, "
+                             f"which takes no states_per_thread")
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         if impl == "matrix":
@@ -159,7 +249,7 @@ def acs_forward(
         else:
             rc = _lib().pbvd_acs_forward(
                 y.data_ptr(), _DTYPE_CODE[y.dtype], T, R, B, code.v, labels.data_ptr(),
-                norm_every, qmax, radix, sp.data_ptr(), pm.data_ptr(), stream,
+                norm_every, qmax, radix, cid, S, sp.data_ptr(), pm.data_ptr(), stream,
             )
     if rc:
         name = "pbvd_acs_forward_matrix" if impl == "matrix" else "pbvd_acs_forward"
@@ -168,4 +258,5 @@ def acs_forward(
         matrix_launches += 1
     else:
         launches += 1
+        table_launches += not cid
     return sp, pm

@@ -9,29 +9,44 @@
 // add-compare-select over the N states with symmetry-folded branch metrics,
 // the decisions packed into ceil(N/32) survivor words per stage (bit
 // state%32 of word state/32 set iff the odd predecessor won), and the final
-// path metrics.
+// path metrics. No stage padding: the loop runs the true T stages, so the
+// final PM is the true stage-T metric (the argmin start follows the
+// reference's "ref" semantics), and odd T at radix 4 ends with the
+// reference's trailing radix-2 stage.
 //
-// Design. The TPU kernel carries PM in VMEM scratch across a sequential grid
-// of stage chunks; CUDA blocks cannot carry state between grid steps, so each
-// CTA runs the whole stage loop of its parallel blocks itself. The loop,
-// the stage arithmetic, the narrow modes and the radix-4 step live in
-// acs_core.cuh, shared with the fused kernel; this file stores each
-// survivor word to global memory and the final metrics after the loop. No
-// stage padding: the loop runs the true T stages, so the final PM is the
-// true stage-T metric (the argmin start follows the reference's "ref"
-// semantics), and odd T at radix 4 ends with the reference's trailing
-// radix-2 stage.
+// Two bodies (acs_core.cuh), chosen by the code and counted apart by the
+// wrapper (repro_torch/kernels/acs.py):
 //
-// Bound on the H100. Per stage and parallel block the kernel does about 4N
-// integer operations (two adds, a compare and a select per state) and moves
-// R symbol bytes in and 4*W survivor bytes out: at N = 64, W = 2 that is
-// ~256 operations per 10 bytes, so the integer issue rate bounds it, not
-// HBM. The design spends one thread per state so every ACS operation runs in
-// parallel lanes, keeps PM in shared memory, fetches the next step's
-// symbols into registers while the current step computes, and writes each
-// survivor word with one store from the ballot instead of a reduction.
-// Radix 4 does the same work (same bound); it halves the symbol fetch and
-// normalization rounds, not the barriers.
+// * acs_warp_kernel, the warp body, for the three registered mother codes
+//   (CCSDS, IS-95, LTE), each instantiated with its trellis tables fixed
+//   at compile time and S path metrics per lane in registers: a parallel
+//   block's states in L = N/S lanes of one warp, Gw = 32/L blocks per warp,
+//   one warp per CTA, neighbouring lanes on neighbouring blocks. The S
+//   variants instantiated are 64, 32 and 16 at N = 64 and 64 and 32 at
+//   N = 256 (255 registers cannot hold 256 metrics); the wrapper picks
+//   the default.
+// * acs_table_kernel, the runtime-table body (the first thread-per-state
+//   kernel of the port, under its own name) for every other code: labels from a table,
+//   one thread per state, G = max(1, 128/N) blocks per CTA, PM ping-pong in
+//   shared memory with one barrier per stage, any N up to 1024.
+//
+// Bound on the H100 80GB HBM3 (700 W limit). Per stage and parallel block
+// the function needs about 4N integer operations (two adds, a compare and
+// a select per state) and moves R symbol bytes in and 4*W survivor bytes
+// out: at N = 64, W = 2 that is ~256 operations per 10 bytes, so the INT32
+// issue rate bounds it (132 SMs x 64 lanes x 1.98 GHz = 16.7 Tops/s:
+// 0.0753 ms at the main shapes T = 596, B = 8192), not HBM (0.0152 ms).
+// The table body took 1.555 ms there (PERF.md): ~10x the bound's
+// instructions per state and a CTA barrier per stage. The warp body spends
+// two adds, a compare, a select and the or of the decision into its word
+// per state and stage, forms the folded rows once per stage and lane, and
+// has no barrier; its risk is occupancy: at S = 64 the 8,192 blocks of the
+// main path fill 256 warps for the card's 528 schedulers, at S = 32 512,
+// at S = 16 1,024. On the H100 80GB HBM3 (700 W) S = 32 is the fastest of
+// the three at CCSDS, about a third of the bound and a sixth of the table
+// body's time; LTE is fastest at S = 16 and IS-95 at S = 64 (255
+// registers cannot hold 256 metrics, and S = 32 doubles its shuffles).
+// chip_smoke.py phase 6 prints every variant; PERF.md keeps the times.
 //
 // K1-matrix (pbvd_acs_forward_matrix) replaces the TPU kernel
 // repro/kernels/acs.py::_acs_matrix_kernel (acs_forward_pallas with
@@ -43,22 +58,99 @@
 // table's index and sign, the form of the TPU's fused body
 // _acs_phase_mat_dbuf (acs_core.cuh::forward_acs_matrix). Bound: per k-step
 // and target 2^k adds and 2^k - 1 compare-selects, plus kR adds per folded
-// row, so again the integer issue rate, not HBM; it trades K1's one barrier
-// per stage for two per k stages, and its ballot for a shared-memory or.
+// row, so again the integer issue rate, not HBM; it trades the table
+// body's one barrier per stage for two per k stages, and its ballot for a
+// shared-memory or. It keeps the table body's layout (not redesigned).
 
 #include "acs_core.cuh"
 
 namespace {
 
-using pbvd::forward_acs;
 using pbvd::forward_acs_matrix;
+using pbvd::forward_acs_table;
 using pbvd::forward_smem_slots;
 using pbvd::matrix_smem_slots;
 
+// ---- the warp body --------------------------------------------------------
+
+template <class Code, int kS, int kStagesPerStep, bool kNarrow, typename Acc>
+__global__ void __launch_bounds__(32) acs_warp_kernel(const void* __restrict__ y, int dtype,
+                                                      int T, int B, int norm_every, int qmax,
+                                                      int* __restrict__ sp,
+                                                      Acc* __restrict__ pm_out) {
+  constexpr int W = Code::W;
+  constexpr int G = 32 / pbvd::WarpMap<Code, kS>::L;  // parallel blocks per warp (= CTA)
+  const int lane = threadIdx.x;
+  const int sub = lane / G;
+  const int b = blockIdx.x * G + lane % G;
+  const bool valid = b < B;
+  auto load = [&](int t0, Acc (&dst)[Code::v][Code::R]) {
+    pbvd::load_block<kNarrow>(y, dtype, t0, T, B, b, valid, qmax, dst);
+  };
+  auto store = [&](int t, int w, unsigned word, bool ok) {
+    if (ok && valid) sp[(static_cast<size_t>(t) * W + w) * B + b] = static_cast<int>(word);
+  };
+  auto pm_store = [&](int s, Acc m) {
+    if (valid) pm_out[static_cast<size_t>(s) * B + b] = m;
+  };
+  pbvd::forward_acs_warp<Code, kS, kStagesPerStep, kNarrow, Acc>(T, norm_every, sub, G,
+                                                                 0xffffffffu, load, store,
+                                                                 pm_store);
+}
+
+struct WarpArgs {
+  const void* y;
+  int dtype, T, B, norm_every, qmax, radix, S;
+  int* sp;
+  void* pm;
+  cudaStream_t stream;
+};
+
+template <class Code, int kS, int kStagesPerStep, bool kNarrow, typename Acc>
+int launch_warp(const WarpArgs& a) {
+  constexpr int G = 32 / pbvd::WarpMap<Code, kS>::L;
+  acs_warp_kernel<Code, kS, kStagesPerStep, kNarrow, Acc><<<(a.B + G - 1) / G, 32, 0, a.stream>>>(
+      a.y, a.dtype, a.T, a.B, a.norm_every, a.qmax, a.sp, static_cast<Acc*>(a.pm));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// float symbols run float metrics; integer symbols int32 metrics, narrow or not
+template <class Code, int kS, int kStagesPerStep>
+int warp_mode(const WarpArgs& a) {
+  if (a.dtype == 3) {
+    return a.norm_every > 0 ? 1000 : launch_warp<Code, kS, kStagesPerStep, false, float>(a);
+  }
+  return a.norm_every > 0 ? launch_warp<Code, kS, kStagesPerStep, true, int>(a)
+                          : launch_warp<Code, kS, kStagesPerStep, false, int>(a);
+}
+
+template <class Code, int kS>
+int warp_radix(const WarpArgs& a) {
+  return a.radix == 4 ? warp_mode<Code, kS, 2>(a) : warp_mode<Code, kS, 1>(a);
+}
+
+// the S variants instantiated: 64, 32, 16 at N = 64; 64, 32 at N = 256
+template <class Code>
+int warp_states(const WarpArgs& a) {
+  switch (a.S) {
+    case 64: return warp_radix<Code, 64>(a);
+    case 32: return warp_radix<Code, 32>(a);
+    case 16:
+      if constexpr (Code::N == 64) {
+        return warp_radix<Code, 16>(a);
+      } else {
+        return 1000;
+      }
+    default: return 1000;
+  }
+}
+
+// ---- the runtime-table body -------------------------------------------------
+
 template <int kStagesPerStep, bool kNarrow, typename Sym, typename Acc>
-__global__ void acs_kernel(const Sym* __restrict__ y, const int* __restrict__ labels, int T,
-                           int R, int B, int log2n, int norm_every, int qmax,
-                           int* __restrict__ sp, Acc* __restrict__ pm_out) {
+__global__ void acs_table_kernel(const Sym* __restrict__ y, const int* __restrict__ labels,
+                                 int T, int R, int B, int log2n, int norm_every, int qmax,
+                                 int* __restrict__ sp, Acc* __restrict__ pm_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int W = ((1 << log2n) + 31) >> 5;
   const int G = blockDim.x >> log2n;
@@ -66,7 +158,7 @@ __global__ void acs_kernel(const Sym* __restrict__ y, const int* __restrict__ la
   auto store = [&](int t, int w, unsigned word) {
     sp[(static_cast<size_t>(t) * W + w) * B + b] = static_cast<int>(word);
   };
-  const Acc pm = forward_acs<kStagesPerStep, kNarrow, Sym>(
+  const Acc pm = forward_acs_table<kStagesPerStep, kNarrow, Sym>(
       y, labels, T, R, B, log2n, norm_every, qmax, reinterpret_cast<Acc*>(smem_raw), store);
   if (b < B) {
     const int s = threadIdx.x & ((1 << log2n) - 1);
@@ -82,7 +174,7 @@ int launch(const void* y, const int* labels, int T, int R, int B, int log2n, int
   const int threads = G * N;
   const int grid = (B + G - 1) / G;
   const size_t smem = static_cast<size_t>(forward_smem_slots(G, log2n)) * sizeof(Acc);
-  acs_kernel<kStagesPerStep, kNarrow, Sym, Acc><<<grid, threads, smem, stream>>>(
+  acs_table_kernel<kStagesPerStep, kNarrow, Sym, Acc><<<grid, threads, smem, stream>>>(
       static_cast<const Sym*>(y), labels, T, R, B, log2n, norm_every, qmax, sp,
       static_cast<Acc*>(pm));
   return static_cast<int>(cudaGetLastError());
@@ -99,6 +191,8 @@ int dispatch(const void* y, int dtype, const int* labels, int T, int R, int B, i
     default: return 1000;
   }
 }
+
+// ---- K1-matrix --------------------------------------------------------------
 
 template <int kK, bool kNarrow, typename Sym>
 __global__ void acs_matrix_kernel(const Sym* __restrict__ y, const int* __restrict__ labels,
@@ -156,25 +250,40 @@ int dispatch_matrix_mode(bool narrow, const void* y, int dtype, const int* label
 }  // namespace
 
 // y: (T, R, B) symbols, dtype 0 = int8, 1 = int16, 2 = int32, 3 = float32.
-// labels: (N, 2) int32 even/odd predecessor labels of each target state.
-// norm_every: min-subtract every norm_every-th ACS step and qmax: clip
-// symbols to +-qmax; both > 0 in the narrow modes (integer symbols only),
-// both 0 otherwise.
+// labels: (N, 2) int32 even/odd predecessor labels of each target state
+// (read by the runtime-table body only). norm_every: min-subtract every
+// norm_every-th ACS step and qmax: clip symbols to +-qmax; both > 0 in the
+// narrow modes (integer symbols only), both 0 otherwise.
 // radix: 2, or 4 (two stages per step; needs N >= 4).
+// code: 0 for the runtime-table body, else the mother code of the warp body
+// (1 CCSDS, 2 IS-95, 3 LTE; log2n and R must be the code's); S: its path
+// metrics per lane (64, 32 or 16 at N = 64; 64 or 32 at N = 256).
 // sp: (T, ceil(N/32), B) int32 out. pm: (N, B) out, int32 (float32 for
 // float symbols). Requires 1 <= log2n <= 10, 1 <= R <= 4, T >= 1, B >= 1.
 // Returns cudaGetLastError() after the launch; 1000 for a bad argument.
 extern "C" int pbvd_acs_forward(const void* y, int dtype, int T, int R, int B, int log2n,
                                 const void* labels, int norm_every, int qmax, int radix,
-                                void* sp, void* pm, void* stream) {
+                                int code, int S, void* sp, void* pm, void* stream) {
   if (log2n < 1 || log2n > 10 || R < 1 || R > pbvd::kMaxR || T < 1 || B < 1 ||
       norm_every < 0 || qmax < 0 || (norm_every > 0) != (qmax > 0) ||
-      !(radix == 2 || (radix == 4 && log2n >= 2))) {
+      !(radix == 2 || (radix == 4 && log2n >= 2)) || dtype < 0 || dtype > 3) {
     return 1000;
   }
-  const int* lab = static_cast<const int*>(labels);
   int* sp_i = static_cast<int*>(sp);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (code != pbvd::kCodeTable) {
+    const WarpArgs a{y, dtype, T, B, norm_every, qmax, radix, S, sp_i, pm, st};
+    switch (code) {
+      case pbvd::kCodeCcsds:
+        return log2n == pbvd::Ccsds::v && R == pbvd::Ccsds::R ? warp_states<pbvd::Ccsds>(a) : 1000;
+      case pbvd::kCodeIs95:
+        return log2n == pbvd::Is95::v && R == pbvd::Is95::R ? warp_states<pbvd::Is95>(a) : 1000;
+      case pbvd::kCodeLte:
+        return log2n == pbvd::Lte::v && R == pbvd::Lte::R ? warp_states<pbvd::Lte>(a) : 1000;
+      default: return 1000;
+    }
+  }
+  const int* lab = static_cast<const int*>(labels);
   const bool narrow = norm_every > 0;
   if (radix == 4) {
     return narrow ? dispatch<2, true>(y, dtype, lab, T, R, B, log2n, norm_every, qmax, sp_i, pm, st)
@@ -183,6 +292,11 @@ extern "C" int pbvd_acs_forward(const void* y, int dtype, int T, int R, int B, i
   return narrow ? dispatch<1, true>(y, dtype, lab, T, R, B, log2n, norm_every, qmax, sp_i, pm, st)
                 : dispatch<1, false>(y, dtype, lab, T, R, B, log2n, norm_every, qmax, sp_i, pm, st);
 }
+
+// The (N, 2) even/odd labels that the warp body of code id `code` derives
+// at compile time, into out (2N ints); returns N, or -1 for an id without
+// an instantiation.
+extern "C" int pbvd_acs_code_labels(int code, int* out) { return pbvd::code_labels(code, out); }
 
 // K1-matrix. y: (T, R, B) integer symbols, dtype 0 = int8, 1 = int16,
 // 2 = int32. labels: as pbvd_acs_forward (the trailing radix-2 stages).

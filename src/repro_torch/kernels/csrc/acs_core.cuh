@@ -1,44 +1,98 @@
-// The forward add-compare-select loop of the parallel block-based Viterbi
+// The forward add-compare-select loops of the parallel block-based Viterbi
 // decoder, shared by K1 (acs.cu, survivor words to global memory) and the
 // fused kernel (fused.cu, survivor words to shared memory). One copy of the
 // stage arithmetic keeps the two kernels bit-exact to each other and to the
-// plain version (repro_torch/kernels/ref.py::acs_forward_ref).
+// plain version (repro_torch/kernels/ref.py::acs_forward_ref). Three bodies:
 //
-// Layout. One thread per target state s; G = blockDim.x / N parallel blocks
-// per CTA, block g on threads [g*N, (g+1)*N). Path metrics ping-pong in
-// shared memory, one __syncthreads() per stage. Each warp's 32 decisions are
-// one survivor word (bit = lane = s % 32), packed with __ballot_sync; for
-// N < 32 a warp holds 32/N blocks and each block's word is its N-bit slice.
+// 1. forward_acs_warp, the warp body: the registered mother codes (CCSDS
+//    (2,1,7) 171/133, IS-95 (2,1,9) 753/561, LTE (3,1,7) 133/171/165),
+//    each a MotherCode instantiation whose trellis tables are fixed at
+//    compile time. It replaces the TPU kernel's radix-2 and radix-4 stage
+//    loop (repro/kernels/acs.py::_acs_kernel, radix2_stage:330 with the
+//    trace-time tables folded_bm_rows / butterfly_bm_row) in its own
+//    layout: the TPU puts parallel blocks on lanes and states on sublanes,
+//    and so does this body.
+// 2. forward_acs_table, the runtime-table body: any other code (a user's
+//    ConvCode, (2,1,5), every N up to 1024). It is the port's first
+//    thread-per-state body, kept as it was: labels from a table in global
+//    memory, PM ping-pong in shared memory, one barrier per stage.
+// 3. forward_acs_matrix: the k-stage (min,+) body of K1-matrix and the
+//    fused matrix variant (below), on the table body's layout.
 //
-// Arithmetic, as the reference's: symbols are read in their wire dtype,
-// widened to the accumulator (int32, or float32 for float symbols) and, in
-// the narrow metric modes, clipped to +-qmax after widening. Each folded row
-// is +-y_0 +- y_1 ... added in r order with no multiply (so no FMA
-// contraction can change a float sum); each branch metric is +- one folded
-// row; the tie-break is m_odd < m_even, so ties keep the even predecessor.
-// Build without --use_fast_math.
+// What bounds the warp body on the H100 80GB HBM3 (700 W limit). Per stage
+// and parallel block it must do about 4N integer operations (two adds, a
+// compare and a select per state) and move R symbol bytes in and 4*W
+// survivor bytes out: at CCSDS, N = 64, that is ~256 operations per 10
+// bytes, so the INT32 issue rate bounds it (132 SMs x 64 lanes x 1.98 GHz),
+// not HBM. The table body spent about ten times that: each thread rebuilt
+// its two branch metrics from the symbols with runtime label bit tests,
+// and paid two shared loads, a ballot, a store, a CTA-wide barrier and a
+// symbol fetch with its own address arithmetic on every stage. The warp
+// body spends a handful of instructions per state and stage and no
+// barrier, and runs K1 at about a third of the bound on that card
+// (chip_smoke.py phase 6; PERF.md).
+//
+// Layout. A parallel block's N states live in L = N/S lanes of one warp,
+// S path metrics per lane in registers; neighbouring lanes hold
+// neighbouring blocks (lane = sub * Gw + gi, Gw blocks per warp, sub the
+// lane's rank inside its block), so every load and store of a warp spans
+// neighbouring b. Slot q = sub << log2(S) | i (register i of lane sub)
+// holds, before the stage at phase p = t mod v, the state rot(q, p): q
+// rotated right by p over v = K - 1 bits. The stage at phase p pairs the
+// two slots that differ in bit p (the even and odd predecessor) and writes
+// both targets back into the same two slots (the in-place butterfly), so
+// after v stages every state is home again and nothing moves but values.
+// A bit p below log2(S) is a register bit: the butterfly is register
+// renaming in a fully unrolled body. Above it, the partner slot is in
+// another lane: one __shfl_xor_sync per state, log2(L) stages in v.
+// No barrier: a block never leaves its warp.
+//
+// Branch metrics once per stage and lane. Each stage forms the 2^(R-1)
+// folded rows +-y_0 +- y_1 ... (R - 1 adds each, in r order, no multiply,
+// so no FMA contraction can change a float sum) and each state's metric is
+// + or - one row, chosen by an (index, sign) that MotherCode::label
+// derives at compile time. A label is linear over GF(2) in the target
+// state, so a lane's share of the state bits (rot(sub << log2 S, p + 1))
+// adds one XOR mask per phase to every label of the lane; the body applies
+// it by negating the symbols it names (BM(c ^ m) is BM(c) of the symbols
+// with the signs of m flipped; negation commutes with rounding, so float
+// stays bit-exact).
+//
+// ACS. A compare and a select per target (ptxas lowers the pair to
+// VIMNMX); ties keep the even predecessor. Where the partner sits in the
+// other lane, the lane that holds the odd predecessor swaps the pair
+// before the compare, so the tie-break stays the reference's. (The DPX
+// intrinsic __vibmin_s32 was tried in its place; see acs_select.)
+//
+// Survivor words. A decision of target s is bit s % 32 of word s / 32.
+// Each lane ors its decisions into words at compile-time bit positions,
+// shifts them by its share of the state's low five bits, and ors them over
+// the lanes that share a word with shuffles; one lane of each group
+// stores each word, chosen by a select and stored with one predicated
+// instruction (no branch), so a warp stores Gw neighbouring b of a (t, w)
+// row: 128 contiguous bytes at S = N.
 //
 // Narrow modes (i16/i8, kNarrow) keep int32 registers, as the TPU kernels
 // do: the saturation budget keeps every value inside the narrow dtype, so
-// int32 arithmetic gives the narrow dtype's values. Every norm_every-th ACS
-// step (counted globally: step % norm_every == norm_every - 1) subtracts the
-// minimum over the block's N states: warp shuffles, then shared memory for
-// N > 32. kNarrow is a template parameter so that the f32 loop carries no
-// clip, countdown or reduction.
+// int32 arithmetic gives the narrow dtype's values. Every norm_every-th
+// ACS step (counted globally: step % norm_every == norm_every - 1)
+// subtracts the minimum over the block's N states: over the lane's
+// registers, then by shuffle-xor over its L lanes. kNarrow is a template
+// parameter so that the f32 loop carries no clip, countdown or reduction.
+// Symbols are read in their wire dtype, widened, then clipped to +-qmax.
 //
-// Radix 4 (kStagesPerStep = 2). The TPU kernel runs the staged radix-4 step
-// (radix4_stage_pair without combine): the stage-t tournament round shared
-// between the two target groups with the same stage-t input bit, then
-// + the stage-(t+1) metric. That op sequence is two radix-2 stages, so this
-// kernel takes design (a): each loop step runs two radix-2 sub-stages, with
-// one symbol fetch for both stages, one normalization round (on the step
-// count) and two survivor-word stores. It is bit-exact in float as well,
-// keeps the one-thread-per-state layout of radix 2 and needs no new tables.
-// Design (b), one thread per target running its quad's 4-way tournament
-// from radix4_acs_tables, would trade the second barrier for recomputing
-// the shared intermediates; that is a later measurement. At odd T a
-// trailing radix-2 stage follows, min-subtracted unconditionally in narrow
-// modes, as in the reference.
+// Radix 4 (kStagesPerStep = 2): two radix-2 sub-stages per step with one
+// normalization round per step, as the TPU kernel's staged radix-4 step
+// (radix4_stage_pair without combine), which is the op sequence of two
+// radix-2 stages and so bit-exact in float too. At odd T a trailing
+// radix-2 stage follows, min-subtracted unconditionally in narrow modes.
+//
+// The stage loop runs blocks of v stages (the phase is then a compile-time
+// constant), fetching the next block's symbols into registers while the
+// current block computes; the steps are guarded by t < T, so the last
+// block may be partial. (A second, unguarded copy of the block body for
+// the whole blocks was tried; nvcc 12.9 crashed on it.)
+// The final metrics leave through the slot map of phase T mod v.
 //
 // Matrix (forward_acs_matrix<k>): the k-stage (min,+) step of the TPU's
 // matrix_step (repro/kernels/acs.py), in the gather-and-sign form of its
@@ -51,14 +105,26 @@
 // the threads with c < 2^(i+1) own it, each a run of 2^(k-1-i) bits at
 // state c*N/2^(i+1) + u*2^(k-1-i), or-ed into a shared word with
 // atomicOr. Two barriers per step (metrics and words, then the next rows).
-// The T mod k trailing stages run the radix-2 stage body, min-subtracted
-// unconditionally in the narrow modes. Integer symbols only: the callers
-// lower float to the radix-2 butterfly, as the reference does.
+// The T mod k trailing stages run the table body's radix-2 stage,
+// min-subtracted unconditionally in the narrow modes. Integer symbols
+// only: the callers lower float to the radix-2 butterfly, as the
+// reference does.
+//
+// Table body (forward_acs_table). One thread per target state s; G =
+// blockDim.x / N parallel blocks per CTA, block g on threads [g*N,
+// (g+1)*N). Path metrics ping-pong in shared memory, one __syncthreads()
+// per stage. Each warp's 32 decisions are one survivor word (bit = lane =
+// s % 32), packed with __ballot_sync; for N < 32 a warp holds 32/N blocks
+// and each block's word is its N-bit slice. Radix 4 runs two radix-2
+// sub-stages per step, as the warp body; narrow modes reduce the minimum
+// by warp shuffles, then shared memory for N > 32. Build without
+// --use_fast_math.
 
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace pbvd {
@@ -205,13 +271,13 @@ struct Radix2 {
   }
 };
 
-// The forward ACS of this thread's state over T stages. store(t, w, word)
+// The table body: the forward ACS of this thread's state over T stages. store(t, w, word)
 // is called by one thread per (valid block, stage, survivor word). Returns
 // this thread's final path metric. Ends with a __syncthreads(), so what the
 // stores wrote to shared memory is visible to the whole CTA. norm_every and
 // qmax are read only when kNarrow.
 template <int kStagesPerStep, bool kNarrow, typename Sym, typename Acc, typename Store>
-__device__ __forceinline__ Acc forward_acs(const Sym* __restrict__ y,
+__device__ __forceinline__ Acc forward_acs_table(const Sym* __restrict__ y,
                                            const int* __restrict__ labels, int T, int R, int B,
                                            int log2n, int norm_every, int qmax, Acc* smem,
                                            Store store) {
@@ -268,7 +334,7 @@ __device__ __forceinline__ Acc forward_acs(const Sym* __restrict__ y,
 // stages (T / kK matrix steps, then T mod kK radix-2 stages). mtab holds,
 // for [c][j][u] flattened, 2*fold_idx + (fold_sgn < 0). smem holds
 // forward_smem_slots + matrix_smem_slots ints. Same contract as
-// forward_acs: store(t, w, word) per (valid block, stage, word), returns
+// forward_acs_table: store(t, w, word) per (valid block, stage, word), returns
 // the final path metric, ends with a __syncthreads(). Needs kK <= log2n and
 // kK * R <= 8 (the callers validate it).
 template <int kK, bool kNarrow, typename Sym, typename Store>
@@ -331,7 +397,7 @@ __device__ __forceinline__ int forward_acs_matrix(const Sym* __restrict__ y,
   make_rows(yc);
   __syncthreads();
 
-  int norm_left = norm_every;  // countdown to the next min-subtract, as forward_acs
+  int norm_left = norm_every;  // countdown to the next min-subtract, as forward_acs_table
   for (int r = 0; r < n_steps; ++r) {
     const int t = r * kK;
     if (loads && r + 1 < n_steps) {
@@ -389,6 +455,469 @@ __device__ __forceinline__ int forward_acs_matrix(const Sym* __restrict__ y,
     st.stage(t, yl, kNarrow, store);
   }
   return st.pm_cur[st.tid];
+}
+
+
+// ---------------------------------------------------------------------------
+// The warp body: compile-time mother codes, a block's states in one warp
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int parity_of(unsigned x) {
+  int p = 0;
+  for (; x; x >>= 1) p ^= static_cast<int>(x & 1u);
+  return p;
+}
+
+__host__ __device__ constexpr int popcount_of(unsigned x) {
+  int n = 0;
+  for (; x; x >>= 1) n += static_cast<int>(x & 1u);
+  return n;
+}
+
+__host__ __device__ constexpr int log2_of(int x) {
+  int k = 0;
+  while ((1 << k) < x) ++k;
+  return k;
+}
+
+// An (R, 1, K) mother code with its generator polynomials as integers, bit
+// K-1 the input tap (repro_torch.core.trellis.ConvCode.poly_ints).
+template <int kK, unsigned kG0, unsigned kG1, unsigned kG2 = 0u>
+struct MotherCode {
+  static constexpr int K = kK;
+  static constexpr int R = kG2 ? 3 : 2;
+  static constexpr int v = kK - 1;
+  static constexpr int N = 1 << v;
+  static constexpr int W = (N + 31) / 32;  // survivor words per stage
+  static constexpr int NF = 1 << (R - 1);  // folded rows per stage
+
+  __host__ __device__ static constexpr unsigned poly(int r) {
+    return r == 0 ? kG0 : (r == 1 ? kG1 : kG2);
+  }
+
+  // R-bit label (filter 0 in the MSB) of the branch into target state s
+  // from its even (bit = 0) or odd (bit = 1) predecessor 2*(s mod N/2) +
+  // bit: the encoder output of that state with input x = s >> (v-1),
+  // ConvCode.output_int. It is linear over GF(2) in (s, bit).
+  __host__ __device__ static constexpr int label(int s, int bit) {
+    const unsigned pred = 2u * static_cast<unsigned>(s & (N / 2 - 1)) + static_cast<unsigned>(bit);
+    const unsigned x = static_cast<unsigned>(s) >> (v - 1);
+    int c = 0;
+    for (int r = 0; r < R; ++r) {
+      const unsigned g = poly(r);
+      c = (c << 1) | (parity_of(pred & g & (N - 1u)) ^ static_cast<int>(x & (g >> v) & 1u));
+    }
+    return c;
+  }
+
+  // q rotated right by k over v bits
+  __host__ __device__ static constexpr int rot(int q, int k) {
+    k %= v;
+    return k == 0 ? q : (((q >> k) | (q << (v - k))) & (N - 1));
+  }
+};
+
+using Ccsds = MotherCode<7, 0171u, 0133u>;
+using Is95 = MotherCode<9, 0753u, 0561u>;
+using Lte = MotherCode<7, 0133u, 0171u, 0165u>;
+
+// The code ids of the C interfaces: 0 is the runtime-table body.
+enum : int { kCodeTable = 0, kCodeCcsds = 1, kCodeIs95 = 2, kCodeLte = 3 };
+
+// Writes the (N, 2) even/odd labels of code id `code` to out (2N ints) and
+// returns N, or -1 for an id without an instantiation. The wrappers hold
+// them against kernel_labels(code) before any launch.
+template <class Code>
+inline int write_labels(int* out) {
+  for (int s = 0; s < Code::N; ++s) {
+    out[2 * s] = Code::label(s, 0);
+    out[2 * s + 1] = Code::label(s, 1);
+  }
+  return Code::N;
+}
+
+inline int code_labels(int code, int* out) {
+  switch (code) {
+    case kCodeCcsds: return write_labels<Ccsds>(out);
+    case kCodeIs95: return write_labels<Is95>(out);
+    case kCodeLte: return write_labels<Lte>(out);
+    default: return -1;
+  }
+}
+
+// The slot map of the warp body for S states per lane (see the header).
+template <class Code, int kS>
+struct WarpMap {
+  static constexpr int S = kS;
+  static constexpr int L = Code::N / kS;  // lanes per parallel block
+  static constexpr int kLogS = log2_of(kS);
+  static constexpr int kLogL = log2_of(L);
+  static_assert((1 << kLogS) == kS && kS >= 2 && kS <= Code::N, "S: a power of two <= N");
+  static_assert(L <= 32, "a parallel block must fit in one warp");
+  static_assert(Code::N >= 32, "the word assembly assumes whole 32-bit words");
+
+  // state-bit position of the lane's sub bit k in the targets of phase p
+  __host__ __device__ static constexpr int sub_pos(int k, int p) {
+    return ((kLogS + k - p - 1) % Code::v + Code::v) % Code::v;
+  }
+  // sub bits that land in the targets' low five bits (the bit position
+  // inside a word) at phase p: the lanes that differ in them share words
+  __host__ __device__ static constexpr unsigned below(int p) {
+    unsigned m = 0;
+    for (int k = 0; k < kLogL; ++k) {
+      if (sub_pos(k, p) < 5) m |= 1u << k;
+    }
+    return m;
+  }
+  // words (as w' = rot(i, p + 1) >> 5) that the registers fill at phase p
+  __host__ __device__ static constexpr unsigned words(int p) {
+    unsigned m = 0;
+    for (int i = 0; i < kS; ++i) m |= 1u << (Code::rot(i, p + 1) >> 5);
+    return m;
+  }
+};
+
+// min(m_even, m_odd) and the decision "odd strictly smaller" (ties keep the
+// even predecessor), as a compare and a select; ptxas lowers the pair to
+// VIMNMX on sm_90. Hopper's DPX intrinsic __vibmin_s32(a, b, &pred) (CUDA
+// 12.9: crt/device_functions.hpp, inline PTX setp.le + two selp on sm_90,
+// which ptxas also turns into VIMNMX with a predicate out) was tried in its
+// place: it was a few percent faster at S = 32 and 16 on the H100 80GB
+// HBM3 (700 W), but the S = 64 instantiations of CCSDS, LTE and IS-95
+// built with it wrote wrong survivor bits, in groups of eight (the
+// predicates packed with P2R), while this form was right at every S.
+template <typename Acc>
+__device__ __forceinline__ Acc acs_select(Acc m_even, Acc m_odd, bool& dec) {
+  dec = m_odd < m_even;
+  return dec ? m_odd : m_even;
+}
+
+// The branch metric of compile-time label C: + or - one folded row.
+template <int C, int NF, typename Acc>
+__device__ __forceinline__ Acc bm_of(const Acc (&row)[NF]) {
+  if constexpr (C < NF) {
+    return row[C];
+  } else {
+    return -row[C ^ (2 * NF - 1)];
+  }
+}
+
+// load_block of the warp body for symbols y (T, R, B) of dtype 0 = int8,
+// 1 = int16, 2 = int32, 3 = float32 (the float instantiation reads float
+// only): stage t0 + p's symbol r of block b, widened and, in the narrow
+// modes, clipped to +-qmax after widening; 0 past T or for b >= B. One
+// switch per block of stages keeps the symbol dtype out of the templates.
+template <typename Sym, bool kNarrow, typename Acc, int V, int R>
+__device__ __forceinline__ void load_block_as(const Sym* __restrict__ y, int t0, int T, int B,
+                                              int b, bool valid, int qmax, Acc (&dst)[V][R]) {
+#pragma unroll
+  for (int p = 0; p < V; ++p) {
+    const bool live = valid && t0 + p < T;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      Acc x = Acc(0);
+      if (live) {
+        x = static_cast<Acc>(y[(static_cast<size_t>(t0 + p) * R + r) * B + b]);
+        if (kNarrow) {
+          const Acc hi = static_cast<Acc>(qmax);
+          x = x > hi ? hi : (x < -hi ? -hi : x);
+        }
+      }
+      dst[p][r] = x;
+    }
+  }
+}
+
+template <bool kNarrow, typename Acc, int V, int R>
+__device__ __forceinline__ void load_block(const void* y, int dtype, int t0, int T, int B, int b,
+                                           bool valid, int qmax, Acc (&dst)[V][R]) {
+  if constexpr (std::is_same<Acc, float>::value) {
+    load_block_as<float, false>(static_cast<const float*>(y), t0, T, B, b, valid, qmax, dst);
+  } else {
+    if (dtype == 0) {
+      load_block_as<int8_t, kNarrow>(static_cast<const int8_t*>(y), t0, T, B, b, valid, qmax,
+                                     dst);
+    } else if (dtype == 1) {
+      load_block_as<int16_t, kNarrow>(static_cast<const int16_t*>(y), t0, T, B, b, valid, qmax,
+                                      dst);
+    } else {
+      load_block_as<int32_t, kNarrow>(static_cast<const int32_t*>(y), t0, T, B, b, valid, qmax,
+                                      dst);
+    }
+  }
+}
+
+// One lane of the warp body: its S path metrics in registers and its share
+// of the slot map per phase. The member templates recurse over the
+// compile-time phase P, pair H, register I and word Wd, so every register
+// index and every label is a constant.
+template <class Code, int kS, int kStagesPerStep, bool kNarrow, typename Acc>
+struct WarpAcs {
+  using Map = WarpMap<Code, kS>;
+  static constexpr int v = Code::v, R = Code::R, W = Code::W, NF = Code::NF;
+  static constexpr int S = kS, L = Map::L, kLogS = Map::kLogS, kLogL = Map::kLogL;
+  static_assert(v % kStagesPerStep == 0, "a block of v stages holds whole steps");
+  static_assert(!kNarrow || std::is_same<Acc, int>::value, "narrow modes are integer");
+
+  Acc pm[S];
+  // this lane's share of the targets of phase p (rot(sub << log2 S, p + 1)):
+  // its label mask, bit shift and word offset, and its rank among the
+  // lanes that share its words (read only when L > 1)
+  int lane_flip[v], lane_shift[v], lane_woff[v], lane_rank[v];
+  int sub, gw;
+  unsigned lanes;
+
+  __device__ __forceinline__ WarpAcs(int sub_, int gw_, unsigned lanes_)
+      : sub(sub_), gw(gw_), lanes(lanes_) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) pm[i] = Acc(0);
+    if constexpr (L > 1) {
+#pragma unroll
+      for (int p = 0; p < v; ++p) {
+        const int ls = Code::rot(sub << kLogS, p + 1);
+        lane_flip[p] = Code::label(ls, 0);
+        lane_shift[p] = ls & 31;
+        lane_woff[p] = ls >> 5;
+        const unsigned below = Map::below(p);
+        int rank = 0, j = 0;
+#pragma unroll
+        for (int k = 0; k < kLogL; ++k) {
+          if ((below >> k) & 1u) {
+            rank |= ((sub >> k) & 1) << j;
+            ++j;
+          }
+        }
+        lane_rank[p] = rank;
+      }
+    }
+  }
+
+  // phase P < log2 S: pair H, slots i0 and i1 (bit P clear / set) of this lane
+  template <int P, int H>
+  __device__ __forceinline__ void pairs(const Acc (&row)[NF], unsigned (&part)[W]) {
+    if constexpr (H < S / 2) {
+      constexpr int i0 = ((H >> P) << (P + 1)) | (H & ((1 << P) - 1));
+      constexpr int i1 = i0 | (1 << P);
+      constexpr int s0 = Code::rot(i0, P + 1);  // x = 0: target into slot i0
+      constexpr int s1 = Code::rot(i1, P + 1);  // x = 1: target into slot i1
+      const Acc pe = pm[i0];
+      const Acc po = pm[i1];
+      bool d0, d1;
+      pm[i0] = acs_select(pe + bm_of<Code::label(s0, 0)>(row),
+                                po + bm_of<Code::label(s0, 1)>(row), d0);
+      pm[i1] = acs_select(pe + bm_of<Code::label(s1, 0)>(row),
+                                po + bm_of<Code::label(s1, 1)>(row), d1);
+      if (d0) part[s0 >> 5] |= 1u << (s0 & 31);
+      if (d1) part[s1 >> 5] |= 1u << (s1 & 31);
+      pairs<P, H + 1>(row, part);
+    }
+  }
+
+  // phase P >= log2 S: register I against register I of the lane across
+  // sub bit P - log2 S; x: this lane holds the odd predecessor
+  template <int P, int I>
+  __device__ __forceinline__ void cross(const Acc (&row)[NF], unsigned (&part)[W], bool x) {
+    if constexpr (I < S) {
+      constexpr int k = P - kLogS;
+      constexpr int s = Code::rot(I, P + 1);
+      const Acc mine = pm[I];
+      const Acc theirs = __shfl_xor_sync(lanes, mine, gw << k);
+      const Acc pe = x ? theirs : mine;
+      const Acc po = x ? mine : theirs;
+      bool d;
+      pm[I] = acs_select(pe + bm_of<Code::label(s, 0)>(row),
+                               po + bm_of<Code::label(s, 1)>(row), d);
+      if (d) part[s >> 5] |= 1u << (s & 31);
+      cross<P, I + 1>(row, part, x);
+    }
+  }
+
+  // reduce survivor word Wd (as w') of phase P into red[ord]: shift it by
+  // the lane's share of the bit position, or it over the lanes that share it
+  template <int P, int Wd, int kN>
+  __device__ __forceinline__ void reduce_words(const unsigned (&part)[W], unsigned (&red)[kN],
+                                               int (&widx)[kN]) {
+    if constexpr (Wd < W) {
+      constexpr unsigned kWords = Map::words(P);
+      constexpr unsigned kBelow = Map::below(P);
+      if constexpr ((kWords >> Wd) & 1u) {
+        constexpr int ord = popcount_of(kWords & ((1u << Wd) - 1u));
+        unsigned word = part[Wd];
+        if constexpr (kBelow != 0u) {
+          word <<= lane_shift[P];
+#pragma unroll
+          for (int k = 0; k < kLogL; ++k) {
+            if ((kBelow >> k) & 1u) word |= __shfl_xor_sync(lanes, word, gw << k);
+          }
+        }
+        red[ord] = word;
+        widx[ord] = Wd;
+      }
+      reduce_words<P, Wd + 1>(part, red, widx);
+    }
+  }
+
+  // the survivor words of phase P: the gs lanes that share a set of words
+  // hold them all after the reduction; the lane of rank r stores entries
+  // r, r + gs, ... (a select, not a branch, picks its entry), so every
+  // store of the warp is one predicated instruction
+  template <int P, typename Store>
+  __device__ __forceinline__ void emit(const unsigned (&part)[W], int t, Store& store) {
+    constexpr unsigned kWords = Map::words(P);
+    constexpr int kN = popcount_of(kWords);
+    constexpr int gs = 1 << popcount_of(Map::below(P));
+    unsigned red[kN];
+    int widx[kN];
+    reduce_words<P, 0>(part, red, widx);
+    const int woff = L > 1 ? lane_woff[P] : 0;
+    if constexpr (gs == 1) {
+#pragma unroll
+      for (int k = 0; k < kN; ++k) store(t, widx[k] | woff, red[k], true);
+    } else {
+      const int rank = lane_rank[P];
+#pragma unroll
+      for (int j = 0; j < kN; j += gs) {
+        unsigned word = red[j];
+        int w = widx[j];
+#pragma unroll
+        for (int q = 1; q < gs; ++q) {
+          if (j + q < kN) {
+            word = rank == q ? red[j + q] : word;
+            w = rank == q ? widx[j + q] : w;
+          }
+        }
+        store(t, w | woff, word, j + rank < kN);
+      }
+    }
+  }
+
+  // one radix-2 stage t at phase P with the stage's symbols y
+  template <int P, typename Store>
+  __device__ __forceinline__ void stage(const Acc (&y)[R], int t, Store& store) {
+    Acc yy[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (L > 1) {
+        yy[r] = ((lane_flip[P] >> (R - 1 - r)) & 1) ? -y[r] : y[r];
+      } else {
+        yy[r] = y[r];
+      }
+    }
+    Acc row[NF];  // row f: + y_r where bit R-1-r of f is 1, - y_r where 0, in r order
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      Acc acc = ((f >> (R - 1)) & 1) ? yy[0] : -yy[0];
+#pragma unroll
+      for (int r = 1; r < R; ++r) acc = acc + (((f >> (R - 1 - r)) & 1) ? yy[r] : -yy[r]);
+      row[f] = acc;
+    }
+    unsigned part[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) part[w] = 0u;
+    if constexpr (P < kLogS) {
+      pairs<P, 0>(row, part);
+    } else {
+      cross<P, 0>(row, part, ((sub >> (P - kLogS)) & 1) != 0);
+    }
+    emit<P>(part, t, store);
+  }
+
+  // subtract the minimum over the block's N states
+  __device__ __forceinline__ void normalize() {
+    Acc mn = pm[0];
+#pragma unroll
+    for (int i = 1; i < S; ++i) mn = pm[i] < mn ? pm[i] : mn;
+#pragma unroll
+    for (int k = 0; k < kLogL; ++k) {
+      const Acc o = __shfl_xor_sync(lanes, mn, gw << k);
+      mn = o < mn ? o : mn;
+    }
+#pragma unroll
+    for (int i = 0; i < S; ++i) pm[i] -= mn;
+  }
+
+  // step J of the block of v stages from t0 (the last block's steps are
+  // guarded by t < T); norm_left counts steps to the next min-subtract
+  template <int J, typename Store>
+  __device__ __forceinline__ void block_steps(const Acc (&yc)[v][R], int t0, int T, int norm_every,
+                                              int& norm_left, Store& store) {
+    if constexpr (J < v / kStagesPerStep) {
+      constexpr int p0 = J * kStagesPerStep;
+      const int t = t0 + p0;
+      if (t + kStagesPerStep <= T) {
+        stage<p0>(yc[p0], t, store);
+        if constexpr (kStagesPerStep == 2) stage<p0 + 1>(yc[p0 + 1], t + 1, store);
+        if constexpr (kNarrow) {
+          if (--norm_left == 0) {
+            normalize();
+            norm_left = norm_every;
+          }
+        }
+      } else if constexpr (kStagesPerStep == 2) {
+        if (t < T) {  // trailing radix-2 stage (odd T); narrow modes normalize unconditionally
+          stage<p0>(yc[p0], t, store);
+          if constexpr (kNarrow) normalize();
+        }
+      }
+      block_steps<J + 1>(yc, t0, T, norm_every, norm_left, store);
+    }
+  }
+
+  // after T stages slot q holds state rot(q, T mod v): ph = T mod v
+  template <int P, typename PmOut>
+  __device__ __forceinline__ void out(int ph, PmOut& pm_out) {
+    if constexpr (P < v) {
+      if (ph == P) {
+        const int lane_s = Code::rot(sub << kLogS, P);
+#pragma unroll
+        for (int i = 0; i < S; ++i) pm_out(Code::rot(i, P) | lane_s, pm[i]);
+      }
+      out<P + 1>(ph, pm_out);
+    }
+  }
+};
+
+// The forward ACS of the warp body over T stages for one lane: rank `sub`
+// (0 <= sub < L) inside its parallel block, `gw` blocks per warp (the
+// shuffle distance between the lanes of a block), `lanes` the lanes of
+// the warp that exist. Every lane of the warp calls it, whether its block
+// exists or not (the shuffles need them all).
+//   load_block(t0, y): y[p][r] = stage t0 + p's symbol r, widened to Acc,
+//     clipped in the narrow modes, 0 past T or for a block that does not
+//     exist;
+//   store(t, w, word, ok): survivor word w of stage t where ok, once per
+//     word over the lanes of the block (it must also skip blocks that do
+//     not exist);
+//   pm_out(s, m): the final path metric of state s, once per state.
+// norm_every is read only when kNarrow. The stage loop runs blocks of v
+// stages, so that the phase is a compile-time constant, and fetches the
+// next block's symbols into registers while the current block computes.
+template <class Code, int kS, int kStagesPerStep, bool kNarrow, typename Acc,
+          typename LoadBlock, typename Store, typename PmOut>
+__device__ __forceinline__ void forward_acs_warp(int T, int norm_every, int sub, int gw,
+                                                 unsigned lanes, LoadBlock load_block,
+                                                 Store store, PmOut pm_out) {
+  using Body = WarpAcs<Code, kS, kStagesPerStep, kNarrow, Acc>;
+  constexpr int v = Code::v, R = Code::R;
+  Body body(sub, gw, lanes);
+  Acc yc[v][R];
+  Acc yn[v][R] = {};
+  load_block(0, yc);
+  // steps left until the next min-subtract: it falls after step r exactly
+  // when r % norm_every == norm_every - 1, with no division in the loop
+  int norm_left = norm_every;
+  const int n_blocks = (T + v - 1) / v;
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    const int t0 = blk * v;
+    if (blk + 1 < n_blocks) load_block(t0 + v, yn);  // the next block's symbols, now
+    body.template block_steps<0>(yc, t0, T, norm_every, norm_left, store);
+#pragma unroll
+    for (int p = 0; p < v; ++p) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) yc[p][r] = yn[p][r];
+    }
+  }
+  body.template out<0>(T % v, pm_out);
 }
 
 }  // namespace pbvd

@@ -11,87 +11,114 @@
 // decoded bit of stage decode_start + b at bit b & 31 of output word b >> 5
 // (bits of stages at or beyond T stay 0).
 //
-// Prefix tail. The walk is the chunked prefix walk of K2-prefix
-// (traceback_core.cuh) over the shared history, whose stage-major layout it
-// reads as is (stages below 0 read as the zero pad). The composed maps,
-// the entry states and the decode window's words sit in shared memory
-// beside the history; phase C ors each decoded bit into the window's words
-// (atomicOr: the window starts at ds_local = decode_start + P - c_lo * C,
-// which is not word aligned, so a chunk's bits straddle words) and the
-// block then stores its n_decode/32 words.
+// Bodies. The ACS phase runs K1's bodies (acs_core.cuh). fused_warp_kernel
+// runs the warp body (compile-time tables, a block's states in L = N/S
+// lanes of one warp, S metrics per lane in registers, no barrier) for the
+// three registered mother codes with the serial walk: one warp or part of
+// one per CTA, G = 32/L blocks or fewer, lane = sub * G + g. After a
+// __syncwarp, lane sub = 0 of each block walks its history. The prefix
+// walk needs N threads per block to hide its chains of dependent shared
+// loads (traceback_core.cuh: one thread per state composes the chunk
+// maps), and the warp body has L; on L lanes the prefix variant ran
+// slower than the table body's on the H100, so tb_mode="prefix" runs
+// fused_table_kernel, as do the matrix body (acs_impl="matrix", not
+// redesigned) and the runtime-table body for every other code: one
+// thread per state, G = max(1, 128/N) blocks per CTA. The wrapper chooses
+// the body and counts table-body launches apart.
 //
-// Design. The ACS phase is K1's (acs_core.cuh: one thread per target
-// state, G = max(1, 128/N) parallel blocks per CTA, PM ping-pong in shared
-// memory, narrow modes and the radix-4 step as there), except that each
-// stage's survivor words go to dynamic shared memory, T*W*4 bytes per
-// parallel block (4,768 B for CCSDS at T = 596; 19,072 B for K = 9), instead
-// of global memory. After the loop's last barrier one thread per parallel
-// block walks its history in shared memory and stores each packed output
-// word when its lowest bit arrives. Above 48 KB the launch raises the
-// kernel's dynamic shared-memory limit; a CTA that would need more than the
-// card's 232,448 B first drops to G = 1, and the wrapper refuses a history
-// that does not fit even then (it never falls back to the two-kernel path).
+// History. Each stage's survivor words go to dynamic shared memory, T*W*4
+// bytes per parallel block, laid out stage-major with the block fastest:
+// word (t, w) of block g at hist[(t*W + w)*G + g]. The warp body's lanes
+// are neighbouring blocks, so a warp's stores and the walkers' loads fall
+// on distinct banks (at G = 16 and W = 2 the two words of a stage are 16
+// banks apart); the table bodies store one word per warp and read it the
+// same way, the serial walk with one thread per block, the prefix walk
+// (traceback_core.cuh) with thread s of a block on state s, stages below 0
+// reading as the zero pad; its phase C ors each decoded bit into the
+// window's words (atomicOr: the window starts at ds_local = decode_start +
+// P - c_lo * C, which is not word aligned, so a chunk's bits straddle
+// words) and the block then stores its n_decode/32 words.
 //
-// The TPU kernel's radix-4 phase keeps the symbols in HBM in their wire
-// dtype and double-buffers 64-stage tiles into VMEM with async copies. This
-// kernel also reads the symbols in their wire dtype from global memory and
-// widens (and, in the narrow modes, clips) them after the load, but it
-// pipelines them only one ACS step ahead, into registers, as K1 does; a
-// cp.async/TMA ring in shared memory is later work.
+// Shared-memory plan (kernels/fused.py::smem_plan), at CCSDS, T = 596:
+// 4,768 B of history per parallel block (19,072 B at K = 9). The warp body
+// needs nothing else (its metrics are in registers); the planner takes the
+// G (a power of two, at most 32/L) that keeps the most blocks resident on
+// an SM of the H100 (233,472 B of shared memory, 1 KB reserved per CTA, at
+// most 32 CTAs): at S = 32, G = 16 is 76,288 B per CTA, three CTAs and 48
+// blocks (three warps) per SM, 6,336 of the 8,192 blocks of the main path
+// at once. The table bodies add two path-metric planes and the min slots
+// per block (plus, for the matrix body, its rows and decision planes); the
+// prefix walk adds n_act*N + nc_e + n_decode/32 words per block. Above 48
+// KB the launch raises the kernel's dynamic shared-memory limit; the
+// wrapper refuses a history that does not fit even at G = 1 (it never
+// falls back to the two-kernel path).
 //
-// Bound on the H100. The kernel moves only the symbols in and the packed
-// bits out: at CCSDS, T = 596, int8 symbols, 2.45 bytes per decoded bit
-// against K1+K2's 20.47, and does K1's ACS operations plus a handful per
-// walked stage, so the integer issue rate bounds it. Against K1+K2 it
-// saves the survivor round trip through global memory and K2's chain of
-// dependent global loads: the walk's chain runs on shared-memory latency,
-// and while one CTA walks, the other CTAs on its SM run their ACS.
+// Symbols are read in their wire dtype from global memory and widened
+// (and, in the narrow modes, clipped) after the load; the warp body fetches
+// the next v stages into registers while it computes the current ones
+// (the TPU kernel's radix-4 phase double-buffers 64-stage tiles into VMEM;
+// a cp.async/TMA ring in shared memory is later work).
+//
+// Bound on the H100 80GB HBM3 (700 W limit). The kernel moves only the
+// symbols in and the packed bits out: at CCSDS, T = 596, int8 symbols, 2.46
+// bytes per decoded bit against K1+K2's 20.47, and does K1's ACS operations
+// plus a handful per walked stage, so the integer issue rate bounds it
+// (0.0769 ms at the main shapes). On the H100 80GB HBM3 (700 W) the table
+// body took 1.455 ms there; the warp body, with no barrier and a fraction
+// of its instructions per state, takes about a third of that at S = 32
+// (chip_smoke.py phase 9; PERF.md keeps the times). Shared memory caps the
+// resident histories at 48 blocks (three warps) per SM, so the 8,192
+// blocks of the main path run in two waves and the kernel sits at about a
+// sixth of its bound, where K1 sits at a third.
 
 #include "acs_core.cuh"
 #include "traceback_core.cuh"
 
 namespace {
 
-using pbvd::forward_acs;
 using pbvd::forward_acs_matrix;
+using pbvd::forward_acs_table;
 using pbvd::forward_smem_slots;
 using pbvd::matrix_smem_slots;
 
 constexpr size_t kMaxSmem = 232448;      // per-CTA dynamic shared memory on the H100
 constexpr size_t kDefaultSmem = 48 * 1024;
 
-// The ACS loop's slots (4 bytes each), then G histories of T * W words,
-// then (prefix) G blocks of walk scratch: n_act * N maps, nc_e entry
-// states, n_decode / 32 window words. k = 0 for the butterfly.
+// The table bodies' slots (4 bytes each) before the histories. k = 0 for
+// the butterfly.
 __host__ __device__ inline int acs_slots(int G, int log2n, int k, int R) {
   return forward_smem_slots(G, log2n) + (k ? matrix_smem_slots(G, log2n, k, R) : 0);
 }
 
-size_t fused_smem_bytes(int G, int log2n, int T, int k, int R, int prefix_words) {
+// Bytes of shared memory per CTA: `slots` 4-byte ACS slots, then G
+// histories of T * W words, then (prefix) G blocks of walk scratch of
+// prefix_words each: n_act * N maps, nc_e entry states, n_decode / 32
+// window words.
+size_t fused_smem_bytes(int G, int slots, int log2n, int T, int prefix_words) {
   const int W = ((1 << log2n) + 31) >> 5;
-  return 4 * (static_cast<size_t>(acs_slots(G, log2n, k, R)) +
-              static_cast<size_t>(G) * T * W + static_cast<size_t>(G) * prefix_words);
+  return 4 * (static_cast<size_t>(slots) + static_cast<size_t>(G) * T * W +
+              static_cast<size_t>(G) * prefix_words);
 }
 
-// Phase 2 in prefix mode: the prefix walk of this parallel block over its
-// shared history. It is kept out of line: inlined into the kernel, it made
-// every instantiation slower, the serial radix-2 path by ~40 % on the H100
-// (PERF.md, PR 13), though ptxas counted no more registers.
-__device__ __noinline__ void prefix_tail(const unsigned* my_hist, int W, int G, int T, int B,
-                                         int b, int log2n, int n_words, unsigned* hist,
+// Phase 2 in prefix mode (table bodies): the prefix walk of parallel block
+// g over its shared history (word (t, w) at hist_g[(t*W + w)*G]), thread
+// s of the block on state s. Every thread of the CTA calls it. It is kept
+// out of line: inlined into the kernel, it made every instantiation
+// slower, the serial radix-2 path by ~40 % on the H100 (PERF.md),
+// though ptxas counted no more registers.
+__device__ __noinline__ void prefix_tail(const unsigned* hist_g, int G, int W, int B, int b,
+                                         int log2n, int n_words, int* scratch,
                                          const int* __restrict__ start,
                                          const pbvd::PrefixGeometry& geo, int* __restrict__ bits) {
   const int N = 1 << log2n;
-  const int g = threadIdx.x >> log2n;
   const bool valid = b < B;
   const int s = threadIdx.x & (N - 1);
-  int* maps = reinterpret_cast<int*>(hist + static_cast<size_t>(G) * T * W) +
-              g * (geo.n_act * N + geo.nc_e + n_words);
+  int* maps = scratch;
   int* entry = maps + geo.n_act * N;
   unsigned* window = reinterpret_cast<unsigned*>(entry + geo.nc_e);
   for (int w = s; w < n_words; w += N) window[w] = 0u;  // phase A's barrier orders it
   auto sp_word = [&](int stage, unsigned w) -> unsigned {
-    return stage < 0 ? 0u : my_hist[static_cast<size_t>(stage) * W + w];
+    return stage < 0 ? 0u : hist_g[(static_cast<size_t>(stage) * W + w) * G];
   };
   auto emit = [&](int idx, unsigned bit) {
     if (bit) atomicOr(&window[idx >> 5], 1u << (idx & 31));
@@ -106,46 +133,16 @@ __device__ __noinline__ void prefix_tail(const unsigned* my_hist, int W, int G, 
   }
 }
 
-// kMatrix: kStagesPerStep is the matrix k (integer symbols, Acc = int);
-// otherwise 1 (radix 2) or 2 (radix 4). prefix selects the walk at run time.
-template <int kStagesPerStep, bool kMatrix, bool kNarrow, typename Sym, typename Acc>
-__global__ void fused_kernel(const Sym* __restrict__ y, const int* __restrict__ labels,
-                             const int* __restrict__ mtab, const int* __restrict__ start, int T,
-                             int R, int B, int log2n, int norm_every, int qmax,
-                             int decode_start, int n_decode, int prefix,
-                             pbvd::PrefixGeometry geo, int* __restrict__ bits) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// Phase 2 (serial) of parallel block b, by one thread: walk its history
+// (word (t, w) at hist_g[(t*W + w)*G]) from the start state down to
+// decode_start, packed bits out.
+__device__ __forceinline__ void serial_walk(const unsigned* hist_g, int G, int T, int B, int b,
+                                            int log2n, const int* __restrict__ start,
+                                            int decode_start, int n_decode,
+                                            int* __restrict__ bits) {
   const int N = 1 << log2n;
   const int W = (N + 31) >> 5;
-  const int G = blockDim.x >> log2n;
-  const int g = threadIdx.x >> log2n;
-  const int b = blockIdx.x * G + g;
-  Acc* acc_smem = reinterpret_cast<Acc*>(smem_raw);
-  unsigned* hist = reinterpret_cast<unsigned*>(
-      acc_smem + acs_slots(G, log2n, kMatrix ? kStagesPerStep : 0, R));
-  unsigned* my_hist = hist + static_cast<size_t>(g) * T * W;
-
-  // ---- phase 1: forward ACS, survivor words into shared memory -------------
-  auto store = [&](int t, int w, unsigned word) {
-    my_hist[static_cast<size_t>(t) * W + w] = word;
-  };
-  // both end with a __syncthreads()
-  if constexpr (kMatrix) {
-    forward_acs_matrix<kStagesPerStep, kNarrow, Sym>(y, labels, mtab, T, R, B, log2n,
-                                                     norm_every, qmax, acc_smem, store);
-  } else {
-    forward_acs<kStagesPerStep, kNarrow, Sym>(y, labels, T, R, B, log2n, norm_every, qmax,
-                                              acc_smem, store);
-  }
-
   const int n_words = n_decode >> 5;
-  if (prefix) {  // ---- phase 2 (prefix): chunked walk of the shared history
-    prefix_tail(my_hist, W, G, T, B, b, log2n, n_words, hist, start, geo, bits);
-    return;
-  }
-
-  // ---- phase 2 (serial): walk from shared memory, packed bits out ----------
-  if ((threadIdx.x & (N - 1)) != 0 || b >= B) return;
   const unsigned n_mask = static_cast<unsigned>(N) - 1u;
   const unsigned half_mask = n_mask >> 1;
   // start states are in [0, N) by contract; the mask keeps the reads in
@@ -164,34 +161,166 @@ __global__ void fused_kernel(const Sym* __restrict__ y, const int* __restrict__ 
       }
     }
     if (st == decode_start) break;
-    const unsigned sw = my_hist[static_cast<size_t>(st) * W + (state >> 5)];
+    const unsigned sw = hist_g[(static_cast<size_t>(st) * W + (state >> 5)) * G];
     state = ((state & half_mask) << 1) | ((sw >> (state & 31u)) & 1u);
+  }
+}
+
+// The warp body with the serial walk: one warp (or part of one) per CTA,
+// G = blockDim.x / L parallel blocks, lane = sub * G + g.
+template <class Code, int kS, int kStagesPerStep, bool kNarrow, typename Acc>
+__global__ void fused_warp_kernel(const void* __restrict__ y, int dtype,
+                                  const int* __restrict__ start, int T, int B, int norm_every,
+                                  int qmax, int decode_start, int n_decode,
+                                  int* __restrict__ bits) {
+  extern __shared__ __align__(16) unsigned hist_smem[];
+  constexpr int L = pbvd::WarpMap<Code, kS>::L;
+  constexpr int W = Code::W;
+  const int G = blockDim.x / L;
+  const int sub = threadIdx.x / G;
+  const int g = threadIdx.x % G;
+  const int b = blockIdx.x * G + g;
+  const bool valid = b < B;
+  const unsigned lanes = blockDim.x >= 32 ? 0xffffffffu : ((1u << blockDim.x) - 1u);
+
+  // ---- phase 1: forward ACS, survivor words into shared memory -------------
+  auto load = [&](int t0, Acc (&dst)[Code::v][Code::R]) {
+    pbvd::load_block<kNarrow>(y, dtype, t0, T, B, b, valid, qmax, dst);
+  };
+  auto store = [&](int t, int w, unsigned word, bool ok) {
+    if (ok && valid) hist_smem[(static_cast<size_t>(t) * W + w) * G + g] = word;
+  };
+  auto no_pm = [](int, Acc) {};
+  pbvd::forward_acs_warp<Code, kS, kStagesPerStep, kNarrow, Acc>(T, norm_every, sub, G, lanes,
+                                                                 load, store, no_pm);
+  __syncwarp(lanes);  // a block's lanes are in one warp
+  if (sub == 0 && valid) {
+    serial_walk(hist_smem + g, G, T, B, b, Code::v, start, decode_start, n_decode, bits);
+  }
+}
+
+// The table bodies. kMatrix: kStagesPerStep is the matrix k (integer
+// symbols, Acc = int); otherwise 1 (radix 2) or 2 (radix 4).
+template <int kStagesPerStep, bool kMatrix, bool kNarrow, typename Sym, typename Acc>
+__global__ void fused_table_kernel(const Sym* __restrict__ y, const int* __restrict__ labels,
+                                   const int* __restrict__ mtab, const int* __restrict__ start,
+                                   int T, int R, int B, int log2n, int norm_every, int qmax,
+                                   int decode_start, int n_decode, int prefix,
+                                   pbvd::PrefixGeometry geo, int* __restrict__ bits) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int N = 1 << log2n;
+  const int W = (N + 31) >> 5;
+  const int G = blockDim.x >> log2n;
+  const int g = threadIdx.x >> log2n;
+  const int b = blockIdx.x * G + g;
+  Acc* acc_smem = reinterpret_cast<Acc*>(smem_raw);
+  unsigned* hist = reinterpret_cast<unsigned*>(
+      acc_smem + acs_slots(G, log2n, kMatrix ? kStagesPerStep : 0, R));
+
+  // ---- phase 1: forward ACS, survivor words into shared memory -------------
+  auto store = [&](int t, int w, unsigned word) {
+    hist[(static_cast<size_t>(t) * W + w) * G + g] = word;
+  };
+  // both end with a __syncthreads()
+  if constexpr (kMatrix) {
+    forward_acs_matrix<kStagesPerStep, kNarrow, Sym>(y, labels, mtab, T, R, B, log2n,
+                                                     norm_every, qmax, acc_smem, store);
+  } else {
+    forward_acs_table<kStagesPerStep, kNarrow, Sym>(y, labels, T, R, B, log2n, norm_every, qmax,
+                                                    acc_smem, store);
+  }
+  if (prefix) {  // ---- phase 2 (prefix): chunked walk of the shared history
+    const int n_words = n_decode >> 5;
+    int* scratch = reinterpret_cast<int*>(hist + static_cast<size_t>(G) * T * W) +
+                   g * (geo.n_act * N + geo.nc_e + n_words);
+    prefix_tail(hist + g, G, W, B, b, log2n, n_words, scratch, start, geo, bits);
+  } else if ((threadIdx.x & (N - 1)) == 0 && b < B) {  // ---- phase 2 (serial)
+    serial_walk(hist + g, G, T, B, b, log2n, start, decode_start, n_decode, bits);
   }
 }
 
 struct Launch {
   const void* y;
+  int dtype;
   const int* labels;
   const int* mtab;
   const int* start;
-  int T, R, B, log2n, norm_every, qmax, decode_start, n_decode, prefix, G;
+  int T, R, B, log2n, norm_every, qmax, decode_start, n_decode, prefix, radix, S, G;
   pbvd::PrefixGeometry geo;
   int* bits;
   cudaStream_t stream;
+
+  int prefix_words() const {
+    return prefix ? geo.n_act * (1 << log2n) + geo.nc_e + (n_decode >> 5) : 0;
+  }
 };
 
-template <int kStagesPerStep, bool kMatrix, bool kNarrow, typename Sym, typename Acc>
-int launch(const Launch& a) {
-  const int k = kMatrix ? kStagesPerStep : 0;
-  const int prefix_words = a.prefix ? a.geo.n_act * (1 << a.log2n) + a.geo.nc_e + (a.n_decode >> 5) : 0;
-  const size_t smem = fused_smem_bytes(a.G, a.log2n, a.T, k, a.R, prefix_words);
+template <typename Kernel>
+int raise_smem_limit(Kernel kernel, size_t smem) {
   if (smem > kMaxSmem) return 1001;
-  auto kernel = fused_kernel<kStagesPerStep, kMatrix, kNarrow, Sym, Acc>;
   if (smem > kDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  return 0;
+}
+
+// ---- the warp body's launch ---------------------------------------------------
+
+template <class Code, int kS, int kStagesPerStep, bool kNarrow, typename Acc>
+int launch_warp(const Launch& a) {
+  constexpr int L = pbvd::WarpMap<Code, kS>::L;
+  if ((a.G & (a.G - 1)) != 0 || a.G * L > 32 || a.prefix) return 1000;
+  const size_t smem = fused_smem_bytes(a.G, 0, a.log2n, a.T, 0);
+  auto kernel = fused_warp_kernel<Code, kS, kStagesPerStep, kNarrow, Acc>;
+  if (const int e = raise_smem_limit(kernel, smem)) return e;
+  kernel<<<(a.B + a.G - 1) / a.G, a.G * L, smem, a.stream>>>(
+      a.y, a.dtype, a.start, a.T, a.B, a.norm_every, a.qmax, a.decode_start, a.n_decode,
+      a.bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Code, int kS, int kStagesPerStep>
+int warp_mode(const Launch& a) {
+  if (a.dtype == 3) {
+    return a.norm_every > 0 ? 1000 : launch_warp<Code, kS, kStagesPerStep, false, float>(a);
+  }
+  return a.norm_every > 0 ? launch_warp<Code, kS, kStagesPerStep, true, int>(a)
+                          : launch_warp<Code, kS, kStagesPerStep, false, int>(a);
+}
+
+template <class Code, int kS>
+int warp_radix(const Launch& a) {
+  return a.radix == 4 ? warp_mode<Code, kS, 2>(a) : warp_mode<Code, kS, 1>(a);
+}
+
+// the S variants, as K1's: 64, 32, 16 at N = 64; 64, 32 at N = 256
+template <class Code>
+int warp_states(const Launch& a) {
+  if (a.log2n != Code::v || a.R != Code::R) return 1000;
+  switch (a.S) {
+    case 64: return warp_radix<Code, 64>(a);
+    case 32: return warp_radix<Code, 32>(a);
+    case 16:
+      if constexpr (Code::N == 64) {
+        return warp_radix<Code, 16>(a);
+      } else {
+        return 1000;
+      }
+    default: return 1000;
+  }
+}
+
+// ---- the table bodies' launch -------------------------------------------------
+
+template <int kStagesPerStep, bool kMatrix, bool kNarrow, typename Sym, typename Acc>
+int launch(const Launch& a) {
+  const int k = kMatrix ? kStagesPerStep : 0;
+  const size_t smem = fused_smem_bytes(a.G, acs_slots(a.G, a.log2n, k, a.R), a.log2n, a.T,
+                                       a.prefix_words());
+  auto kernel = fused_table_kernel<kStagesPerStep, kMatrix, kNarrow, Sym, Acc>;
+  if (const int e = raise_smem_limit(kernel, smem)) return e;
   kernel<<<(a.B + a.G - 1) / a.G, a.G << a.log2n, smem, a.stream>>>(
       static_cast<const Sym*>(a.y), a.labels, a.mtab, a.start, a.T, a.R, a.B, a.log2n,
       a.norm_every, a.qmax, a.decode_start, a.n_decode, a.prefix, a.geo, a.bits);
@@ -199,8 +328,8 @@ int launch(const Launch& a) {
 }
 
 template <int kStagesPerStep, bool kMatrix, bool kNarrow>
-int dispatch(const Launch& a, int dtype) {
-  switch (dtype) {
+int dispatch(const Launch& a) {
+  switch (a.dtype) {
     case 0: return launch<kStagesPerStep, kMatrix, kNarrow, int8_t, int>(a);
     case 1: return launch<kStagesPerStep, kMatrix, kNarrow, int16_t, int>(a);
     case 2: return launch<kStagesPerStep, kMatrix, kNarrow, int32_t, int>(a);
@@ -215,22 +344,25 @@ int dispatch(const Launch& a, int dtype) {
 }
 
 template <int kStagesPerStep, bool kMatrix>
-int dispatch_mode(const Launch& a, int dtype) {
-  return a.norm_every > 0 ? dispatch<kStagesPerStep, kMatrix, true>(a, dtype)
-                          : dispatch<kStagesPerStep, kMatrix, false>(a, dtype);
+int dispatch_mode(const Launch& a) {
+  return a.norm_every > 0 ? dispatch<kStagesPerStep, kMatrix, true>(a)
+                          : dispatch<kStagesPerStep, kMatrix, false>(a);
 }
 
 }  // namespace
 
 // y: (T, R, B) symbols, dtype 0 = int8, 1 = int16, 2 = int32, 3 = float32.
-// labels: (N, 2) int32 even/odd predecessor labels; table: the matrix table
-// of pbvd_acs_forward_matrix (read only when k > 0); start: (B,) int32
-// start states. norm_every, qmax, radix: as pbvd_acs_forward; k: 0 for the
-// butterfly at radix, else the matrix steps' k (1..4, integer symbols).
-// prefix: 0 for the serial walk, 1 for the prefix walk with the geometry
-// C, P, n_chunks, c_lo, c_hi of prefix_chunk_geometry(T, decode_start,
-// min(n_decode, T - decode_start), tb_chunk). G: parallel blocks per CTA
-// (G * N <= 1024). bits: (n_decode / 32, B) int32 out. Requires
+// labels: (N, 2) int32 even/odd predecessor labels (read by the table
+// bodies); table: the matrix table of pbvd_acs_forward_matrix (read only
+// when k > 0); start: (B,) int32 start states. norm_every, qmax, radix: as
+// pbvd_acs_forward; k: 0 for the butterfly at radix, else the matrix
+// steps' k (1..4, integer symbols, code 0). prefix: 0 for the serial walk,
+// 1 for the prefix walk with the geometry C, P, n_chunks, c_lo, c_hi of
+// prefix_chunk_geometry(T, decode_start, min(n_decode, T - decode_start),
+// tb_chunk). code, S: as pbvd_acs_forward; 0 for the table bodies, which
+// every prefix or matrix launch takes. G: parallel blocks per CTA: the
+// table bodies run G * N <= 1024 threads, the warp body G * N/S <= 32 (G a
+// power of two). bits: (n_decode / 32, B) int32 out. Requires
 // 0 <= decode_start < T, n_decode a multiple of 32.
 // Returns cudaGetLastError() after the launch (or the error of raising the
 // shared-memory limit); 1000 for a bad argument, 1001 for a history (and
@@ -239,13 +371,15 @@ extern "C" int pbvd_fused(const void* y, int dtype, int T, int R, int B, int log
                           const void* labels, const void* table, const void* start,
                           int decode_start, int n_decode, int norm_every, int qmax, int radix,
                           int k, int prefix, int C, int P, int n_chunks, int c_lo, int c_hi,
-                          int G, void* bits, void* stream) {
+                          int code, int S, int G, void* bits, void* stream) {
   const int n_window = n_decode < T - decode_start ? n_decode : T - decode_start;
   if (log2n < 1 || log2n > 10 || R < 1 || R > pbvd::kMaxR || T < 1 || B < 1 || G < 1 ||
-      (G << log2n) > 1024 || decode_start < 0 || decode_start >= T || n_decode < 32 ||
-      (n_decode & 31) || norm_every < 0 || qmax < 0 || (norm_every > 0) != (qmax > 0) ||
+      decode_start < 0 || decode_start >= T || n_decode < 32 || (n_decode & 31) ||
+      norm_every < 0 || qmax < 0 || (norm_every > 0) != (qmax > 0) ||
       !(radix == 2 || (radix == 4 && log2n >= 2)) || k < 0 || k > 4 || k > log2n ||
-      k * R > 8 || (k > 0 && table == nullptr) || (prefix != 0 && prefix != 1)) {
+      k * R > 8 || (k > 0 && (table == nullptr || code != pbvd::kCodeTable)) ||
+      (prefix != 0 && prefix != 1) || dtype < 0 || dtype > 3 ||
+      (code == pbvd::kCodeTable && (G << log2n) > 1024)) {
     return 1000;
   }
   if (prefix && (C < 1 || P < 0 || P >= C || n_chunks * C != T + P || c_lo < 0 ||
@@ -254,17 +388,28 @@ extern "C" int pbvd_fused(const void* y, int dtype, int T, int R, int B, int log
                  (decode_start + P) / C != c_lo)) {
     return 1000;
   }
-  Launch a{y, static_cast<const int*>(labels), static_cast<const int*>(table),
+  Launch a{y, dtype, static_cast<const int*>(labels), static_cast<const int*>(table),
            static_cast<const int*>(start), T, R, B, log2n, norm_every, qmax, decode_start,
-           n_decode, prefix, G,
+           n_decode, prefix, radix, S, G,
            pbvd::PrefixGeometry{C, P, c_lo, n_chunks - c_lo, c_hi - c_lo + 1,
                                 decode_start + P - c_lo * C, n_window},
            static_cast<int*>(bits), static_cast<cudaStream_t>(stream)};
+  switch (code) {
+    case pbvd::kCodeTable: break;
+    case pbvd::kCodeCcsds: return warp_states<pbvd::Ccsds>(a);
+    case pbvd::kCodeIs95: return warp_states<pbvd::Is95>(a);
+    case pbvd::kCodeLte: return warp_states<pbvd::Lte>(a);
+    default: return 1000;
+  }
   switch (k) {
-    case 0: return radix == 4 ? dispatch_mode<2, false>(a, dtype) : dispatch_mode<1, false>(a, dtype);
-    case 1: return dispatch_mode<1, true>(a, dtype);
-    case 2: return dispatch_mode<2, true>(a, dtype);
-    case 3: return dispatch_mode<3, true>(a, dtype);
-    default: return dispatch_mode<4, true>(a, dtype);
+    case 0: return radix == 4 ? dispatch_mode<2, false>(a) : dispatch_mode<1, false>(a);
+    case 1: return dispatch_mode<1, true>(a);
+    case 2: return dispatch_mode<2, true>(a);
+    case 3: return dispatch_mode<3, true>(a);
+    default: return dispatch_mode<4, true>(a);
   }
 }
+
+// The labels of the warp body's instantiation of code id `code`, as
+// pbvd_acs_code_labels.
+extern "C" int pbvd_fused_code_labels(int code, int* out) { return pbvd::code_labels(code, out); }

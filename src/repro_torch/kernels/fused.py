@@ -13,15 +13,22 @@ symbols with ``impl="matrix"`` run the radix-2 body, as the reference
 lowers them. What bounds the kernel on the card and what its design does
 about it is noted in the CUDA source.
 
-The survivor history lives in shared memory, ``T·ceil(N/32)·4`` bytes per
-parallel block, and in prefix mode the walk's scratch beside it.
+The ACS phase runs K1's bodies: the warp body for the mother codes of
+``acs.WARP_CODES`` with the serial walk (its compile-time labels checked
+before the launch); the runtime-table body for any other code and for
+``tb_mode="prefix"`` (the prefix walk needs a thread per state, which the
+warp body does not have); the matrix body for ``impl="matrix"``. The
+survivor history lives in shared memory, ``T·ceil(N/32)·4`` bytes per
+parallel block, stage-major with the block fastest, and in prefix mode the
+walk's scratch beside it.
 :func:`smem_plan` picks the parallel blocks per CTA and refuses, with
 ``ValueError``, what does not fit the card's 232,448 bytes even at one
 block per CTA; nothing falls back to the two-kernel path or the serial walk.
 
 ``launches`` counts the kernel's launches, and nothing else;
-``matrix_launches`` and ``prefix_launches`` count those of them that ran
-the matrix ACS body and the prefix tail.
+``matrix_launches``, ``prefix_launches`` and ``table_launches`` count those
+of them that ran the matrix ACS body, the prefix tail and the
+runtime-table butterfly body.
 """
 
 from __future__ import annotations
@@ -33,7 +40,15 @@ import torch
 from repro_torch.core.quantize import metric_mode_qmax, norm_interval
 from repro_torch.core.trellis import ConvCode
 from . import _build
-from .acs import _DTYPE_CODE, _MAX_MATRIX_K, _MAX_R, _labels_on, _matrix_table_on
+from .acs import (
+    _DTYPE_CODE,
+    _MAX_MATRIX_K,
+    _MAX_R,
+    _labels_on,
+    _matrix_table_on,
+    check_warp_labels,
+    warp_states_arg,
+)
 from .ref import (
     DEFAULT_TB_CHUNK,
     _acc_dtype_for,
@@ -49,14 +64,31 @@ __all__ = [
     "launches",
     "matrix_launches",
     "prefix_launches",
+    "residency",
+    "table_launches",
     "SMEM_PER_CTA",
+    "SMEM_PER_SM",
 ]
 
 #: launches of the CUDA kernel since the counts were last set to 0
 launches = 0
-#: those of them that ran the matrix ACS body / the prefix tail
+#: those of them that ran the matrix ACS body / the prefix tail / the
+#: runtime-table butterfly body
 matrix_launches = 0
 prefix_launches = 0
+table_launches = 0
+
+#: shared memory of an H100 SM; each resident CTA also reserves 1 KB of it
+SMEM_PER_SM = 233472
+_MAX_CTAS_PER_SM = 32
+
+
+def residency(G: int, smem: int, lanes: int) -> tuple[int, int]:
+    """(CTAs, warps) that one SM of the card holds at ``smem`` bytes per CTA
+    of ``G`` parallel blocks of the warp body, ``lanes`` threads each.
+    Shared memory and the 32-CTA cap only; registers are not counted."""
+    ctas = min(_MAX_CTAS_PER_SM, SMEM_PER_SM // (smem + 1024))
+    return ctas, ctas * -(-G * lanes // 32)
 
 
 def smem_plan(
@@ -69,23 +101,30 @@ def smem_plan(
     n_decode: int | None = None,
     matrix_k: int = 0,
     R: int = 2,
+    lanes: int | None = None,
 ) -> tuple[int, int]:
     """(parallel blocks per CTA, shared bytes per CTA) of the fused kernel.
 
-    Per parallel block, in 4-byte words: two path-metric planes and the
-    min-reduction slots (``csrc/acs_core.cuh::forward_smem_slots``), with
-    ``matrix_k`` > 0 also the 2^(kR-1) folded rows and k decision planes of
-    ceil(N/32) words (``matrix_smem_slots``); the survivor history of T
-    stages × ceil(N/32) words; and in prefix mode the walk's scratch: the
-    ``n_act`` composed maps of N entries, ``nc_e`` entry states and the
+    Per parallel block, in 4-byte words: the survivor history of T stages ×
+    ceil(N/32) words, laid out ``[t][w][g]``; for the table bodies
+    (``lanes`` None) also two path-metric planes and the min-reduction
+    slots (``csrc/acs_core.cuh::forward_smem_slots``), with ``matrix_k`` >
+    0 also the 2^(kR-1) folded rows and k decision planes of ceil(N/32)
+    words (``matrix_smem_slots``); and in prefix mode the walk's scratch:
+    the ``n_act`` composed maps of N entries, ``nc_e`` entry states and the
     ``n_decode/32`` words of the decode window (geometry of
-    :func:`prefix_chunk_geometry` over the bits that exist). G starts at
-    max(1, 128/N) and drops to 1 when that does not fit; what does not fit
-    at G = 1 raises ``ValueError`` naming T, N and the bytes.
+    :func:`prefix_chunk_geometry` over the bits that exist). The table
+    bodies take G = max(1, 128/N) and drop to 1 when that does not fit. The
+    warp body (``lanes`` = N/S threads per block) takes the power of two
+    G <= 32/lanes (one warp) that keeps the most blocks resident on an SM
+    (:func:`residency`), the larger on a tie. What does not fit at G = 1
+    raises ``ValueError`` naming T, N and the bytes.
     """
     N = n_states
     W = -(-N // 32)
-    per_block = 2 * N + max(1, N // 32) + T * W
+    per_block = T * W
+    if lanes is None:
+        per_block += 2 * N + max(1, N // 32)
     if matrix_k:
         per_block += (1 << (matrix_k * R - 1)) + matrix_k * W
     scratch = ""
@@ -99,9 +138,14 @@ def smem_plan(
     def need(G: int) -> int:
         return 4 * G * per_block
 
-    G = max(1, 128 // N)
-    if need(G) > SMEM_PER_CTA:
-        G = 1
+    if lanes is None:
+        G = max(1, 128 // N)
+        if need(G) > SMEM_PER_CTA:
+            G = 1
+    else:
+        fits = [1 << e for e in range((32 // lanes).bit_length())
+                if need(1 << e) <= SMEM_PER_CTA]
+        G = max(fits or [1], key=lambda g: (g * residency(g, need(g), lanes)[0], g))
     if need(G) > SMEM_PER_CTA:
         raise ValueError(
             f"the fused kernel's survivor history of T={T} stages at N={N} states{scratch} "
@@ -117,8 +161,10 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pbvd_fused
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, i, i, i, p, p, p] + [i] * 13 + [p, p]
+        fn.argtypes = [p, i, i, i, i, i, p, p, p] + [i] * 15 + [p, p]
         fn.restype = ctypes.c_int
+        lib.pbvd_fused_code_labels.argtypes = [i, p]
+        lib.pbvd_fused_code_labels.restype = i
     return lib
 
 
@@ -135,6 +181,7 @@ def pbvd_fused(
     tb_chunk: int = DEFAULT_TB_CHUNK,
     impl: str = "butterfly",
     k: int = 2,
+    states_per_thread: int | None = None,
 ) -> torch.Tensor:
     """One-kernel decode. y (T, R, B) → packed bits (n_decode/32, B) int32.
 
@@ -144,9 +191,11 @@ def pbvd_fused(
     (chunks of ``tb_chunk`` stages), ``impl`` ``"butterfly"`` (at
     ``radix``) or ``"matrix"`` (``k`` stages per step; ``radix`` ignored).
     On a CUDA tensor ``y`` must be contiguous, int8/int16/int32 or float32;
-    the narrow metric modes need integer symbols.
+    the narrow metric modes need integer symbols. ``states_per_thread``
+    picks one of the warp body's S variants, as ``acs.acs_forward``'s
+    (serial walk only).
     """
-    global launches, matrix_launches, prefix_launches
+    global launches, matrix_launches, prefix_launches, table_launches
     if y.device.type == "cpu":
         return pbvd_fused_plain(y, code, decode_start=decode_start, n_decode=n_decode,
                                 start_state=start_state, metric_mode=metric_mode, radix=radix,
@@ -188,8 +237,18 @@ def pbvd_fused(
     if tb_mode == "prefix":
         n_window = min(n_decode, T - decode_start)
         geometry = prefix_chunk_geometry(T, decode_start, n_window, tb_chunk)
+    cid = S = 0
+    if not k_launch and tb_mode == "serial":  # the warp body walks serially only
+        cid = check_warp_labels(_lib(), "pbvd_fused_code_labels", code)
+        if cid:
+            S = warp_states_arg(code, states_per_thread)
+    if states_per_thread is not None and not cid:
+        raise ValueError(f"the matrix, prefix and runtime-table bodies take no "
+                         f"states_per_thread (K={code.K} R={code.R}, impl={impl!r}, "
+                         f"tb_mode={tb_mode!r})")
     G, _ = smem_plan(T, code.n_states, tb_mode, tb_chunk, decode_start=decode_start,
-                     n_decode=n_decode, matrix_k=k_launch, R=R)
+                     n_decode=n_decode, matrix_k=k_launch, R=R,
+                     lanes=code.n_states // S if cid else None)
     start = torch.as_tensor(0 if start_state is None else start_state, dtype=torch.int32,
                             device=y.device)
     start = start.broadcast_to((B,)).contiguous()
@@ -203,11 +262,12 @@ def pbvd_fused(
         rc = _lib().pbvd_fused(
             y.data_ptr(), _DTYPE_CODE[y.dtype], T, R, B, code.v, labels.data_ptr(), table,
             start.data_ptr(), decode_start, n_decode, norm_every, qmax, radix, k_launch,
-            int(tb_mode == "prefix"), *geometry, G, bits.data_ptr(), stream,
+            int(tb_mode == "prefix"), *geometry, cid, S, G, bits.data_ptr(), stream,
         )
     if rc:
         raise RuntimeError(f"pbvd_fused launch failed (error {rc})")
     launches += 1
     matrix_launches += bool(k_launch)
     prefix_launches += tb_mode == "prefix"
+    table_launches += not (cid or k_launch)
     return bits

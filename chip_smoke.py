@@ -17,8 +17,10 @@ non-zero and prints no result:
    f32/i16/i8 (many normalization intervals; refused where the budget
    refuses), each launch counted on the body its code chose, words and
    metrics equal;
-3. K2 (serial traceback) against its plain version: zero, argmin and random
-   start states, bits equal;
+3. K2 (serial traceback, the staged walk) against its plain version: zero,
+   argmin and random start states, bits equal; then at every W it is built
+   for (N = 4 ... 1024 states) on random survivor words, ragged batches,
+   ``decode_start`` 0 and > 0 and one-stage blocks;
 4. the main path, ``DecoderEngine(PBVDConfig()).decode`` on a 4,194,304-bit
    CCSDS stream made on the card at Eb/N0 4 dB: equal to ``backend="ref"``
    bit for bit, both kernels launched, a noiseless stream decoded with 0
@@ -27,8 +29,9 @@ non-zero and prints no result:
    small ragged fleet) equal to per-stream ``decode``;
 6. times: each kernel's median CUDA-event time at the main-path shapes, its
    plain version's, its bound and K1's share of it, K1's S variants for
-   each mother code, decoded Mb/s end to end and on the device, bytes per
-   decoded bit and the host phases.
+   each mother code, K2's own traffic (every word of each walked stage)
+   and its device time per launch under ``torch.profiler``, decoded Mb/s
+   end to end and on the device, bytes per decoded bit and the host phases.
 
 Then the fused backend, the narrow metric modes and radix 4:
 
@@ -87,22 +90,29 @@ Then the LM serving path, StarCoder2-3B at full width and depth:
 15. the flash-attention kernel against its plain version ``ref_mha``:
     causal, windowed (window < S and window >= S), non-causal with and
     without a window, T != S, G = 1, 2 and 12, head dims 16 to 128, float32
-    (atol 2e-5, rtol 1e-5) and bf16 (atol 2e-5, rtol 2^-8: one rounding of
-    the float32 result), and the main shapes (B=2,
-    S=T=8192, Hkv=2, G=12, dh=128, bf16, causal, window 4096); the
-    ``ValueError`` of an S that ``q_chunk`` does not divide;
+    (atol 2e-5, rtol 1e-5) on the CUDA-core body and bf16 (atol 2e-5, rtol
+    2^-8: one rounding of the float32 result) on the tensor-core body, each
+    launch counted on its body; bf16 cases at the tensor-core body's edges
+    (128-row tiles straddling positions with S·G not a multiple of 128, a
+    window below one 64-key block, T != S, causal with T > S, dh = 16 and
+    32); and the main shapes (B=2, S=T=8192, Hkv=2, G=12, dh=128, bf16,
+    causal, window 4096); the ``ValueError`` of an S that ``q_chunk`` does
+    not divide;
 16. StarCoder2-3B with random weights drawn on the card: the parameter
     count; ``make_prefill_step`` on 2 prompts of 8192 tokens with one flash
-    launch per layer counted; the same forward with the flash kernel off
+    launch per layer counted, all on the tensor-core body; the same forward with the flash kernel off
     (the streaming path), last-position logits within a stated tolerance;
-    at float32 compute, cached ``apply_decode`` over 64 tokens against
+    at float32 compute (whose ``apply_train`` runs the CUDA-core body, one
+    launch per layer), cached ``apply_decode`` over 64 tokens against
     ``apply_train``; ``greedy_generate`` for 4 requests (prompt 16, 64 new
     tokens); the ring-buffered cache past its window on a two-layer
     StarCoder2 with the window cut to 64, 160 cached steps against
     ``apply_train``;
 17. the flash kernel's time at the main shapes beside its plain version's,
-    its bound and ``scaled_dot_product_attention``'s time on the same
-    inputs and band mask (timed only; the port never calls it), end to end
+    its bound, the tensor-core body's own work (QKᵀ and P·V twice: 1.5× the
+    function's FLOP) and ``scaled_dot_product_attention``'s time on the same
+    inputs and band mask (timed only; the port never calls it); the same
+    for the CUDA-core body on the float32 copies of those inputs; end to end
     prefill tokens/s and decode ms per step, and a ``torch.profiler`` window
     over one prefill and 16 decode steps (device busy share, top kernels).
 
@@ -199,6 +209,12 @@ def k2_cost(T: int, B: int, decode_start: int, n_decode: int) -> tuple[float, fl
     return float(nbytes), float(ops)
 
 
+def k2_staged_bytes(T: int, B: int, decode_start: int, n_decode: int, W: int) -> float:
+    """Bytes of the staged walk, not a bound of the function (K2's is): all
+    W words of every walked stage and the start states in, the bits out."""
+    return float(B * 4 + B * (T - 1 - decode_start) * W * 4 + n_decode * B * 4)
+
+
 def fused_cost(code, T: int, B: int, sym_bytes: int, decode_start: int,
                n_decode: int) -> tuple[float, float]:
     """(bytes, operations) of the fused kernel: symbols and start states in,
@@ -288,7 +304,7 @@ def device_profile(torch, fn, top: int = 6):
 
 def lm_phases(torch, dev, gen, decoder_counters) -> dict:
     """Phases 15-17: the flash kernel and the StarCoder2-3B serving path.
-    Returns the flash kernel's row of the ``kernels`` line."""
+    Returns the flash kernel's rows of the ``kernels`` line, one per body."""
     import dataclasses
 
     import torch.nn.functional as F
@@ -322,16 +338,30 @@ def lm_phases(torch, dev, gen, decoder_counters) -> dict:
         ("G = 2", (1, 192, 192, 4, 2, 64, f32, True, 50)),
         ("G = 12", (1, 1024, 1024, 2, 12, 128, bf16, True, 256)),
         ("ragged rows", (1, 100, 100, 1, 5, 128, f32, True, 33)),
+        # the tensor-core body's edges: 128-row tiles that straddle positions
+        # (G = 12) with S·G not a multiple of 128, a window below one 64-key
+        # block, T != S, causal with T > S, dh = 16 and 32
+        ("G = 12 ragged", (1, 100, 100, 2, 12, 128, bf16, True, 37)),
+        ("G = 12 T != S", (1, 200, 300, 1, 12, 64, bf16, False, None)),
+        ("causal T > S", (1, 128, 256, 1, 2, 64, bf16, True, None)),
+        ("window < block", (2, 129, 129, 1, 3, 16, bf16, True, 9)),
+        ("dh = 32 window", (1, 300, 200, 2, 5, 32, bf16, False, 70)),
+        ("dh = 16 causal", (1, 333, 333, 2, 1, 16, bf16, True, None)),
+        ("dh = 32 G = 12", (1, 96, 96, 1, 12, 32, bf16, True, 200)),
+        # rows at p >= T + window - 1 see no key: the mean of V over all keys
+        ("no key f32", (1, 300, 200, 1, 3, 64, f32, False, 70)),
         ("main shapes", main_shape),
     ]
-    flash_err, main_qkv = 0.0, None
+    flash_err, main_qkv = {f32: 0.0, bf16: 0.0}, None
     for label, (B, S, T, Hkv, G, dh, dtype, causal, window) in cases:
         q, k, v = qkv(B, S, T, Hkv, G, dh, dtype)
-        fa.launches = 0
+        fa.launches = fa.tc_launches = 0
         out = fa.flash_attention(q, k, v, causal=causal, window=window, q_chunk=S, kv_chunk=T)
         torch.cuda.synchronize()
-        if fa.launches != 1 or out.dtype != dtype or out.shape != q.shape:
-            raise AssertionError(f"flash {label}: {fa.launches} launches, {out.dtype} {out.shape}")
+        body = (fa.launches, fa.tc_launches)
+        if body != (1, int(dtype == bf16)) or out.dtype != dtype or out.shape != q.shape:
+            raise AssertionError(f"flash {label}: launches (all, tensor-core) {body}, "
+                                 f"{out.dtype} {out.shape}")
         ref = fa.ref_mha(q, k, v, causal=causal, window=window)
         diff = (out.float() - ref).abs()
         err = float(diff.max())
@@ -343,10 +373,10 @@ def lm_phases(torch, dev, gen, decoder_counters) -> dict:
         if not bool(torch.isfinite(out).all()) or not worst <= 1.0:
             raise AssertionError(f"flash {label}: max abs error {err}, {worst:.3f} of the limit "
                                  f"atol {atol} + rtol {rtol}·|ref|")
-        flash_err = max(flash_err, err)
+        flash_err[dtype] = max(flash_err[dtype], err)
         log(f"[15 flash] {label:18s} B={B} S={S} T={T} Hkv={Hkv} G={G} dh={dh} {str(dtype):14s} "
             f"causal={causal} window={window}: max abs err {err:.3e}, {worst:.3f} of the limit "
-            f"(atol {atol}, rtol {rtol:.3e})")
+            f"(atol {atol}, rtol {rtol:.3e}); {'tensor-core' if body[1] else 'CUDA-core'} body")
         del diff
         if label == "main shapes":
             main_qkv = (q, k, v)
@@ -379,18 +409,20 @@ def lm_phases(torch, dev, gen, decoder_counters) -> dict:
     torch.cuda.synchronize()
     for mod, attr in decoder_counters:
         setattr(mod, attr, 0)
-    fa.launches = 0
+    fa.launches = fa.tc_launches = 0
     torch.cuda.reset_peak_memory_stats()
     next_tok = prefill(params, batch)
     torch.cuda.synchronize()
-    prefill_launches = fa.launches
+    prefill_launches, prefill_tc = fa.launches, fa.tc_launches
     others = {attr: getattr(mod, attr) for mod, attr in decoder_counters if getattr(mod, attr)}
-    if prefill_launches != cfg.n_layers or others:
-        raise AssertionError(f"prefill launched flash {prefill_launches} times (want "
-                             f"{cfg.n_layers}) and decoder kernels {others}")
+    if prefill_launches != cfg.n_layers or prefill_tc != cfg.n_layers or others:
+        raise AssertionError(f"prefill launched flash {prefill_launches} times, {prefill_tc} on "
+                             f"the tensor-core body (want {cfg.n_layers} of each), and decoder "
+                             f"kernels {others}")
     log(f"[16 lm] make_prefill_step, {LM_BATCH} × {LM_SEQ} tokens: flash launches "
-        f"{prefill_launches} (one per layer), next tokens {next_tok.tolist()}, peak "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        f"{prefill_launches} (one per layer), {prefill_tc} on the tensor-core body, "
+        f"{prefill_launches - prefill_tc} on the CUDA-core body; next tokens "
+        f"{next_tok.tolist()}, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     last = lm.apply_train(params, batch, cfg)[:, -1]
     with attention.flash_enabled("off"):
         fa.launches = 0
@@ -414,7 +446,13 @@ def lm_phases(torch, dev, gen, decoder_counters) -> dict:
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     n_dec = 64
     toks = batch["tokens"][:, :n_dec]
+    fa.launches = fa.tc_launches = 0
     full = lm.apply_train(params, {"tokens": toks}, cfg32)
+    torch.cuda.synchronize()
+    f32_launches = fa.launches - fa.tc_launches  # float32 compute: the CUDA-core body
+    if (fa.launches, fa.tc_launches) != (cfg.n_layers, 0):
+        raise AssertionError(f"float32 apply_train launched flash {fa.launches} times, "
+                             f"{fa.tc_launches} on the tensor-core body")
     cache = lm.init_cache(cfg32, LM_BATCH, n_dec, dtype=f32, device=dev)
     dec = []
     for t in range(n_dec):
@@ -424,7 +462,8 @@ def lm_phases(torch, dev, gen, decoder_counters) -> dict:
     if not dec_err <= DECODE_LOGIT_ATOL:
         raise AssertionError(f"cached decode vs apply_train at float32: {dec_err}")
     log(f"[16 lm] float32 compute, cached apply_decode × {n_dec} vs apply_train: logits max abs "
-        f"diff {dec_err:.3e} (atol {DECODE_LOGIT_ATOL})")
+        f"diff {dec_err:.3e} (atol {DECODE_LOGIT_ATOL}); apply_train's flash launches "
+        f"{f32_launches}, all on the CUDA-core body")
     del full, cache, dec
 
     prompt = torch.randint(0, cfg.vocab, (4, 16), generator=gen, device=dev)
@@ -476,13 +515,42 @@ def lm_phases(torch, dev, gen, decoder_counters) -> dict:
         sdpa = lambda: F.scaled_dot_product_attention(qs, kr, vr, attn_mask=band)
         how = "K/V repeated G times"
     library_ms = cuda_ms(torch, sdpa, reps=10)
-    log(f"[17 times] flash_attention, B={B} S=T={S} Hkv={Hkv} G={G} dh={dh} bf16 causal window "
-        f"{window}: {flash_ms:.3f} ms (plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by "
-        f"{bound_by}: {flops:.4e} FLOP at {BF16_FLOPS_PER_S:.3g}/s, {nbytes:.4e} B at "
-        f"{HBM_BYTES_PER_S:.3g} B/s; {flops / flash_ms / 1e9:.2f} TFLOP/s achieved, "
-        f"{flops / F32_FLOPS_PER_S * 1e3:.2f} ms at the float32 CUDA-core peak; "
-        f"scaled_dot_product_attention with the band mask, {how}: {library_ms:.3f} ms); "
-        f"launches per prefill {prefill_launches}")
+    # the tensor-core body does QKᵀ and P·V twice (P split into hi and lo)
+    log(f"[17 times] flash_attention tensor-core body, B={B} S=T={S} Hkv={Hkv} G={G} dh={dh} bf16 "
+        f"causal window {window}: {flash_ms:.3f} ms (plain {plain_ms:.3f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by}: {flops:.4e} FLOP at {BF16_FLOPS_PER_S:.3g}/s, "
+        f"{nbytes:.4e} B at {HBM_BYTES_PER_S:.3g} B/s; {flops / flash_ms / 1e9:.2f} TFLOP/s of "
+        f"the function achieved; the body's own tensor-core work {1.5 * flops:.4e} FLOP, "
+        f"{1.5 * flops / BF16_FLOPS_PER_S * 1e3:.4f} ms, {1.5 * flops / flash_ms / 1e9:.2f} "
+        f"TFLOP/s; scaled_dot_product_attention with the band mask, {how}: {library_ms:.3f} "
+        f"ms); launches per prefill {prefill_tc}")
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    f32_ms = cuda_ms(torch, lambda: fa.flash_attention(q32, k32, v32, causal=causal,
+                                                       window=window), reps=5)
+    f32_plain_ms = cuda_ms(torch, lambda: fa.ref_mha(q32, k32, v32, causal=causal,
+                                                     window=window), reps=3, warmup=1)
+    f32_bytes = flash_cost(B, S, T, Hkv, G, dh, causal, window, 4)[0]
+    f32_bound, f32_by = bound(f32_bytes, flops, F32_FLOPS_PER_S)
+    ks32, vs32 = k32.transpose(1, 2), v32.transpose(1, 2)
+    qs32 = q32.reshape(B, S, Hkv * G, dh).transpose(1, 2)
+    if how == "enable_gqa=True":
+        sdpa32 = lambda: F.scaled_dot_product_attention(qs32, ks32, vs32, attn_mask=band,
+                                                        enable_gqa=True)
+    else:
+        kr32, vr32 = ks32.repeat_interleave(G, dim=1), vs32.repeat_interleave(G, dim=1)
+        sdpa32 = lambda: F.scaled_dot_product_attention(qs32, kr32, vr32, attn_mask=band)
+    try:
+        f32_library_ms = cuda_ms(torch, sdpa32, reps=3)
+    except torch.cuda.OutOfMemoryError:  # timed only where it fits beside the model
+        f32_library_ms = None
+        torch.cuda.empty_cache()
+    log(f"[17 times] flash_attention CUDA-core body, the same shapes in float32: {f32_ms:.3f} ms "
+        f"(plain {f32_plain_ms:.3f} ms; bound {f32_bound:.4f} ms by {f32_by} at the "
+        f"{F32_FLOPS_PER_S:.3g} FLOP/s float32 CUDA-core peak; scaled_dot_product_attention "
+        f"in float32 {'not measured (out of memory)' if f32_library_ms is None else f'{f32_library_ms:.3f} ms'}); "
+        f"launches in the float32 apply_train of phase 16 "
+        f"{f32_launches}")
+    del q32, k32, v32, qs32, ks32, vs32
     n_tok = LM_BATCH * LM_SEQ
     pre = [wall_ms(torch, lambda: prefill(params, batch), reps=1) for _ in range(3)]
     log(f"[17 times] prefill end to end, {LM_BATCH} × {LM_SEQ} tokens: ms {pre}, median "
@@ -513,11 +581,15 @@ def lm_phases(torch, dev, gen, decoder_counters) -> dict:
         log(f"[17 profile] {what}: wall {wall:.1f} ms under the profiler, device busy "
             f"{busy:.1f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; top kernels: "
             + "; ".join(f"{n} {ms:.1f} ms × {c}" for n, ms, c in kernels))
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                replaces="src/repro/_unused/flash_attention.py:54", launches=prefill_launches,
-                max_abs_err=flash_err, ms=flash_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    src_fa = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    return [dict(name="flash_attention (tensor-core body, bf16)", route="cuda", source=src_fa,
+                 replaces="src/repro/_unused/flash_attention.py:54", launches=prefill_tc,
+                 max_abs_err=flash_err[bf16], ms=flash_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=library_ms),
+            dict(name="flash_attention (CUDA-core body, float32)", route="cuda", source=src_fa,
+                 replaces="src/repro/_unused/flash_attention.py:54", launches=f32_launches,
+                 max_abs_err=flash_err[f32], ms=f32_ms, plain_ms=f32_plain_ms, bound_ms=f32_bound,
+                 bound_by=f32_by, library_ms=f32_library_ms)]
 
 
 def main() -> int:
@@ -665,6 +737,39 @@ def main() -> int:
                 raise AssertionError(f"K2 {label} {policy}: {int((bits_k != bits_p).sum())} bits differ")
             k2_err = max(k2_err, float((bits_k - bits_p).abs().max()))
             log(f"[3 K2] {label:13s} start={policy:6s} B={B}: bits equal")
+    # the staged walk at every W it is built for (N = 4 ... 1024 states): any
+    # int32 words are a survivor history; ragged batches (the last warp part
+    # filled), decode_start 0 and > 0, one-stage blocks; both routes where B
+    # % 4 == 0 (TMA, the default there, and cp.async), cp.async elsewhere
+    for n_states in (4, 32, 64, 128, 256, 512, 1024):
+        code = ConvCode(polys=((1,) + (0,) * (n_states.bit_length() - 2) + (1,),
+                               (1,) * n_states.bit_length()))
+        W = max(1, n_states // 32)
+        for Tc, B, ds, nd in ((T, N_MAIN_BLOCKS, L, D), (T, N_MAIN_BLOCKS + 17, L, D),
+                              (T, 1001, 0, D), (97, 36, 30, 60), (97, 5, 30, 60), (1, 32, 0, 1),
+                              (1, 33, 0, 1)):
+            sp = torch.randint(-2 ** 31, 2 ** 31 - 1, (Tc, W, B), generator=gen, device=dev,
+                               dtype=torch.int32)
+            pm = torch.randint(0, 3, (n_states, B), generator=gen, device=dev)
+            starts = {"zero": 0, "argmin": torch.argmin(pm, dim=0).to(torch.int32),
+                      "random": torch.randint(0, n_states, (B,), generator=gen, device=dev,
+                                              dtype=torch.int32)}
+            routes = ("tma", "cp.async") if B % 4 == 0 else ("cp.async",)
+            for policy, start in starts.items():
+                bits_p = traceback.traceback_plain(sp, code, ds, nd, start)
+                for route in routes:
+                    traceback.launches = 0
+                    bits_k = (traceback.traceback(sp, code, ds, nd, start) if route == routes[0]
+                              else traceback._staged_walk(sp, code, ds, nd, start, route))
+                    torch.cuda.synchronize()
+                    if traceback.launches != 1 or not torch.equal(bits_k, bits_p):
+                        raise AssertionError(
+                            f"K2 {route} N={n_states} T={Tc} B={B} window [{ds}, {ds + nd}) "
+                            f"{policy}: {int((bits_k != bits_p).sum())} bits differ, "
+                            f"{traceback.launches} launches")
+            log(f"[3 K2] staged walk N={n_states:4d} W={W:2d} ({traceback.stage_chunk(W)} "
+                f"stages per slot) T={Tc} B={B} window [{ds}, {ds + nd}), {' and '.join(routes)}: "
+                f"bits equal for zero, argmin and random starts")
 
     # ---- 4. main path ----------------------------------------------------------
     cfg = PBVDConfig()
@@ -756,8 +861,20 @@ def main() -> int:
             log(f"[6 times] K1 {name_s} S={S} ({code_s.n_states // S} lanes per block, "
                 f"{-(-n_blocks * code_s.n_states // S // 32)} warps): {ms_s:.4f} ms, bound "
                 f"{b_s:.4f} ms, {b_s / ms_s:.1%} of it")
-    log(f"[6 times] K2 {k2_ms:.4f} ms (plain {k2_plain_ms:.3f} ms, bound {k2_bound:.4f} ms by "
-        f"{k2_by}: {k2_bytes:.0f} B, {k2_ops:.0f} int32 op)")
+    k2_algo_bytes = k2_staged_bytes(cfg.T, n_blocks, cfg.L, cfg.D, -(-cfg.code.n_states // 32))
+    log(f"[6 times] K2 (staged walk) {k2_ms:.4f} ms by event (plain {k2_plain_ms:.3f} ms, bound "
+        f"{k2_bound:.4f} ms by {k2_by}: {k2_bytes:.0f} B, {k2_ops:.0f} int32 op; the staged "
+        f"walk's own traffic, every word of each walked stage and the bits, {k2_algo_bytes:.0f} "
+        f"B, {k2_algo_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    # the two routes that stage the words, in turns; device time under the profiler
+    for route in ("tma", "cp.async", "cp.async", "tma"):
+        walk = lambda: traceback._staged_walk(sp, cfg.code, cfg.L, cfg.D, 0, route)
+        ev_ms = cuda_ms(torch, walk, reps=20)
+        _, k2_prof, _ = device_profile(torch, lambda: [walk() for _ in range(20)])
+        k2_dev = [(n, ms / c) for n, ms, c in k2_prof if "traceback" in n]
+        log(f"[6 times] K2 {route:8s}: {ev_ms:.4f} ms by event; device time per launch under "
+            f"the profiler: " + (", ".join(f"{n} {ms:.4f} ms" for n, ms in k2_dev)
+                                  or "not measured"))
     log(f"[6 times] host phases: frame (check+quantize+frame) {frame_ms:.3f} ms, "
         f"dispatch+K1+argmin/start+K2 {blocks_ms:.3f} ms, unpack {unpack_ms:.3f} ms; "
         f"end to end {e2e_ms:.3f} ms")
@@ -1214,7 +1331,7 @@ def main() -> int:
             f"{n_bits / statistics.mean(e2e_new['cuda']) / 1e3:.1f}, fused "
             f"{n_bits / statistics.mean(e2e_new['fused']) / 1e3:.1f}")
 
-    flash_row = lm_phases(torch, dev, gen, [(mod, attr) for _, mod, attr in counters])
+    flash_rows = lm_phases(torch, dev, gen, [(mod, attr) for _, mod, attr in counters])
 
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith(("jax.", "jaxlib")) or mod == "repro" or mod.startswith("repro."):
@@ -1272,7 +1389,7 @@ def main() -> int:
              max_abs_err=fused_new_err["prefix"], ms=fnew_ms["prefix"],
              plain_ms=fnew_plain_ms["prefix"], bound_ms=f_bound, bound_by=f_by,
              library_ms=None),
-        flash_row,
+        *flash_rows,
     ]
     for row in kernels:  # the bound is the least time the card could take
         if row["bound_ms"] > row["ms"]:

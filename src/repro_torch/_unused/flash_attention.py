@@ -4,7 +4,10 @@ The counterpart of ``repro._unused.flash_attention``. The CUDA kernel
 ``kernels/csrc/flash_attention.cu`` replaces the TPU kernel
 ``_flash_kernel`` (driven by ``flash_attention``): an online softmax over
 blocks of keys in float32, with blocks outside the causal or windowed band
-skipped. :func:`flash_attention` has the reference's signature and checks
+skipped. It has two bodies: bfloat16 inputs run the tensor-core body
+(``wgmma`` on bf16 tiles fed by TMA, :func:`tc_tile_plan`), float32 inputs
+the CUDA-core body (:func:`tile_plan`). :func:`flash_attention` has the
+reference's signature and checks
 (``S % q_chunk`` and ``T % kv_chunk`` raise the same ``ValueError``); the
 TPU's ``q_chunk``/``kv_chunk`` are checked as the reference checks them, and
 the CUDA kernel chooses its own tiles (:func:`tile_plan`). For a CPU tensor
@@ -13,8 +16,10 @@ tensor it launches the kernel or raises, never falling back. There is no
 interpret mode: ``interpret`` is accepted and ignored.
 
 :func:`band_blocks` and :func:`launch_args` are the kernel's block range and
-argument list in Python, so the CPU tests reach them. ``launches`` counts the
-kernel's launches, and nothing else.
+argument list in Python, so the CPU tests reach them, and
+:func:`tc_block_needs_mask` the tensor-core body's choice of the blocks it
+masks. ``launches`` counts the kernel's launches, either body, and nothing
+else; ``tc_launches`` those of them that ran the tensor-core body.
 """
 
 from __future__ import annotations
@@ -32,14 +37,19 @@ __all__ = [
     "band_blocks",
     "launch_args",
     "tile_plan",
+    "tc_tile_plan",
+    "tc_block_needs_mask",
     "launches",
+    "tc_launches",
     "NEG_INF",
 ]
 
 NEG_INF = -1e30
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of the CUDA kernel (either body) since the count was last set to 0
 launches = 0
+#: those of them that ran the tensor-core body (bfloat16 inputs)
+tc_launches = 0
 
 #: the kernel's tiles (csrc/flash_attention.cu: kRows, kKeys, kThreads)
 ROWS_PER_CTA = 64
@@ -49,6 +59,13 @@ THREADS = 256
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_PER_CTA = 232448
+#: the tensor-core body's tiles (csrc/flash_attention.cu: kTcRows, kTcKeys,
+#: kTcThreads, kTcStages): two consumer warpgroups of 64 rows and one
+#: producer warp; a ring of K and V tiles
+TC_ROWS_PER_CTA = 128
+TC_KEYS_PER_BLOCK = KEYS_PER_BLOCK
+TC_THREADS = 288
+TC_STAGES = 4
 
 
 def ref_mha(q, k, v, *, causal=True, window=None, scale=None):
@@ -95,19 +112,56 @@ def tile_plan(B: int, S: int, Hkv: int, G: int, dh: int) -> tuple[tuple[int, int
     return grid, THREADS, smem
 
 
+def tc_tile_plan(B: int, S: int, Hkv: int, G: int, dh: int) -> tuple[tuple[int, int], int, int]:
+    """(grid, threads, shared bytes per CTA) of a launch of the tensor-core body.
+
+    A CTA takes 128 consecutive (position, group member) rows of one (batch,
+    kv head): two consumer warpgroups of 64 rows and one producer warp. It
+    holds Q (128 × dh bf16) and a ring of ``TC_STAGES`` K and V tiles of 64
+    keys, plus 1 KB to align the swizzled tiles and 64 B of barriers. Head
+    dims other than 16, 32, 64 and 128 raise ``ValueError``.
+    """
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the flash kernel is built for head_dim in {HEAD_DIMS}, got {dh}")
+    smem = 2 * dh * (TC_ROWS_PER_CTA + 2 * TC_STAGES * TC_KEYS_PER_BLOCK) + 1024 + 64
+    assert smem <= _SMEM_PER_CTA
+    grid = (-(-(S * G) // TC_ROWS_PER_CTA), B * Hkv)
+    return grid, TC_THREADS, smem
+
+
 def band_blocks(row0: int, rows: int, G: int, T: int, causal: bool,
                 window: int | None) -> tuple[int, int]:
-    """The key blocks [lo, hi) that rows [row0, row0 + rows) can see.
+    """The 64-key blocks [lo, hi) that rows [row0, row0 + rows) can see.
 
     Row R is query position R // G. With a window w, keys below
     p_lo - w + 1 are outside every row's band; when causal, keys above p_hi
-    are. ``csrc/flash_attention.cu::band_blocks`` computes the same.
+    are. A row at p >= T + w - 1 sees no key: its softmax of equal -1e30
+    scores averages V over all T keys (keys past T weigh 0 in the kernel),
+    so a tile that holds one walks every block.
+    ``csrc/flash_attention.cu::band_blocks`` computes the same for both
+    bodies.
     """
     p_lo, p_hi = row0 // G, (row0 + rows - 1) // G
+    if window and p_hi >= T + window - 1:
+        return 0, -(-T // KEYS_PER_BLOCK)
     lo = max(0, p_lo - window + 1) if window else 0
     hi = min(T, p_hi + 1) if causal else T
     lo_blk = lo // KEYS_PER_BLOCK
     return lo_blk, (-(-hi // KEYS_PER_BLOCK) if hi > lo else lo_blk)
+
+
+def tc_block_needs_mask(r0: int, n_rows: int, G: int, T: int, kb: int, causal: bool,
+                        window: int | None) -> bool:
+    """Whether the tensor-core body masks key block ``kb`` for the warpgroup
+    of rows [r0, r0 + 64): unless every key of the block lies below T and
+    inside every valid row's band (``csrc/flash_attention.cu``:
+    ``block_needs_mask``)."""
+    last = min(r0 + 64, n_rows) - 1
+    if last < r0:
+        return True
+    p_lo, p_hi = r0 // G, last // G
+    t0, t1 = kb * TC_KEYS_PER_BLOCK, (kb + 1) * TC_KEYS_PER_BLOCK - 1
+    return t1 >= T or (causal and t1 > p_lo) or bool(window and t0 <= p_hi - window)
 
 
 def launch_args(q, k, v, out, *, causal: bool, window: int | None, scale: float) -> tuple:
@@ -134,7 +188,7 @@ def launch_args(q, k, v, out, *, causal: bool, window: int | None, scale: float)
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
-    tile_plan(B, S, Hkv, G, dh)
+    (tc_tile_plan if q.dtype == torch.bfloat16 else tile_plan)(B, S, Hkv, G, dh)
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, Hkv, G, dh,
             _DTYPE_CODE[q.dtype], int(bool(causal)), -1 if window is None else int(window),
             float(scale))
@@ -163,7 +217,7 @@ def flash_attention(
     interpret: bool = False,
 ) -> torch.Tensor:
     """Attention of q over k, v → (B, S, Hkv, G, dh) in q's dtype."""
-    global launches
+    global launches, tc_launches
     B, S, Hkv, G, dh = q.shape
     T = k.shape[1]
     scale = scale or 1.0 / math.sqrt(dh)
@@ -183,4 +237,6 @@ def flash_attention(
     if rc:
         raise RuntimeError(f"flash_attention_fwd launch failed (error {rc})")
     launches += 1
+    if q.dtype == torch.bfloat16:  # the C side sends bf16, and only bf16, to the tensor-core body
+        tc_launches += 1
     return out

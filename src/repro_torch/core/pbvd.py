@@ -24,6 +24,7 @@ from repro_torch.kernels.ops import (
     backend_metric_modes,
     backend_start_policies,
     backend_tb_modes,
+    check_code_limits,
     knob_error,
 )
 
@@ -66,7 +67,10 @@ class PBVDConfig:
     (min,+) step (``acs_radix`` is then ignored); float symbols lower it to
     the radix-2 butterfly. Both are bit-exact to the defaults. ``acs_k`` is
     checked here against the code (1 ≤ k ≤ v, k·R ≤ 8) and, in the narrow
-    modes, against the k-stage saturation budget.
+    modes, against the k-stage saturation budget. Last come the backend's
+    kernel limits (``"cuda"`` and ``"fused"``: R ≤ 4, ``acs_k`` ≤ 4 under
+    matrix, N ≤ 1024), refused with a ``ValueError`` naming the backend,
+    the knob and the limit.
     """
 
     code: ConvCode = CCSDS_27
@@ -150,6 +154,8 @@ class PBVDConfig:
             # narrow modes: the saturation budget must absorb the fused
             # step's two unnormalized stages — fail at config time
             norm_interval(self.code, self.metric_mode, self.acs_radix)
+        # last, so that what the reference refuses keeps its message
+        check_code_limits(self.backend, self.code, self.acs_impl, self.acs_k)
 
 
 def frame_stream(y: torch.Tensor, D: int, L: int, n_blocks: int) -> torch.Tensor:

@@ -66,6 +66,7 @@ matrix_launches = 0
 _DTYPE_CODE = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3}
 _MAX_R = 4
 _MAX_MATRIX_K = 4  # the kernels' template instances: every k of the R >= 2 codes
+_MAX_STATES = 1024  # 1 <= log2 N <= 10 in every C interface
 
 #: the mother codes with a warp-body instantiation (``csrc/acs_core.cuh``),
 #: by the C interfaces' code id (0 is the runtime-table body)
@@ -225,6 +226,8 @@ def acs_forward(
     if R != code.R or R > _MAX_R:
         raise ValueError(f"symbol rank {R} != code R {code.R} (at most {_MAX_R})")
     N = code.n_states
+    if N > _MAX_STATES:
+        raise ValueError(f"the CUDA ACS kernels take n_states <= {_MAX_STATES}, got {N}")
     sp = torch.empty((T, -(-N // 32), B), dtype=torch.int32, device=y.device)
     pm = torch.empty((N, B), dtype=acc_dtype, device=y.device)
     if T == 0 or B == 0:

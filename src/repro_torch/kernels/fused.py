@@ -44,6 +44,7 @@ from .acs import (
     _DTYPE_CODE,
     _MAX_MATRIX_K,
     _MAX_R,
+    _MAX_STATES,
     _labels_on,
     _matrix_table_on,
     check_warp_labels,
@@ -207,6 +208,8 @@ def pbvd_fused(
     T, R, B = y.shape
     if R != code.R or R > _MAX_R:
         raise ValueError(f"symbol rank {R} != code R {code.R} (at most {_MAX_R})")
+    if code.n_states > _MAX_STATES:
+        raise ValueError(f"the fused kernel takes n_states <= {_MAX_STATES}, got {code.n_states}")
     if n_decode % 32 or n_decode <= 0:
         raise ValueError(f"n_decode must be a positive multiple of 32, got {n_decode}")
     if not 0 <= decode_start < T:

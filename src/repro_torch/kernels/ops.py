@@ -44,10 +44,12 @@ from .registry import (
     available_backends,
     backend_acs_impl,
     backend_acs_radix,
+    backend_limits,
     backend_metric_modes,
     backend_start_policies,
     backend_tb_chunk_sensitive,
     backend_tb_modes,
+    check_code_limits,
     get_backend,
     knob_error,
     register_backend,
@@ -67,6 +69,7 @@ __all__ = [
     "backend_tb_chunk_sensitive",
     "backend_acs_radix",
     "backend_acs_impl",
+    "backend_limits",
     "knob_error",
 ]
 
@@ -87,6 +90,10 @@ def _two_phase(blocks: FramedBlocks, code: ConvCode, forward, walk, *, start_pol
 
 _KNOBS = dict(metric_modes=("f32", "i16", "i8"), tb_modes=("serial", "prefix"),
               acs_radix=(2, 4), acs_impl=("butterfly", "matrix"))
+# the CUDA kernels' size limits: the code rank and acs_k their template
+# instances cover, and 1 <= log2 N <= 10 in every C interface
+_CUDA_LIMITS = dict(max_rank=_acs._MAX_R, max_matrix_k=_acs._MAX_MATRIX_K,
+                    max_states=_acs._MAX_STATES)
 
 
 @register_backend("ref", tb_chunk_sensitive=False, **_KNOBS)
@@ -114,7 +121,7 @@ def _decode_ref(
                       acs_k=acs_k)
 
 
-@register_backend("cuda", **_KNOBS)
+@register_backend("cuda", **_KNOBS, **_CUDA_LIMITS)
 def _decode_cuda(
     blocks: FramedBlocks,
     code: ConvCode,
@@ -140,7 +147,7 @@ def _decode_cuda(
                       acs_k=acs_k)
 
 
-@register_backend("fused", start_policies=("zero",), **_KNOBS)
+@register_backend("fused", start_policies=("zero",), **_KNOBS, **_CUDA_LIMITS)
 def _decode_fused(
     blocks: FramedBlocks,
     code: ConvCode,
@@ -212,10 +219,13 @@ def pbvd_decode_blocks(
     tb mode, radix or impl raises :func:`knob_error`'s ``ValueError``, and
     so do ``tb_chunk < 1``, an ``acs_k`` outside ``validate_matrix_k``'s
     bounds, radix 4 on a code with K < 3 and a narrow metric mode whose
-    saturation budget cannot take the radix or k (``norm_interval``). On
-    CUDA tensors a kernel's shared-memory plan that does not fit (the fused
-    kernel's history and scratch, K2-prefix's composed maps) raises
-    ``ValueError`` before the backend launches anything.
+    saturation budget cannot take the radix or k (``norm_interval``), and
+    a code or ``acs_k`` beyond the backend's kernel limits
+    (:func:`check_code_limits`: on ``"cuda"`` and ``"fused"`` R <= 4,
+    ``acs_k`` <= 4 under matrix, N <= 1024). On CUDA tensors a kernel's
+    shared-memory plan that does not fit (the fused kernel's history and
+    scratch, K2-prefix's composed maps) raises ``ValueError`` before the
+    backend launches anything.
     """
     supported = backend_start_policies(backend)  # KeyError for unknown backend
     if start_policy not in supported:
@@ -246,6 +256,7 @@ def pbvd_decode_blocks(
             raise ValueError(f"acs_radix=4 needs K >= 3 (got K={code.K})")
         # narrow modes: the normalization cadence must exist at this radix
         norm_interval(code, metric_mode, acs_radix)
+    check_code_limits(backend, code, acs_impl, acs_k)
     return get_backend(backend)(
         FramedBlocks(y_blocks, decode_start, n_decode, frame_counts),
         code,

@@ -42,6 +42,8 @@ __all__ = [
     "backend_preferred_tb_mode",
     "resolve_tb_mode",
     "knob_error",
+    "backend_limits",
+    "check_code_limits",
 ]
 
 
@@ -200,6 +202,9 @@ def register_backend(
     preferred_tb_mode: str = "serial",
     acs_radix: tuple[int, ...] = (2,),
     acs_impl: tuple[str, ...] = ("butterfly",),
+    max_rank: int | None = None,
+    max_matrix_k: int | None = None,
+    max_states: int | None = None,
 ) -> Callable[[DecodeBackend], DecodeBackend]:
     """Decorator: register a decode backend under ``name``.
 
@@ -209,7 +214,12 @@ def register_backend(
     ``tb_chunk_sensitive=False`` declares that the backend's prefix
     traceback ignores ``tb_chunk``; nothing in the port branches on it (it
     has no compile cache to key, as the reference's jit has), and it is
-    kept for parity with the reference's registry.
+    kept for parity with the reference's registry. ``max_rank``,
+    ``max_matrix_k`` and ``max_states`` declare the size limits of the
+    backend's kernels (the code rank R, ``acs_k`` under
+    ``acs_impl="matrix"``, the number of trellis states); ``None`` means
+    the reference's own limits only. :func:`check_code_limits` refuses the
+    rest.
     """
     for knob, declared, contract in (
         ("metric modes", metric_modes, METRIC_MODES),
@@ -237,6 +247,8 @@ def register_backend(
         fn.preferred_tb_mode = str(preferred_tb_mode)  # type: ignore[attr-defined]
         fn.acs_radix = tuple(acs_radix)  # type: ignore[attr-defined]
         fn.acs_impl = tuple(acs_impl)  # type: ignore[attr-defined]
+        fn.limits = dict(rank=max_rank, matrix_k=max_matrix_k,  # type: ignore[attr-defined]
+                         states=max_states)
         return fn
 
     return deco
@@ -289,6 +301,31 @@ def backend_preferred_tb_mode(name: str) -> str:
 def resolve_tb_mode(name: str, tb_mode: str) -> str:
     """Resolve ``"auto"`` to the backend's preferred mode; pass others through."""
     return backend_preferred_tb_mode(name) if tb_mode == "auto" else tb_mode
+
+
+def backend_limits(name: str) -> dict[str, int | None]:
+    """The named backend's kernel size limits: ``rank`` (code R),
+    ``matrix_k`` (``acs_k`` under matrix) and ``states`` (N); ``None``
+    where only the reference's own limits hold."""
+    return dict(get_backend(name).limits)
+
+
+def check_code_limits(name: str, code: Any, acs_impl: str, acs_k: int) -> None:
+    """Raise ``ValueError`` naming the backend, the knob and the limit when
+    ``code`` (or ``acs_k`` under ``acs_impl="matrix"``) exceeds what the
+    named backend's kernels take. Called after the reference's own checks,
+    so that what both refuse keeps the reference's message."""
+    limits = get_backend(name).limits
+    for knob, value, limit in (
+        ("code rank R", code.R, limits["rank"]),
+        ("acs_k", acs_k if acs_impl == "matrix" else None, limits["matrix_k"]),
+        ("n_states", code.n_states, limits["states"]),
+    ):
+        if value is not None and limit is not None and value > limit:
+            raise ValueError(
+                f"backend {name!r} does not support {knob}={value}: its kernels take "
+                f"{knob} <= {limit}"
+            )
 
 
 def available_backends() -> list[str]:

@@ -5,7 +5,10 @@ K2 replaces ``repro.kernels.traceback._traceback_kernel`` (driven by
 ``traceback_pallas``); K2-prefix replaces ``_traceback_prefix_kernel``
 (driven by ``traceback_prefix_pallas``), the chunked parallel-prefix walk
 whose three phases (``csrc/traceback_core.cuh``) it shares with the fused
-kernel. :func:`traceback` and :func:`traceback_prefix` take the plain
+kernel. K2 is a staged walk: one warp walks 32 parallel blocks, and the
+stage slabs of a chunk of :func:`stage_chunk` stages are copied into a
+ring of ``STAGE_SLOTS`` shared-memory slots ahead of the walk.
+:func:`traceback` and :func:`traceback_prefix` take the plain
 PyTorch versions :func:`traceback_plain` (``ref.traceback_ref``) and
 :func:`traceback_prefix_plain` (``ref.traceback_prefix_chunked_ref``) for a
 CPU tensor; for a CUDA tensor they launch their kernel or raise. What
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.core.trellis import ConvCode
 from . import _build
+from .acs import _MAX_STATES
 from .ref import (
     DEFAULT_TB_CHUNK,
     prefix_chunk_geometry,
@@ -42,6 +46,8 @@ __all__ = [
     "launches",
     "prefix_launches",
     "SMEM_PER_CTA",
+    "STAGE_SLOTS",
+    "stage_chunk",
 ]
 
 #: launches of K2 since the count was last set to 0
@@ -51,14 +57,28 @@ prefix_launches = 0
 
 #: dynamic shared memory one CTA may use on the H100, in bytes
 SMEM_PER_CTA = 232448
+#: K2's ring of shared-memory slots (``csrc/traceback.cu``: kSlots), each of
+#: ``STAGE_SLOT_WORDS`` int32 words (kSlotWords: 8 KB)
+STAGE_SLOTS = 4
+STAGE_SLOT_WORDS = 64 * 32
+#: K2's routes for staging the words, by the C interface's code
+_COPY = {"auto": 0, "cp.async": 1, "tma": 2}
+
+
+def stage_chunk(W: int) -> int:
+    """Stages per slot of K2's staged walk at W words per stage: a slot holds
+    the W rows of 32 words of each of its stages (``kChunk = 64 / W``)."""
+    if W not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"K2 is built for W in 1, 2, 4, ..., 32 words per stage, got {W}")
+    return STAGE_SLOT_WORDS // (32 * W)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("traceback")
-    fn = lib.pbvd_traceback
+    fn = lib.pbvd_traceback_copy
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, i, p, p]
+        fn.argtypes = [p, p, i, i, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
         fn = lib.pbvd_traceback_prefix
         fn.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, i, i, p, p]
@@ -110,8 +130,16 @@ def traceback(
 
     The signature and result of :func:`traceback_plain`. ``start_state`` is
     an int or a (B,) tensor of states in [0, N); on a CUDA tensor ``sp``
-    must be contiguous int32.
+    must be contiguous int32. The kernel stages the survivor words by TMA
+    where B % 4 == 0 (the faster route on the H100, ``PERF.md``), else by
+    ``cp.async``.
     """
+    return _staged_walk(sp, code, decode_start, n_decode, start_state, "auto")
+
+
+def _staged_walk(sp, code, decode_start, n_decode, start_state, copy: str) -> torch.Tensor:
+    """:func:`traceback` with the route named: ``"auto"``, ``"tma"`` (B % 4
+    == 0) or ``"cp.async"``; ``chip_smoke.py`` checks and times both."""
     global launches
     if sp.device.type == "cpu":
         return traceback_plain(sp, code, decode_start, n_decode, start_state)
@@ -124,10 +152,15 @@ def traceback(
     T, W, B = sp.shape
     if W != -(-code.n_states // 32):
         raise ValueError(f"sp has {W} words per stage, code needs {-(-code.n_states // 32)}")
+    if code.n_states > _MAX_STATES:
+        raise ValueError(f"K2 takes n_states <= {_MAX_STATES}, got {code.n_states}")
     if not 0 <= decode_start <= T - n_decode:
         raise ValueError(
             f"decode region [{decode_start}, {decode_start + n_decode}) outside [0, {T})"
         )
+    if copy not in _COPY or (copy == "tma" and B % 4):
+        raise ValueError(f"copy must be one of {tuple(_COPY)} ('tma' needs B % 4 == 0), got "
+                         f"{copy!r} at B={B}")
     start = torch.as_tensor(start_state, dtype=torch.int32, device=sp.device)
     start = start.broadcast_to((B,)).contiguous()
     bits = torch.empty((n_decode, B), dtype=torch.int32, device=sp.device)
@@ -135,9 +168,9 @@ def traceback(
         return bits
     with torch.cuda.device(sp.device):
         stream = torch.cuda.current_stream(sp.device).cuda_stream
-        rc = _lib().pbvd_traceback(
+        rc = _lib().pbvd_traceback_copy(
             sp.data_ptr(), start.data_ptr(), T, W, B, code.v,
-            decode_start, n_decode, bits.data_ptr(), stream,
+            decode_start, n_decode, _COPY[copy], bits.data_ptr(), stream,
         )
     if rc:
         raise RuntimeError(f"pbvd_traceback launch failed (error {rc})")
@@ -171,6 +204,8 @@ def traceback_prefix(
     T, W, B = sp.shape
     if W != -(-code.n_states // 32):
         raise ValueError(f"sp has {W} words per stage, code needs {-(-code.n_states // 32)}")
+    if code.n_states > _MAX_STATES:
+        raise ValueError(f"K2-prefix takes n_states <= {_MAX_STATES}, got {code.n_states}")
     (C, P, n_chunks, c_lo, c_hi), G = prefix_plan(code.n_states, T, decode_start, n_decode,
                                                    tb_chunk)
     start = torch.as_tensor(start_state, dtype=torch.int32, device=sp.device)

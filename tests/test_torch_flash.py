@@ -172,12 +172,13 @@ def _kernel_model(q, k, v, *, causal, window, scale, masked=fa.NEG_INF):
                 for tid, (rws, kys, _) in enumerate(maps):
                     cg = tid & 15
                     st = Qs[rws] @ Ks[kys].T
-                    ok = ok_t[kys][None, :]
+                    ok = np.ones((len(rws), len(kys)), bool)
                     if causal:
                         ok = ok & (np.array(kys)[None, :] + kb * KEYS <= pos[rws][:, None])
                     if window:
                         ok = ok & (np.array(kys)[None, :] + kb * KEYS > pos[rws][:, None] - window)
                     st = np.where(ok, st, np.float32(masked))
+                    st = np.where(ok_t[kys][None, :], st, np.float32(-np.inf))  # past T
                     s[np.ix_(rws, kys)] = st
                     part_max[rws, cg] = st.max(1)
                 mx = part_max.max(1)
@@ -238,6 +239,7 @@ def test_band_blocks_are_exactly_the_blocks_with_a_valid_key(S, T, G, causal, wi
     (1, 80, 80, 1, 3, 16, True, None),
     (1, 48, 130, 1, 2, 64, False, None),  # a ragged last key block
     (2, 40, 40, 1, 5, 128, False, 9),
+    (1, 100, 70, 1, 3, 32, False, 20),  # rows at p >= T + w - 1 see no key
 ])
 def test_kernel_model_matches_ref_mha(B, S, T, Hkv, G, D, causal, window):
     q, k, v = _mk(S + T + D, B, S, T, Hkv, G, D)

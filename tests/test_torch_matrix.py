@@ -315,7 +315,7 @@ def test_knob_errors_match_the_reference(polys, kwargs):
         with pytest.raises(ValueError) as got:
             PBVDConfig(backend=backend, **make[0], **kw)
         assert str(got.value) == str(want.value)
-    code = PBVDConfig(**make[0]).code if polys else get_code_spec("ccsds").code
+    code = PBVDConfig(backend="ref", **make[0]).code if polys else get_code_spec("ccsds").code
     jcode = JConfig(**make[1]).code if polys else j_get_code_spec("ccsds").code
     with pytest.raises(ValueError) as jd:
         j_decode_blocks(jnp.zeros((8, code.R, 1), jnp.int8), jcode, decode_start=0, n_decode=4,

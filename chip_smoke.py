@@ -63,7 +63,11 @@ Then the prefix traceback and the matrix ACS:
 10. K1-matrix against its plain version (survivor words and path metrics
     equal): CCSDS at k = 2, 3, 4 at the main shapes, the rate-1/3 code at
     k = 2, K = 9 and (2,1,5), f32 with int8 symbols, i16 and i8 (refused
-    where the budget refuses), T mod k != 0 and a ragged batch; float
+    where the budget refuses), T mod k != 0 and a ragged batch; then every
+    mother code (CCSDS, IS-95, LTE) at every k built for it in f32, i16 and
+    i8, T mod k != 0, T < k and T = 97, B = 5, 33, 1001 and 8192 + 17;
+    each launch counted on the body its code chose (the matrix warp body
+    for the mother codes, the runtime-table matrix body for (2,1,5)); float
     symbols, which launch the butterfly kernel and no K1-matrix;
 11. K2-prefix against its plain version: tb_chunk 1, 7, 64 and T+5, the
     main window and one whose first chunk is chunk 0 (c_lo = 0), W = 1, 2
@@ -73,17 +77,26 @@ Then the prefix traceback and the matrix ACS:
 12. the fused kernel against its plain version in prefix, in matrix and in
     both, including the K = 9, D = 4096, L = 64 history with the prefix
     scratch and a geometry whose scratch does not fit (printed as refused);
+    the serial matrix variant on the matrix warp body for every mother code
+    at every built k, f32/i16/i8, ragged B and odd T; (2,1,5) and every
+    prefix-plus-matrix case on the runtime-table matrix body, each launch
+    counted on its body;
 13. the new main paths: the 4,194,304-bit stream through ``"cuda"`` and
     ``"fused"`` with ``acs_impl="matrix", acs_k=2, tb_mode="prefix"`` and
     with each knob alone, each bit-equal to ``"ref"`` at the default
     config, with their launch counts (``"cuda"``: one K1-matrix and/or one
-    K2-prefix; ``"fused"``: one fused launch, no K1 or K2);
-14. times of K1-matrix (k = 2, 3), K2-prefix and the fused variants beside
-    their plain versions and bounds, and end-to-end Mb/s of the new paths
-    in turns. A kernel's bound is that of the function it computes, which
-    is the function of K1, K2 or the fused serial kernel; the work of the
-    algorithm it chose (the k-stage tournament, the composed maps) is
-    printed beside it as a separate figure.
+    K2-prefix; ``"fused"``: one fused launch, no K1 or K2), the matrix
+    launches of CCSDS on the matrix warp body and those with the prefix
+    walk on the runtime-table matrix body;
+14. the matrix warp body's S per (code, k); times of K1-matrix (k = 2, 3,
+    4), K2-prefix and the fused variants (matrix at k = 2 and 3) beside
+    their plain versions, bounds and shares of them, and end-to-end Mb/s of
+    the new paths in turns. A kernel's bound is that of the function it
+    computes, which is the function of K1, K2 or the fused serial kernel;
+    the work of the algorithm it chose (the k-stage tournament, the composed
+    maps) is printed beside it as a separate floor, with the kernel's share
+    of it; a ``torch.profiler`` window over five decodes of each matrix
+    path (device busy share, top kernels).
 
 Then the LM serving path, StarCoder2-3B at full width and depth:
 
@@ -1102,28 +1115,47 @@ def main() -> int:
         ("(2,1,5)", k5, i8, 77, T + 2, "i16", 3),
         ("(2,1,5)", k5, i8, 77, T, "i8", 2),  # refused by the budget
     ]
+    # every mother code at every k built for it (validate_matrix_k and the
+    # limit of 4), in f32 (int symbols), i16 and i8: T mod k != 0 in f32, T <
+    # k in i16, T = 97 in i8, over B = 8192 + 17, 5, 33 and 1001; each on the
+    # matrix warp body at its one S ((2,1,5) above on the runtime-table body)
+    mothers = (("ccsds", ccsds), ("is95-k9", is95), ("lte-1/3", lte))
+    bs = (N_MAIN_BLOCKS + 17, 5, 33, 1001)
+    for label, code in mothers:
+        for k in range(1, 5):
+            try:
+                code.validate_matrix_k(k)
+            except ValueError:
+                continue
+            mcases += [(label, code, i8, bs[k % 4], T if T % k or k == 1 else T + 1, "f32", k),
+                       (label, code, i16, bs[(k + 1) % 4], max(1, k - 1), "i16", k),
+                       (label, code, i8, bs[(k + 2) % 4], 97, "i8", k)]
     mat_err = 0.0
     for label, code, dtype, B, Tc, mode, k in mcases:
-        tag = f"{label:13s} {str(dtype):11s} T={Tc} B={B} {mode} k={k}"
+        body = acs.kernel_body(code)
+        S = acs.matrix_states(code, k) if body == "warp" else None
+        tag = f"{label:13s} {body} body S={S} {str(dtype):11s} T={Tc} B={B} {mode} k={k}"
         try:
             norm_interval(code, mode, stages_per_step=k)
         except ValueError as err:
             log(f"[10 refused] {tag}: {err}")
             continue
         y10 = torch.randint(-127, 128, (Tc, code.R, B), generator=gen, device=dev).to(dtype)
-        acs.launches = acs.matrix_launches = 0
+        acs.launches = acs.matrix_launches = acs.matrix_table_launches = 0
         sp_k, pm_k = acs.acs_forward(y10, code, mode, impl="matrix", k=k)
         torch.cuda.synchronize()
-        if (acs.launches, acs.matrix_launches) != (0, 1):
-            raise AssertionError(f"K1-matrix {tag}: launched K1 {acs.launches}, "
-                                 f"K1-matrix {acs.matrix_launches}")
+        counts = (acs.launches, acs.matrix_launches, acs.matrix_table_launches)
+        if counts != (0, 1, int(body == "table")):
+            raise AssertionError(f"K1-matrix {tag}: launched K1 {acs.launches}, K1-matrix "
+                                 f"{acs.matrix_launches}, on the table body "
+                                 f"{acs.matrix_table_launches}")
         sp_p, pm_p = acs.acs_forward_plain(y10, code, mode, impl="matrix", matrix_k=k)
         if not torch.equal(sp_k, sp_p):
             raise AssertionError(f"K1-matrix {tag}: {int((sp_k != sp_p).sum())} words differ")
         if not torch.equal(pm_k, pm_p.to(pm_k.dtype)):
             raise AssertionError(f"K1-matrix {tag}: path metrics differ")
         mat_err = max(mat_err, float((pm_k.double() - pm_p.double()).abs().max()))
-        log(f"[10 K1-matrix] {tag}: sp and pm equal")
+        log(f"[10 K1-matrix] {tag}: sp and pm equal; launches K1/K1-matrix/table body {counts}")
     yf = torch.randn((T, 2, 256), generator=gen, device=dev) * 2.0
     acs.launches = acs.matrix_launches = 0
     lowered = acs.acs_forward(yf, ccsds, impl="matrix", k=2)
@@ -1203,7 +1235,23 @@ def main() -> int:
         ("is95-k9 long", is95, i8, 300, 4096 + 128, 64, 4096, "f32", "prefix", "butterfly", 2, 64, "random"),
         ("is95-k9 long", is95, i8, 300, 4096 + 129, 64, 4096, "i16", "prefix", "matrix", 2, 64, "zero"),
         ("is95-k9 long", is95, i8, 300, 4096 + 128, 64, 4096, "f32", "prefix", "butterfly", 2, 16, "zero"),  # refused
+        ("(2,1,5)", k5, i16, 33, T + 1, L, D, "i8", "serial", "matrix", 2, 64, "random"),
     ]
+    # the serial matrix variant on the matrix warp body: every mother code
+    # at every built k, f32 (int symbols), i16 and i8 over int8/int16
+    # symbols, ragged B and odd T
+    for label, code in mothers:
+        for k in range(1, 5):
+            try:
+                code.validate_matrix_k(k)
+            except ValueError:
+                continue
+            fcases += [
+                (label, code, i8, bs[k % 4], T + 1, L, D, "f32", "serial", "matrix", k, 64, "zero"),
+                (label, code, i16, bs[(k + 1) % 4], T + 3, L, D, "i16", "serial", "matrix", k, 64,
+                 "random"),
+                (label, code, i8, bs[(k + 2) % 4], T, L, D, "i8", "serial", "matrix", k, 64,
+                 "random")]
     fused_new_err = {"matrix": 0.0, "prefix": 0.0}
     for (label, code, dtype, B, Tc, ds, nd, mode, tbm, impl, rk, tb, policy) in fcases:
         kw = dict(decode_start=ds, n_decode=nd, metric_mode=mode, tb_mode=tbm, tb_chunk=tb,
@@ -1218,20 +1266,29 @@ def main() -> int:
         start = (torch.randint(0, code.n_states, (B,), generator=gen, device=dev,
                                dtype=torch.int32) if policy == "random" else None)
         mk = rk if impl == "matrix" and dtype != f32 else 0
+        fbody = fused.kernel_body(code, tbm)
+        S = None
+        if fbody == "warp":
+            S = acs.matrix_states(code, mk) if mk else acs.warp_states(code)[0]
+        tag += f" ({fbody} body S={S})"
         try:
             if mk:
                 norm_interval(code, mode, stages_per_step=mk)
             G, smem = fused.smem_plan(Tc, code.n_states, tbm, tb, decode_start=ds, n_decode=nd,
-                                      matrix_k=mk, R=code.R)
+                                      matrix_k=mk, R=code.R,
+                                      lanes=code.n_states // S if S else None)
         except ValueError as err:
             log(f"[12 refused] {tag}: {err}")
             continue
         fused.launches = fused.matrix_launches = fused.prefix_launches = 0
+        fused.matrix_table_launches = 0
         words_k = fused.pbvd_fused(y12, code, start_state=start, **kw)
         torch.cuda.synchronize()
-        body = (fused.launches, fused.matrix_launches, fused.prefix_launches)
-        if body != (1, int(mk > 0), int(tbm == "prefix")):
-            raise AssertionError(f"fused {tag}: launches (all, matrix, prefix) = {body}")
+        body = (fused.launches, fused.matrix_launches, fused.prefix_launches,
+                fused.matrix_table_launches)
+        if body != (1, int(mk > 0), int(tbm == "prefix"), int(mk > 0 and fbody == "table")):
+            raise AssertionError(f"fused {tag}: launches (all, matrix, prefix, matrix on the "
+                                 f"table body) = {body}")
         words_p = fused.pbvd_fused_plain(y12, code, start_state=start, **kw)
         if not torch.equal(words_k, words_p):
             raise AssertionError(f"fused {tag}: {int((words_k != words_p).sum())} words differ")
@@ -1240,7 +1297,7 @@ def main() -> int:
             if on:
                 fused_new_err[part] = max(fused_new_err[part], err)
         log(f"[12 fused] {tag}: words equal (G={G}, {smem} B shared; launches all/matrix/"
-            f"prefix {body})")
+            f"prefix/matrix on the table body {body})")
 
     # ---- 13. the new main paths -------------------------------------------------
     variants = {"matrix+prefix": dict(acs_impl="matrix", acs_k=2, tb_mode="prefix"),
@@ -1248,10 +1305,12 @@ def main() -> int:
                 "prefix": dict(tb_mode="prefix")}
     new_engines, new_launches = {}, {}
     counters = (("acs", acs, "launches"), ("acs_matrix", acs, "matrix_launches"),
+                ("acs_matrix_table", acs, "matrix_table_launches"),
                 ("acs_table", acs, "table_launches"),
                 ("traceback", traceback, "launches"),
                 ("traceback_prefix", traceback, "prefix_launches"), ("fused", fused, "launches"),
                 ("fused_matrix", fused, "matrix_launches"),
+                ("fused_matrix_table", fused, "matrix_table_launches"),
                 ("fused_prefix", fused, "prefix_launches"),
                 ("fused_table", fused, "table_launches"))
     for vname, knobs in variants.items():
@@ -1269,9 +1328,11 @@ def main() -> int:
             if be == "cuda":
                 want_counts.update({"acs_matrix" if mat else "acs": 1,
                                     "traceback_prefix" if pre else "traceback": 1})
-            else:  # the prefix walk runs on the runtime-table body
+            else:  # the prefix walk runs on the runtime-table bodies; serial matrix on
+                # the matrix warp body
                 want_counts.update(fused=1, fused_matrix=int(mat), fused_prefix=int(pre),
-                                   fused_table=int(pre and not mat))
+                                   fused_table=int(pre and not mat),
+                                   fused_matrix_table=int(pre and mat))
             if counts != want_counts:
                 raise AssertionError(f"{be} {vname} main path launched {counts}")
             if got.shape != (n_bits,) or not torch.equal(got, ref_bits):
@@ -1282,17 +1343,23 @@ def main() -> int:
 
     # ---- 14. times of the new kernels --------------------------------------------
     sym = blocks.element_size()
+    log("[14 probe] the matrix warp body's one S per (code, k): " + "; ".join(
+        f"{label} " + ", ".join(f"k={k} S={acs.matrix_states(code, k)}" for k in range(1, 5)
+                                if k * code.R <= 8)
+        for label, code in mothers))
     k1m_ms, k1m_plain_ms = {}, {}
-    for k in (2, 3):
+    for k in (2, 3, 4):
         k1m_ms[k] = cuda_ms(torch, lambda: acs.acs_forward(blocks, cfg.code, impl="matrix", k=k),
                             reps=20)
         k1m_plain_ms[k] = cuda_ms(torch, lambda: acs.acs_forward_plain(
             blocks, cfg.code, impl="matrix", matrix_k=k), reps=3, warmup=1)
         nb_, no_ = k1_matrix_cost(cfg.code, cfg.T, n_blocks, sym, k)
-        log(f"[14 times] K1-matrix k={k}: {k1m_ms[k]:.4f} ms (plain {k1m_plain_ms[k]:.3f} ms, "
-            f"bound {k1_bound:.4f} ms by {k1_by}, K1's function; the tournament's own work "
-            f"{no_:.0f} int32 op, {bound(nb_, no_, INT32_OPS_PER_S)[0]:.4f} ms; K1 butterfly "
-            f"{k1_ms:.4f} ms)")
+        floor_ms = bound(nb_, no_, INT32_OPS_PER_S)[0]
+        log(f"[14 times] K1-matrix k={k} (matrix warp body, S="
+            f"{acs.matrix_states(cfg.code, k)}): {k1m_ms[k]:.4f} ms (plain "
+            f"{k1m_plain_ms[k]:.3f} ms; bound {k1_bound:.4f} ms by {k1_by}, K1's function, "
+            f"{k1_bound / k1m_ms[k]:.1%} of it; the algorithm's own floor {no_:.0f} int32 op, "
+            f"{floor_ms:.4f} ms, {floor_ms / k1m_ms[k]:.1%} of it; K1 butterfly {k1_ms:.4f} ms)")
     tb64 = 64
     k2p_ms = cuda_ms(torch, lambda: traceback.traceback_prefix(sp_keep["ccsds main"][1], cfg.code,
                                                                cfg.L, cfg.D, 0, tb64), reps=20)
@@ -1305,6 +1372,7 @@ def main() -> int:
         f"{p_bytes:.0f} B, {p_ops:.0f} int32 op, {p_algo[0]:.4f} ms by {p_algo[1]}; K2 serial "
         f"{k2_ms:.4f} ms)")
     fvar = {"prefix": dict(tb_mode="prefix"), "matrix": dict(impl="matrix", k=2),
+            "matrix k=3": dict(impl="matrix", k=3),
             "matrix+prefix": dict(impl="matrix", k=2, tb_mode="prefix")}
     fnew_ms, fnew_plain_ms = {}, {}
     walk_ops = n_blocks * (cfg.T - cfg.L) * 6
@@ -1313,14 +1381,17 @@ def main() -> int:
                                  reps=20)
         fnew_plain_ms[vname] = cuda_ms(torch, lambda: fused.pbvd_fused_plain(
             blocks, cfg.code, **fkw, **kw), reps=3, warmup=1)
-        acs_ops = (k1_matrix_cost(cfg.code, cfg.T, n_blocks, sym, 2)[1] if "matrix" in vname
+        acs_ops = (k1_matrix_cost(cfg.code, cfg.T, n_blocks, sym, kw["k"])[1] if "matrix" in vname
                    else k1_cost(cfg.code, cfg.T, n_blocks, sym)[1])
         ops = acs_ops + (p_ops if "prefix" in vname else walk_ops)
         algo = bound(f_bytes, ops, INT32_OPS_PER_S)
-        log(f"[14 times] fused {vname}: {fnew_ms[vname]:.4f} ms (plain "
-            f"{fnew_plain_ms[vname]:.3f} ms, bound {f_bound:.4f} ms by {f_by}, the fused "
-            f"kernel's function; the chosen algorithms' own work {ops:.0f} int32 op, "
-            f"{algo[0]:.4f} ms by {algo[1]}; fused serial butterfly {fused_ms['f32', 2]:.4f} ms)")
+        body = fused.kernel_body(cfg.code, kw.get("tb_mode", "serial"))
+        log(f"[14 times] fused {vname} ({body} body): {fnew_ms[vname]:.4f} ms (plain "
+            f"{fnew_plain_ms[vname]:.3f} ms; bound {f_bound:.4f} ms by {f_by}, the fused "
+            f"kernel's function, {f_bound / fnew_ms[vname]:.1%} of it; the chosen algorithms' "
+            f"own work {ops:.0f} int32 op, {algo[0]:.4f} ms by {algo[1]}, "
+            f"{algo[0] / fnew_ms[vname]:.1%} of it; fused serial butterfly "
+            f"{fused_ms['f32', 2]:.4f} ms)")
     for vname in variants:
         e2e_new = {"cuda": [], "fused": []}
         for be in ("cuda", "fused", "fused", "cuda"):
@@ -1330,6 +1401,17 @@ def main() -> int:
             f"{e2e_new['cuda']}, fused {e2e_new['fused']}; decoded Mb/s: cuda "
             f"{n_bits / statistics.mean(e2e_new['cuda']) / 1e3:.1f}, fused "
             f"{n_bits / statistics.mean(e2e_new['fused']) / 1e3:.1f}")
+    for be in ("cuda", "fused"):  # the matrix paths: device-bound, unlike the default's
+        eng = new_engines[be, "matrix"]
+        wall, kernels_p, busy = device_profile(
+            torch, lambda: [eng.decode(y, n_bits) for _ in range(5)])
+        if busy <= 0:
+            log(f"[14 profile] {be} matrix: the profiler saw no device time (not measured)")
+            continue
+        log(f"[14 profile] {be} matrix, 5 decodes of {n_bits} bits: wall {wall:.3f} ms under "
+            f"the profiler, device busy {busy:.3f} ms ({busy / wall:.1%}), idle "
+            f"{1 - busy / wall:.1%}; top kernels: "
+            + "; ".join(f"{n} {ms:.3f} ms × {c}" for n, ms, c in kernels_p))
 
     flash_rows = lm_phases(torch, dev, gen, [(mod, attr) for _, mod, attr in counters])
 
@@ -1362,13 +1444,14 @@ def main() -> int:
              max_abs_err=fused_err[4], ms=fused_ms["f32", 4], plain_ms=fused_plain_ms[4],
              bound_ms=f_bound, bound_by=f_by, library_ms=None),
         # the prefix and matrix rows, timed at the main shapes (k = 2, tb_chunk
-        # = 64); their launches are those of the matrix+prefix main paths, and
-        # their bounds those of the functions they compute (K1's, K2's, the
-        # fused kernel's)
+        # = 64); their launches are those of the main paths that run them
+        # (matrix: on the matrix warp body; prefix: matrix+prefix), and their
+        # bounds those of the functions they compute (K1's, K2's, the fused
+        # kernel's)
         dict(name="acs_forward_matrix (K1-matrix)", route="cuda",
              source="src/repro_torch/kernels/csrc/acs.cu",
              replaces="src/repro/kernels/acs.py:429",
-             launches=new_launches["cuda", "matrix+prefix"]["acs_matrix"], max_abs_err=mat_err,
+             launches=new_launches["cuda", "matrix"]["acs_matrix"], max_abs_err=mat_err,
              ms=k1m_ms[2], plain_ms=k1m_plain_ms[2], bound_ms=k1_bound, bound_by=k1_by,
              library_ms=None),
         dict(name="traceback_prefix (K2-prefix)", route="cuda",
@@ -1379,7 +1462,7 @@ def main() -> int:
              bound_by=k2_by, library_ms=None),
         dict(name="pbvd_fused matrix", route="cuda", source="src/repro_torch/kernels/csrc/fused.cu",
              replaces="src/repro/kernels/fused.py:177",
-             launches=new_launches["fused", "matrix+prefix"]["fused_matrix"],
+             launches=new_launches["fused", "matrix"]["fused_matrix"],
              max_abs_err=fused_new_err["matrix"], ms=fnew_ms["matrix"],
              plain_ms=fnew_plain_ms["matrix"], bound_ms=f_bound, bound_by=f_by,
              library_ms=None),

@@ -23,9 +23,19 @@ runtime-table body for any other code. Before a warp-body launch the
 wrapper holds the labels that the instantiation derived at compile time
 against :func:`kernel_labels` and raises on a difference.
 
+K1-matrix has two bodies too, chosen the same way: the matrix warp body
+for the mother codes, at one S per (code, k) (:func:`matrix_states`), whose
+(index, sign) table of the k-stage labels is fixed at compile time and held
+against :func:`kernel_matrix_table` before a launch, and the runtime-table
+matrix body for any other code. Both compute K1's function, whose bound on
+the H100 80GB HBM3 (700 W) is 0.0753 ms at the main shapes (T = 596, B =
+8192); there the matrix warp body takes about 0.31 ms at k = 2 (0.34 at k =
+3, 0.44 at k = 4) where the runtime-table body took 1.92 ms (PERF.md).
+
 ``launches`` counts K1's (butterfly) launches, ``table_launches`` those of
-them that ran the runtime-table body, and ``matrix_launches`` K1-matrix's,
-and nothing else: set them to 0, run, read them.
+them that ran the runtime-table body, ``matrix_launches`` K1-matrix's (either
+body) and ``matrix_table_launches`` those of them that ran the runtime-table
+matrix body, and nothing else: set them to 0, run, read them.
 """
 
 from __future__ import annotations
@@ -50,6 +60,8 @@ __all__ = [
     "kernel_matrix_table",
     "launches",
     "matrix_launches",
+    "matrix_states",
+    "matrix_table_launches",
     "table_launches",
     "warp_code_id",
     "warp_states",
@@ -62,6 +74,8 @@ launches = 0
 table_launches = 0
 #: launches of K1-matrix since the count was last set to 0
 matrix_launches = 0
+#: those of them that ran the runtime-table matrix body
+matrix_table_launches = 0
 
 _DTYPE_CODE = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3}
 _MAX_R = 4
@@ -75,6 +89,12 @@ WARP_CODES = {1: CCSDS_27, 2: IS95_29, 3: LTE_37}
 #: the fastest on the H100 for CCSDS and IS-95; LTE's 16 and 32 are within
 #: run-to-run noise (PERF.md)
 _WARP_STATES = {1: (32, 64, 16), 2: (64, 32), 3: (16, 32, 64)}
+#: the one S of the matrix warp body per code id and k
+#: (``csrc/acs_core.cuh::matrix_warp_states``): k = 4 halves S, because
+#: its 2^(kR-1) folded rows share the registers with the metrics; IS-95
+#: takes 32 at every k (64 spilled)
+_MATRIX_STATES = {1: {1: 32, 2: 32, 3: 32, 4: 16}, 2: {1: 32, 2: 32, 3: 32, 4: 32},
+                  3: {1: 16, 2: 16}}
 
 
 def kernel_labels(code: ConvCode) -> np.ndarray:
@@ -107,7 +127,8 @@ def warp_code_id(code: ConvCode) -> int:
 
 
 def kernel_body(code: ConvCode) -> str:
-    """``"warp"`` for a mother code in :data:`WARP_CODES`, else ``"table"``."""
+    """``"warp"`` for a mother code in :data:`WARP_CODES`, else ``"table"``:
+    the body of K1 and of K1-matrix."""
     return "warp" if warp_code_id(code) else "table"
 
 
@@ -127,6 +148,47 @@ def warp_states_arg(code: ConvCode, states_per_thread: int | None) -> int:
     if S not in built:
         raise ValueError(f"the warp body of K={code.K} R={code.R} is built for S in {built}, "
                          f"got states_per_thread={states_per_thread}")
+    return S
+
+
+def matrix_states(code: ConvCode, k: int) -> int:
+    """The S of the matrix warp body built for ``code`` at ``k``
+    (``ValueError`` for a code of the runtime-table body or a k outside
+    ``validate_matrix_k`` and the limit of 4)."""
+    cid = warp_code_id(code)
+    if not cid:
+        raise ValueError(f"K={code.K} R={code.R} {code.polys} runs the runtime-table matrix body")
+    code.validate_matrix_k(k)
+    if k not in _MATRIX_STATES[cid]:
+        raise ValueError(f"the CUDA matrix ACS takes acs_k <= {_MAX_MATRIX_K}, got {k}")
+    return _MATRIX_STATES[cid][k]
+
+
+def check_warp_matrix_table(lib: ctypes.CDLL, fn: str, code: ConvCode, k: int) -> int:
+    """The matrix warp body's code id for ``code`` (0: the table body), after
+    holding the k-stage table its instantiation in ``lib`` derived at compile
+    time (``fn``) against :func:`kernel_matrix_table`; ``RuntimeError`` on a
+    difference, before anything launches."""
+    cid = warp_code_id(code)
+    if cid and (lib._name, fn, cid, k) not in _checked:
+        want = kernel_matrix_table(code, k)
+        out = (ctypes.c_int * want.size)()
+        n = getattr(lib, fn)(cid, k, out)
+        got = np.frombuffer(out, dtype=np.int32).reshape(want.shape)
+        if n != want.size or not np.array_equal(got, want):
+            raise RuntimeError(f"{fn}: the compile-time matrix table of code id {cid} at k={k} "
+                               f"differs from kernel_matrix_table of {code.polys}")
+        _checked.add((lib._name, fn, cid, k))
+    return cid
+
+
+def matrix_states_arg(code: ConvCode, k: int, states_per_thread: int | None) -> int:
+    """The S to launch the matrix warp body at: its one S for (code, k), which
+    ``states_per_thread`` may name (``ValueError`` for another)."""
+    S = matrix_states(code, k)
+    if states_per_thread not in (None, S):
+        raise ValueError(f"the matrix warp body of K={code.K} R={code.R} at k={k} is built for "
+                         f"S={S}, got states_per_thread={states_per_thread}")
     return S
 
 
@@ -169,8 +231,10 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.pbvd_acs_code_labels.argtypes = [i, p]
         lib.pbvd_acs_code_labels.restype = i
+        lib.pbvd_acs_code_matrix_table.argtypes = [i, i, p]
+        lib.pbvd_acs_code_matrix_table.restype = i
         fn = lib.pbvd_acs_forward_matrix
-        fn.argtypes = [p, i, i, i, i, i, p, p, i, i, i, p, p, p]
+        fn.argtypes = [p, i, i, i, i, i, p, p, i, i, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -193,9 +257,10 @@ def acs_forward(
     float32; the kernels write int32 survivor words and int32 (float32 for
     float symbols) metrics. ``states_per_thread`` picks one of the warp
     body's S variants (:func:`warp_states`, default the first), to hold
-    them against each other; the runtime-table body takes none.
+    them against each other; the runtime-table body takes none, and the
+    matrix warp body only its one (:func:`matrix_states`).
     """
-    global launches, matrix_launches, table_launches
+    global launches, matrix_launches, matrix_table_launches, table_launches
     if y.device.type == "cpu":
         return acs_forward_plain(y, code, metric_mode=metric_mode, radix=radix, impl=impl,
                                  matrix_k=k)
@@ -238,15 +303,19 @@ def acs_forward(
         cid = check_warp_labels(_lib(), "pbvd_acs_code_labels", code)
         if cid:
             S = warp_states_arg(code, states_per_thread)
-        elif states_per_thread is not None:
-            raise ValueError(f"K={code.K} R={code.R} {code.polys} runs the runtime-table body, "
-                             f"which takes no states_per_thread")
+    else:
+        cid = check_warp_matrix_table(_lib(), "pbvd_acs_code_matrix_table", code, k)
+        if cid:
+            S = matrix_states_arg(code, k, states_per_thread)
+    if not cid and states_per_thread is not None:
+        raise ValueError(f"K={code.K} R={code.R} {code.polys} runs the runtime-table body, "
+                         f"which takes no states_per_thread")
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         if impl == "matrix":
             rc = _lib().pbvd_acs_forward_matrix(
                 y.data_ptr(), _DTYPE_CODE[y.dtype], T, R, B, code.v, labels.data_ptr(),
-                _matrix_table_on(code, k, y.device).data_ptr(), k, norm_every, qmax,
+                _matrix_table_on(code, k, y.device).data_ptr(), k, norm_every, qmax, cid, S,
                 sp.data_ptr(), pm.data_ptr(), stream,
             )
         else:
@@ -259,6 +328,7 @@ def acs_forward(
         raise RuntimeError(f"{name} launch failed (error {rc})")
     if impl == "matrix":
         matrix_launches += 1
+        matrix_table_launches += not cid
     else:
         launches += 1
         table_launches += not cid

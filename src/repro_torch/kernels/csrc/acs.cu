@@ -52,15 +52,39 @@
 // repro/kernels/acs.py::_acs_matrix_kernel (acs_forward_pallas with
 // impl="matrix"): T // k k-stage (min,+) steps, each emitting its k standard
 // radix-2 survivor planes, then T mod k radix-2 stages (the reference's
-// "ref" semantics; the port pads no stages). The TPU kernel assembles the
-// k-stage metrics with one MXU product E @ folded; here each thread gathers
-// its 2^k metrics from the 2^(kR-1) folded rows in shared memory with the
-// table's index and sign, the form of the TPU's fused body
-// _acs_phase_mat_dbuf (acs_core.cuh::forward_acs_matrix). Bound: per k-step
-// and target 2^k adds and 2^k - 1 compare-selects, plus kR adds per folded
-// row, so again the integer issue rate, not HBM; it trades the table
-// body's one barrier per stage for two per k stages, and its ballot for a
-// shared-memory or. It keeps the table body's layout (not redesigned).
+// "ref" semantics; the port pads no stages). Two bodies, chosen by the code
+// and counted apart by the wrapper (matrix_launches, matrix_table_launches):
+//
+// * acs_matrix_warp_kernel, the matrix warp body (acs_core.cuh::
+//   forward_acs_matrix_warp), for CCSDS, IS-95 and LTE at every k that
+//   validate_matrix_k and the limit of 4 allow, one S per (code, k), launched
+//   as acs_warp_kernel is (one warp per CTA, Gw = 32/L blocks). Its
+//   compile-time matrix table is exported (pbvd_acs_code_matrix_table) and
+//   held against kernel_matrix_table before the first launch.
+// * acs_matrix_kernel, the runtime-table matrix body (forward_acs_matrix,
+//   the port's first thread-per-state form) for every other code: the
+//   table from global memory, rows and decision planes in shared memory.
+//
+// Tensor cores: a record, not a build. The TPU kernel assembles the k-stage
+// metrics with one MXU product E @ folded; here each candidate gathers + or
+// - one folded row, which on this card costs no instruction: E is a signed
+// one-hot operand (code.matrix_expansion(k)), so the product is a gather
+// with a sign, and a gather from a compile-time table is a register name. A
+// wgmma over E (2^k*N rows x 2^(kR-1) depth) would spend 2^(kR-1)
+// multiply-adds per metric, leave the metrics in accumulator fragments that
+// the tournament would have to shuffle back into its slots, and the (min,+)
+// tournament itself has no tensor-core form; the TPU's own fused matrix
+// phase does not use the MXU either.
+//
+// Bound: the function is K1's (0.0753 ms at the main shapes on the H100
+// 80GB HBM3, 700 W, by INT32 operations). The matrix form does K1's work
+// times 1.29, 2.02 and 3.72 at k = 2, 3, 4 (2^k adds and 2^k - 1
+// compare-selects per k-step and target: 0.0969, 0.1523 and 0.2802 ms), and
+// the card is integer-issue-bound, so it cannot beat the butterfly; a chain
+// k times shorter buys nothing with 8,192 blocks in flight. The table body
+// took 1.92 ms at k = 2 on that card; the matrix warp body takes about
+// 0.31 ms (0.34 at k = 3, 0.44 at k = 4), against K1's 0.23 ms (PERF.md,
+// chip_smoke.py phase 14, launch/kernel_times.py).
 
 #include "acs_core.cuh"
 
@@ -141,6 +165,64 @@ int warp_states(const WarpArgs& a) {
       } else {
         return 1000;
       }
+    default: return 1000;
+  }
+}
+
+// ---- the matrix warp body (K1-matrix for the mother codes) -------------------
+
+template <class Code, int kS, int kK>
+__global__ void __launch_bounds__(32) acs_matrix_warp_kernel(const void* __restrict__ y,
+                                                             int dtype, int T, int B,
+                                                             int norm_every, int qmax,
+                                                             int* __restrict__ sp,
+                                                             int* __restrict__ pm_out) {
+  constexpr int W = Code::W;
+  constexpr int G = 32 / pbvd::WarpMap<Code, kS>::L;  // parallel blocks per warp (= CTA)
+  const int lane = threadIdx.x;
+  const int sub = lane / G;
+  const int b = blockIdx.x * G + lane % G;
+  const bool valid = b < B;
+  constexpr int kLoad = pbvd::WarpMatrix<Code, kS, kK>::kLoad;
+  auto load = [&](int t0, int (&dst)[kLoad][Code::R]) {  // narrow modes clip
+    if (qmax) {
+      pbvd::load_block<true>(y, dtype, t0, T, B, b, valid, qmax, dst);
+    } else {
+      pbvd::load_block<false>(y, dtype, t0, T, B, b, valid, qmax, dst);
+    }
+  };
+  auto store = [&](int t, int w, unsigned word, bool ok) {
+    if (ok && valid) sp[(static_cast<size_t>(t) * W + w) * B + b] = static_cast<int>(word);
+  };
+  auto pm_store = [&](int s, int m) {
+    if (valid) pm_out[static_cast<size_t>(s) * B + b] = m;
+  };
+  pbvd::forward_acs_matrix_warp<Code, kS, kK>(T, norm_every, sub, G, 0xffffffffu, load, store,
+                                              pm_store);
+}
+
+template <class Code, int kK>
+int launch_matrix_warp(const WarpArgs& a) {
+  constexpr int S = pbvd::matrix_warp_states<Code>(kK);
+  constexpr int G = 32 / pbvd::WarpMap<Code, S>::L;
+  if (a.S != S || a.dtype == 3) return 1000;  // integer symbols only
+  acs_matrix_warp_kernel<Code, S, kK><<<(a.B + G - 1) / G, 32, 0, a.stream>>>(
+      a.y, a.dtype, a.T, a.B, a.norm_every, a.qmax, a.sp, static_cast<int*>(a.pm));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// every k that validate_matrix_k and the limit of 4 allow for the code
+template <class Code>
+int matrix_warp_k(const WarpArgs& a, int k) {
+  switch (k) {
+    case 1: return launch_matrix_warp<Code, 1>(a);
+    case 2: return launch_matrix_warp<Code, 2>(a);
+    case 3:
+      if constexpr (Code::matrix_k_ok(3)) return launch_matrix_warp<Code, 3>(a);
+      return 1000;
+    case 4:
+      if constexpr (Code::matrix_k_ok(4)) return launch_matrix_warp<Code, 4>(a);
+      return 1000;
     default: return 1000;
   }
 }
@@ -298,20 +380,31 @@ extern "C" int pbvd_acs_forward(const void* y, int dtype, int T, int R, int B, i
 // an instantiation.
 extern "C" int pbvd_acs_code_labels(int code, int* out) { return pbvd::code_labels(code, out); }
 
+// The (2^k, 2^k, N >> k) matrix table that the matrix warp body of code id
+// `code` derives at compile time, into out; returns its length, or -1 for
+// an id or k without an instantiation.
+extern "C" int pbvd_acs_code_matrix_table(int code, int k, int* out) {
+  return pbvd::code_matrix_table(code, k, out);
+}
+
 // K1-matrix. y: (T, R, B) integer symbols, dtype 0 = int8, 1 = int16,
-// 2 = int32. labels: as pbvd_acs_forward (the trailing radix-2 stages).
-// table: (2^k, 2^k, N >> k) int32, 2 * fold_idx + (fold_sgn < 0) of the
-// code's matrix_acs_tables(k). k: stages per step, 1 <= k <= min(4, log2n),
+// 2 = int32. labels: as pbvd_acs_forward (the trailing radix-2 stages of
+// the runtime-table body). table: (2^k, 2^k, N >> k) int32, 2 * fold_idx +
+// (fold_sgn < 0) of the code's matrix_acs_tables(k) (read by the
+// runtime-table body only). k: stages per step, 1 <= k <= min(4, log2n),
 // k * R <= 8. norm_every, qmax: as pbvd_acs_forward (norm_every counts
-// k-stage steps). sp: (T, ceil(N/32), B) int32 out. pm: (N, B) int32 out.
-// Returns cudaGetLastError() after the launch; 1000 for a bad argument.
+// k-stage steps). code: 0 for the runtime-table body, else the mother code
+// of the matrix warp body (log2n and R must be the code's); S: its path
+// metrics per lane, the one built for (code, k). sp: (T, ceil(N/32), B)
+// int32 out. pm: (N, B) int32 out. Returns cudaGetLastError() after the
+// launch; 1000 for a bad argument.
 extern "C" int pbvd_acs_forward_matrix(const void* y, int dtype, int T, int R, int B, int log2n,
                                        const void* labels, const void* table, int k,
-                                       int norm_every, int qmax, void* sp, void* pm,
-                                       void* stream) {
+                                       int norm_every, int qmax, int code, int S, void* sp,
+                                       void* pm, void* stream) {
   if (log2n < 1 || log2n > 10 || R < 1 || R > pbvd::kMaxR || T < 1 || B < 1 || k < 1 ||
       k > 4 || k > log2n || k * R > 8 || norm_every < 0 || qmax < 0 ||
-      (norm_every > 0) != (qmax > 0)) {
+      (norm_every > 0) != (qmax > 0) || dtype < 0 || dtype > 3) {
     return 1000;
   }
   const int* lab = static_cast<const int*>(labels);
@@ -319,6 +412,18 @@ extern "C" int pbvd_acs_forward_matrix(const void* y, int dtype, int T, int R, i
   int* sp_i = static_cast<int*>(sp);
   int* pm_i = static_cast<int*>(pm);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (code != pbvd::kCodeTable) {
+    const WarpArgs a{y, dtype, T, B, norm_every, qmax, 0, S, sp_i, pm, st};
+    switch (code) {
+      case pbvd::kCodeCcsds:
+        return log2n == pbvd::Ccsds::v && R == pbvd::Ccsds::R ? matrix_warp_k<pbvd::Ccsds>(a, k) : 1000;
+      case pbvd::kCodeIs95:
+        return log2n == pbvd::Is95::v && R == pbvd::Is95::R ? matrix_warp_k<pbvd::Is95>(a, k) : 1000;
+      case pbvd::kCodeLte:
+        return log2n == pbvd::Lte::v && R == pbvd::Lte::R ? matrix_warp_k<pbvd::Lte>(a, k) : 1000;
+      default: return 1000;
+    }
+  }
   const bool narrow = norm_every > 0;
   switch (k) {
     case 1: return dispatch_matrix_mode<1>(narrow, y, dtype, lab, mtab, T, R, B, log2n, norm_every, qmax, sp_i, pm_i, st);

@@ -2,7 +2,7 @@
 // decoder, shared by K1 (acs.cu, survivor words to global memory) and the
 // fused kernel (fused.cu, survivor words to shared memory). One copy of the
 // stage arithmetic keeps the two kernels bit-exact to each other and to the
-// plain version (repro_torch/kernels/ref.py::acs_forward_ref). Three bodies:
+// plain version (repro_torch/kernels/ref.py::acs_forward_ref). Four bodies:
 //
 // 1. forward_acs_warp, the warp body: the registered mother codes (CCSDS
 //    (2,1,7) 171/133, IS-95 (2,1,9) 753/561, LTE (3,1,7) 133/171/165),
@@ -16,8 +16,14 @@
 //    ConvCode, (2,1,5), every N up to 1024). It is the port's first
 //    thread-per-state body, kept as it was: labels from a table in global
 //    memory, PM ping-pong in shared memory, one barrier per stage.
-// 3. forward_acs_matrix: the k-stage (min,+) body of K1-matrix and the
-//    fused matrix variant (below), on the table body's layout.
+// 3. forward_acs_matrix, the runtime-table matrix body: the k-stage
+//    (min,+) steps of K1-matrix and the fused matrix variant for any other
+//    code and for the fused prefix walk, on the table body's layout (below).
+// 4. forward_acs_matrix_warp, the matrix warp body: the k-stage (min,+)
+//    steps of K1-matrix and the fused serial matrix variant for the three
+//    mother codes, on the warp body's layout (below). It replaces the TPU
+//    kernels repro/kernels/acs.py::_acs_matrix_kernel (matrix_step) and
+//    repro/kernels/fused.py::_acs_phase_mat_dbuf for those codes.
 //
 // What bounds the warp body on the H100 80GB HBM3 (700 W limit). Per stage
 // and parallel block it must do about 4N integer operations (two adds, a
@@ -94,7 +100,52 @@
 // the whole blocks was tried; nvcc 12.9 crashed on it.)
 // The final metrics leave through the slot map of phase T mod v.
 //
-// Matrix (forward_acs_matrix<k>): the k-stage (min,+) step of the TPU's
+// Matrix warp body (forward_acs_matrix_warp<Code, S, k>, WarpMatrix): the
+// k-stage (min,+) step of the TPU's matrix_step in its VPU form (e = None,
+// the form of its fused _acs_phase_mat_dbuf), on the warp body's slot map
+// unchanged. A step from phase p covers, for each group, the 2^k slots that
+// differ in slot bits p .. p+k-1 (mod v): their metrics are the
+// predecessors 2^k*u + j, and the step writes the 2^k targets c*U + u back
+// into the same slots, where the butterfly would have them k stages on
+// (the in-place radix-2^k butterfly). A bit below log2 S is register
+// renaming; a lane bit costs one __shfl_xor_sync per gathered metric. No
+// shared memory, no barrier, no atomics. Once per step and lane the
+// 2^(kR-1) folded k-stage rows are formed from the kR-symbol window
+// (kR - 1 adds each, in the reference's order; rows no label of the phase
+// names are dead code), and each of a target's 2^k candidates adds + or -
+// one row, its (index, sign) fixed at compile time by MotherCode::mlabel
+// (the constexpr counterpart of ConvCode.matrix_acs_tables(k), held
+// against kernel_matrix_table before a launch). A combined label is linear
+// over GF(2) in (c, j, u), so with candidate index e (j = e ^ the lane's c
+// bits) every label is a register-only constant xor one mask per lane and
+// phase, applied by negating the window's symbols it names. k rounds of
+// compare and select (strict < on the odd candidate; in a round whose bit
+// is a lane bit, the lane whose c has that bit swaps the pair first, as the
+// butterfly's cross-lane stage does) reduce the candidates; round i's
+// decisions are the radix-2 plane of stage t+i, and each slot emits the
+// one decision of the state the butterfly's slot would hold after stage
+// t+i (a compile-time choice), so the warp body's word assembly and
+// predicated stores serve every round. The step loop runs blocks of
+// lcm(v, k) stages (the phase a compile-time constant), fetching the next
+// v stages (k | v) or the next step one fetch ahead into registers;
+// min-subtract on the global k-step cadence; the T mod k trailing stages
+// run the warp body's radix-2 stage, min-subtracted unconditionally in the
+// narrow modes. One instantiation per (code, k) at one S
+// (matrix_warp_states), the narrow modes a run-time property.
+//
+// What bounds it on the H100 80GB HBM3 (700 W limit): the function is
+// K1's (the INT32 issue rate, 0.0753 ms at the main shapes); the
+// algorithm's own work per k-step and target is 2^k adds and 2^k - 1
+// compare-selects, K1's work times 1.29, 2.02 and 3.72 at k = 2, 3, 4
+// (chip_smoke.py k1_matrix_cost: 0.0969, 0.1523 and 0.2802 ms), so the
+// matrix form cannot beat the butterfly on this card, whose bound is the
+// operation count: a chain k times shorter buys nothing with 8,192 blocks
+// in flight. On that card K1-matrix on this body takes about 0.31, 0.34
+// and 0.44 ms at k = 2, 3, 4 and the fused serial matrix variant 0.54 ms
+// at k = 2 (the table body: 1.92 and 1.98 ms at k = 2; PERF.md,
+// chip_smoke.py phase 14 and launch/kernel_times.py).
+//
+// Matrix table body (forward_acs_matrix<k>): the k-stage (min,+) step of the TPU's
 // matrix_step (repro/kernels/acs.py), in the gather-and-sign form of its
 // fused body _acs_phase_mat_dbuf. One thread per target state
 // n' = c*U + u (U = N >> k): the threads of a block first write the step's
@@ -515,6 +566,32 @@ struct MotherCode {
     k %= v;
     return k == 0 ? q : (((q >> k) | (q << (v - k))) & (N - 1));
   }
+
+  // R-bit encoder output from state s with input x (ConvCode.output_int):
+  // the label of the branch from s into (x << (v-1)) | (s >> 1)
+  __host__ __device__ static constexpr int output(int s, int x) {
+    return label((x << (v - 1)) | (s >> 1), s & 1);
+  }
+
+  // kR-bit combined label of the k-stage path from predecessor 2^k*u + j
+  // into target c*U + u (U = N >> k), stage t in the MSBs:
+  // ConvCode.matrix_acs_tables(k)["cc"][c, j, u]. Linear over GF(2) in
+  // (c, j, u), as label is in (s, bit).
+  __host__ __device__ static constexpr int mlabel(int k, int c, int j, int u) {
+    const int U = N >> k;
+    int lab = 0;
+    for (int i = 0; i < k; ++i) {
+      const int s = ((c & ((1 << i) - 1)) * U + u) * (1 << (k - i)) + (j >> i);
+      lab = (lab << R) | output(s, (c >> i) & 1);
+    }
+    return lab;
+  }
+
+  // the k that the matrix warp body is built for: validate_matrix_k and
+  // the CUDA limit of 4
+  __host__ __device__ static constexpr bool matrix_k_ok(int k) {
+    return k >= 1 && k <= 4 && k <= v && k * R <= 8;
+  }
 };
 
 using Ccsds = MotherCode<7, 0171u, 0133u>;
@@ -543,6 +620,49 @@ inline int code_labels(int code, int* out) {
     case kCodeLte: return write_labels<Lte>(out);
     default: return -1;
   }
+}
+
+// Writes the (2^k, 2^k, N >> k) matrix table [c][j][u] of code id `code`
+// as the matrix warp body derives it at compile time, 2 * fold_idx +
+// (fold_sgn < 0) (kernel_matrix_table), and returns its length, or -1 for
+// an id or k without an instantiation. The wrappers hold it against
+// kernel_matrix_table(code, k) before any launch.
+template <class Code>
+inline int write_matrix_table(int k, int* out) {
+  if (!Code::matrix_k_ok(k)) return -1;
+  const int nk = 1 << k, U = Code::N >> k, nf = 1 << (k * Code::R - 1);
+  for (int c = 0; c < nk; ++c) {
+    for (int j = 0; j < nk; ++j) {
+      for (int u = 0; u < U; ++u) {
+        const int cc = Code::mlabel(k, c, j, u);
+        out[(c * nk + j) * U + u] = cc < nf ? 2 * cc : 2 * (cc ^ (2 * nf - 1)) + 1;
+      }
+    }
+  }
+  return nk * nk * U;
+}
+
+inline int code_matrix_table(int code, int k, int* out) {
+  switch (code) {
+    case kCodeCcsds: return write_matrix_table<Ccsds>(k, out);
+    case kCodeIs95: return write_matrix_table<Is95>(k, out);
+    case kCodeLte: return write_matrix_table<Lte>(k, out);
+    default: return -1;
+  }
+}
+
+// The S (path metrics per lane) of the matrix warp body's one
+// instantiation per (code, k); 0 where none is built. Beyond k = 2 the
+// S·2^k labels of a lane span every one of the 2^(kR-1) folded rows, which
+// stay in registers beside the S metrics, so k = 4 halves S; IS-95 (N =
+// 256) runs S = 32 at every k: at S = 64 its metrics alone fill a quarter
+// of the registers, and its k = 1 and k = 2 builds spilled.
+template <class Code>
+__host__ __device__ constexpr int matrix_warp_states(int k) {
+  if (!Code::matrix_k_ok(k)) return 0;
+  if (Code::N == 256) return 32;
+  if (Code::R == 3) return 16;
+  return k == 4 ? 16 : 32;
 }
 
 // The slot map of the warp body for S states per lane (see the header).
@@ -915,6 +1035,305 @@ __device__ __forceinline__ void forward_acs_warp(int T, int norm_every, int sub,
     for (int p = 0; p < v; ++p) {
 #pragma unroll
       for (int r = 0; r < R; ++r) yc[p][r] = yn[p][r];
+    }
+  }
+  body.template out<0>(T % v, pm_out);
+}
+
+// ---------------------------------------------------------------------------
+// The matrix warp body: k-stage (min,+) steps on the warp body's slot map
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int gcd_of(int a, int b) { return b == 0 ? a : gcd_of(b, a % b); }
+
+// One lane of the matrix warp body (see the header): the warp body's
+// registers, slot map, survivor-word assembly and radix-2 stage (the T mod
+// k trailing stages), plus the k-stage step. Bit i of a candidate index e
+// stands for slot bit pos(P, i) = (P + i) mod v; a candidate e of a target
+// slot with lane bits c_lane is its predecessor j = e ^ c_lane, so every
+// register index, label and emitted bit below is a compile-time constant
+// and only the orientation of the lane-bit rounds is not.
+template <class Code, int kS, int kK>
+struct WarpMatrix : WarpAcs<Code, kS, 1, false, int> {
+  using Base = WarpAcs<Code, kS, 1, false, int>;
+  using Base::gw;
+  using Base::lanes;
+  using Base::pm;
+  using Base::sub;
+  static constexpr int v = Code::v, R = Code::R, W = Code::W, U = Code::N >> kK;
+  static constexpr int S = kS, L = Base::L, kLogS = Base::kLogS;
+  static constexpr int kNk = 1 << kK, kNb = kK * R, kNf = 1 << (kNb - 1);
+  static constexpr int kBlock = v / gcd_of(v, kK) * kK;  // lcm(v, k) stages
+  // stages fetched at a time, one fetch ahead: a block of v stages where k
+  // divides v, as the warp body does, else one step (whose own work then
+  // covers the load's latency)
+  static constexpr int kLoad = kBlock == v ? v : kK;
+  static_assert(Code::matrix_k_ok(kK), "k <= min(v, 4) and kR <= 8");
+
+  // this lane's share of the combined labels of the step at phase p: the
+  // label of its lane-only slot sub << log2 S with its own predecessor
+  // (j = c), applied by negating the window's symbols it names
+  int lane_mflip[v];
+
+  __device__ __forceinline__ WarpMatrix(int sub_, int gw_, unsigned lanes_)
+      : Base(sub_, gw_, lanes_) {
+    if constexpr (L > 1) {
+#pragma unroll
+      for (int p = 0; p < v; ++p) {
+        const int n = Code::rot(sub_ << kLogS, p + kK);
+        const int c = n >> (v - kK);
+        lane_mflip[p] = Code::mlabel(kK, c, c, n & (U - 1));
+      }
+    }
+  }
+
+  __host__ __device__ static constexpr int pos(int P, int i) { return (P + i) % v; }
+  __host__ __device__ static constexpr bool lane_bit(int P, int i) { return pos(P, i) >= kLogS; }
+  // register bits that the step at phase P spans
+  __host__ __device__ static constexpr int step_regs(int P) {
+    int m = 0;
+    for (int i = 0; i < kK; ++i) m |= lane_bit(P, i) ? 0 : 1 << pos(P, i);
+    return m;
+  }
+  // groups of 2^k slots per lane: the register patterns outside the step
+  __host__ __device__ static constexpr int n_groups(int P) {
+    return kS >> popcount_of(static_cast<unsigned>(step_regs(P)));
+  }
+  // register index of candidate (or target) e of group g: g's bits in the
+  // register bits outside the step, e's register-position bits in theirs
+  __host__ __device__ static constexpr int reg_of(int P, int g, int e) {
+    int r = 0, b = 0;
+    for (int bit = 0; bit < kLogS; ++bit) {
+      if (!((step_regs(P) >> bit) & 1)) r |= ((g >> b++) & 1) << bit;
+    }
+    for (int i = 0; i < kK; ++i) {
+      if (!lane_bit(P, i)) r |= ((e >> i) & 1) << pos(P, i);
+    }
+    return r;
+  }
+  // the sub bits that e's lane-position bits select (the shuffle distance)
+  __host__ __device__ static constexpr int dsub_of(int P, int e) {
+    int d = 0;
+    for (int i = 0; i < kK; ++i) {
+      if (lane_bit(P, i)) d |= ((e >> i) & 1) << (pos(P, i) - kLogS);
+    }
+    return d;
+  }
+  // target c of register-only slot I, in candidate-index bits
+  __host__ __device__ static constexpr int c_of(int P, int I) {
+    return Code::rot(I, P + kK) >> (v - kK);
+  }
+  // combined label of register-only target slot I and candidate e
+  __host__ __device__ static constexpr int mlab(int P, int I, int e) {
+    const int n = Code::rot(I, P + kK);
+    return Code::mlabel(kK, n >> (v - kK), e, n & (U - 1));
+  }
+
+  // the predecessors' metrics of group Gi, by candidate index: in this
+  // lane's registers or, across a lane bit, one shuffle each
+  template <int P, int Gi, int E>
+  __device__ __forceinline__ void gather(int (&m)[kNk]) {
+    if constexpr (E < kNk) {
+      constexpr int I = reg_of(P, Gi, E);
+      constexpr int d = dsub_of(P, E);
+      if constexpr (d == 0) {
+        m[E] = pm[I];
+      } else {
+        m[E] = __shfl_xor_sync(lanes, pm[I], gw * d);
+      }
+      gather<P, Gi, E + 1>(m);
+    }
+  }
+
+  // candidate E of target slot I: predecessor metric + or - one folded row
+  template <int P, int I, int E>
+  __device__ __forceinline__ void cands(const int (&row)[kNf], const int (&m)[kNk],
+                                        int (&c)[kNk]) {
+    if constexpr (E < kNk) {
+      c[E] = m[E] + bm_of<mlab(P, I, E), kNf>(row);
+      cands<P, I, E + 1>(row, m, c);
+    }
+  }
+
+  // round Rd of target slot I's suffix-min tournament over nk >> Rd
+  // candidates: pairs (2h, 2h+1) in candidate index, the even predecessor
+  // first (swapped where this lane's c has bit Rd set: a lane-bit round),
+  // strict < on the odd one. Its decisions are the radix-2 plane of stage
+  // t + Rd; the slot emits the one of h = c >> (Rd + 1), the state
+  // rot(I, P + Rd + 1) that the butterfly's slot would hold.
+  template <int P, int I, int Rd>
+  __device__ __forceinline__ void rounds(int (&c)[kNk], unsigned (&part)[kK][W]) {
+    if constexpr (Rd < kK) {
+      constexpr int hstar = c_of(P, I) >> (Rd + 1);
+      constexpr int s = Code::rot(I, P + Rd + 1);
+      bool x = false;
+      if constexpr (lane_bit(P, Rd)) x = ((sub >> (pos(P, Rd) - kLogS)) & 1) != 0;
+#pragma unroll
+      for (int h = 0; h < (kNk >> (Rd + 1)); ++h) {
+        const int pe = x ? c[2 * h + 1] : c[2 * h];
+        const int po = x ? c[2 * h] : c[2 * h + 1];
+        bool d;
+        c[h] = acs_select(pe, po, d);
+        if (h == hstar && d) part[Rd][s >> 5] |= 1u << (s & 31);
+      }
+      rounds<P, I, Rd + 1>(c, part);
+    }
+  }
+
+  // this lane's targets of group Gi: the candidate indices with no lane bit
+  template <int P, int Gi, int Et>
+  __device__ __forceinline__ void targets(const int (&row)[kNf], const int (&m)[kNk],
+                                          int (&out)[kNk], unsigned (&part)[kK][W]) {
+    if constexpr (Et < kNk) {
+      if constexpr (dsub_of(P, Et) == 0) {
+        constexpr int I = reg_of(P, Gi, Et);
+        int c[kNk];
+        cands<P, I, 0>(row, m, c);
+        rounds<P, I, 0>(c, part);
+        out[Et] = c[0];
+      }
+      targets<P, Gi, Et + 1>(row, m, out, part);
+    }
+  }
+
+  template <int P, int Gi, int Et>
+  __device__ __forceinline__ void write_back(const int (&out)[kNk]) {
+    if constexpr (Et < kNk) {
+      if constexpr (dsub_of(P, Et) == 0) pm[reg_of(P, Gi, Et)] = out[Et];
+      write_back<P, Gi, Et + 1>(out);
+    }
+  }
+
+  template <int P, int Gi>
+  __device__ __forceinline__ void groups(const int (&row)[kNf], unsigned (&part)[kK][W]) {
+    if constexpr (Gi < n_groups(P)) {
+      int m[kNk];
+      gather<P, Gi, 0>(m);
+      int out[kNk];
+      targets<P, Gi, 0>(row, m, out, part);
+      write_back<P, Gi, 0>(out);  // after the group's gathers: the partner lanes read these
+      groups<P, Gi + 1>(row, part);
+    }
+  }
+
+  template <int P, int Rd, typename Store>
+  __device__ __forceinline__ void emits(const unsigned (&part)[kK][W], int t, Store& store) {
+    if constexpr (Rd < kK) {
+      this->template emit<pos(P, Rd)>(part[Rd], t + Rd, store);
+      emits<P, Rd + 1>(part, t, store);
+    }
+  }
+
+  // the k-stage step at phase P from stage t, its symbols y[Off ...]
+  template <int P, int Off, typename Store>
+  __device__ __forceinline__ void step(const int (&y)[kLoad][R], int t, Store& store) {
+    int yy[kNb];  // the window, stage-major, with this lane's signs
+#pragma unroll
+    for (int q = 0; q < kNb; ++q) {
+      const int x = y[Off + q / R][q % R];
+      if constexpr (L > 1) {
+        yy[q] = ((lane_mflip[P] >> (kNb - 1 - q)) & 1) ? -x : x;
+      } else {
+        yy[q] = x;
+      }
+    }
+    // row f: + y_q where bit kR-1-q of f is 1, - y_q where 0, in q order
+    // (folded_matrix_codeword_signs); the rows no label of this phase
+    // names are dead code
+    int row[kNf];
+#pragma unroll
+    for (int f = 0; f < kNf; ++f) {
+      int acc = ((f >> (kNb - 1)) & 1) ? yy[0] : -yy[0];
+#pragma unroll
+      for (int q = 1; q < kNb; ++q) acc += ((f >> (kNb - 1 - q)) & 1) ? yy[q] : -yy[q];
+      row[f] = acc;
+    }
+    unsigned part[kK][W];
+#pragma unroll
+    for (int i = 0; i < kK; ++i) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) part[i][w] = 0u;
+    }
+    groups<P, 0>(row, part);
+    emits<P, 0>(part, t, store);
+  }
+
+  // step J of the block of lcm(v, k) stages from t0, while a whole step
+  // remains; the first step of each fetch of kLoad stages fetches the next
+  template <int J, typename LoadStep, typename Store>
+  __device__ __forceinline__ void block_steps(int (&yc)[kLoad][R], int (&yn)[kLoad][R], int t0,
+                                              int T, int norm_every, int& norm_left,
+                                              LoadStep& load, Store& store) {
+    if constexpr (J < kBlock / kK) {
+      constexpr int off = (J * kK) % kLoad;
+      const int t = t0 + J * kK;
+      if constexpr (off == 0) load(t + kLoad, yn);
+      if (t + kK <= T) {
+        step<pos(J * kK, 0), off>(yc, t, store);
+        if (norm_every && --norm_left == 0) {
+          this->normalize();
+          norm_left = norm_every;
+        }
+      }
+      if constexpr (off + kK == kLoad) {
+#pragma unroll
+        for (int i = 0; i < kLoad; ++i) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) yc[i][r] = yn[i][r];
+        }
+      }
+      block_steps<J + 1>(yc, yn, t0, T, norm_every, norm_left, load, store);
+    }
+  }
+
+  // a trailing radix-2 stage t at the runtime phase ph = t mod v
+  template <int P, typename Store>
+  __device__ __forceinline__ void tail(int ph, const int (&y)[R], int t, Store& store) {
+    if constexpr (P < v) {
+      if (ph == P) this->template stage<P>(y, t, store);
+      tail<P + 1>(ph, y, t, store);
+    }
+  }
+};
+
+// The matrix warp body's forward ACS over T stages for one lane: T / k
+// k-stage (min,+) steps, then T mod k radix-2 stages, min-subtracted
+// unconditionally in the narrow modes. The contract of forward_acs_warp,
+// except that load_step(t0, y) fills y[i][r] for the Body::kLoad stages
+// t0 + i (0 past T or for a block that does not exist), and that the
+// narrow modes are norm_every > 0 at run time (their clip is the
+// loader's): one instantiation per (code, k) serves f32, i16 and i8, which
+// halves the build of these fully unrolled bodies. Integer symbols and
+// int32 metrics only: the callers lower float to the butterfly.
+template <class Code, int kS, int kK, typename LoadStep, typename Store, typename PmOut>
+__device__ __forceinline__ void forward_acs_matrix_warp(int T, int norm_every, int sub, int gw,
+                                                        unsigned lanes, LoadStep load_step,
+                                                        Store store, PmOut pm_out) {
+  using Body = WarpMatrix<Code, kS, kK>;
+  constexpr int v = Code::v, R = Code::R;
+  Body body(sub, gw, lanes);
+  constexpr int kLoad = Body::kLoad;
+  int yc[kLoad][R];
+  int yn[kLoad][R];
+  load_step(0, yc);
+  // steps left until the next min-subtract: it falls after step r exactly
+  // when r % norm_every == norm_every - 1
+  int norm_left = norm_every;
+  const int n_blocks = (T + Body::kBlock - 1) / Body::kBlock;
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    body.template block_steps<0>(yc, yn, blk * Body::kBlock, T, norm_every, norm_left,
+                                 load_step, store);
+  }
+  int t = T - T % kK;
+  if (t < T) load_step(t, yc);  // the trailing stages' symbols
+#pragma unroll 1
+  for (; t < T; ++t) {
+    body.template tail<0>(t % v, yc[0], t, store);
+    if (norm_every) body.normalize();
+#pragma unroll
+    for (int i = 0; i + 1 < kK; ++i) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) yc[i][r] = yc[i + 1][r];
     }
   }
   body.template out<0>(T % v, pm_out);

@@ -15,16 +15,20 @@
 // runs the warp body (compile-time tables, a block's states in L = N/S
 // lanes of one warp, S metrics per lane in registers, no barrier) for the
 // three registered mother codes with the serial walk: one warp or part of
-// one per CTA, G = 32/L blocks or fewer, lane = sub * G + g. After a
-// __syncwarp, lane sub = 0 of each block walks its history. The prefix
-// walk needs N threads per block to hide its chains of dependent shared
-// loads (traceback_core.cuh: one thread per state composes the chunk
-// maps), and the warp body has L; on L lanes the prefix variant ran
-// slower than the table body's on the H100, so tb_mode="prefix" runs
-// fused_table_kernel, as do the matrix body (acs_impl="matrix", not
-// redesigned) and the runtime-table body for every other code: one
-// thread per state, G = max(1, 128/N) blocks per CTA. The wrapper chooses
-// the body and counts table-body launches apart.
+// one per CTA, G = 32/L blocks or fewer, lane = sub * G + g. With kK > 0 it
+// runs the matrix warp body instead (acs_impl="matrix": k-stage (min,+)
+// steps on the same layout, rows and metrics in registers; it replaces the
+// TPU's _acs_phase_mat_dbuf for those codes, with register prefetch where
+// the TPU double-buffers symbol tiles). After a __syncwarp, lane sub = 0 of
+// each block walks its history. The prefix walk needs N threads per block
+// to hide its chains of dependent shared loads (traceback_core.cuh: one
+// thread per state composes the chunk maps), and the warp bodies have L;
+// on L lanes the prefix variant ran slower than the table body's on the
+// H100, so tb_mode="prefix" runs fused_table_kernel (with the butterfly or
+// the runtime-table matrix body), as does every other code: one thread per
+// state, G = max(1, 128/N) blocks per CTA. The wrapper chooses the body and
+// counts table-body launches apart (table_launches for the butterfly,
+// matrix_table_launches for the matrix).
 //
 // History. Each stage's survivor words go to dynamic shared memory, T*W*4
 // bytes per parallel block, laid out stage-major with the block fastest:
@@ -40,8 +44,9 @@
 // words) and the block then stores its n_decode/32 words.
 //
 // Shared-memory plan (kernels/fused.py::smem_plan), at CCSDS, T = 596:
-// 4,768 B of history per parallel block (19,072 B at K = 9). The warp body
-// needs nothing else (its metrics are in registers); the planner takes the
+// 4,768 B of history per parallel block (19,072 B at K = 9). The warp
+// bodies need nothing else (metrics and rows are in registers, so the
+// matrix warp body's G and residency are the serial warp path's); the planner takes the
 // G (a power of two, at most 32/L) that keeps the most blocks resident on
 // an SM of the H100 (233,472 B of shared memory, 1 KB reserved per CTA, at
 // most 32 CTAs): at S = 32, G = 16 is 76,288 B per CTA, three CTAs and 48
@@ -69,7 +74,10 @@
 // (chip_smoke.py phase 9; PERF.md keeps the times). Shared memory caps the
 // resident histories at 48 blocks (three warps) per SM, so the 8,192
 // blocks of the main path run in two waves and the kernel sits at about a
-// sixth of its bound, where K1 sits at a third.
+// sixth of its bound, where K1 sits at a third. The matrix warp body has the
+// same bound (the function is the fused serial kernel's) and the same two
+// waves: about 0.54 ms at k = 2 on the H100 80GB HBM3 (700 W), level with
+// the butterfly, where the runtime-table matrix body took 1.98 ms (PERF.md).
 
 #include "acs_core.cuh"
 #include "traceback_core.cuh"
@@ -166,9 +174,12 @@ __device__ __forceinline__ void serial_walk(const unsigned* hist_g, int G, int T
   }
 }
 
-// The warp body with the serial walk: one warp (or part of one) per CTA,
-// G = blockDim.x / L parallel blocks, lane = sub * G + g.
-template <class Code, int kS, int kStagesPerStep, bool kNarrow, typename Acc>
+// The warp bodies with the serial walk: one warp (or part of one) per CTA,
+// G = blockDim.x / L parallel blocks, lane = sub * G + g. kK = 0: the
+// butterfly at kStagesPerStep; kK > 0: the matrix warp body's k-stage steps
+// (int32 metrics, kStagesPerStep 1, kNarrow false: its narrow modes are
+// norm_every > 0 and qmax > 0 at run time).
+template <class Code, int kS, int kStagesPerStep, bool kNarrow, typename Acc, int kK = 0>
 __global__ void fused_warp_kernel(const void* __restrict__ y, int dtype,
                                   const int* __restrict__ start, int T, int B, int norm_every,
                                   int qmax, int decode_start, int n_decode,
@@ -184,15 +195,28 @@ __global__ void fused_warp_kernel(const void* __restrict__ y, int dtype,
   const unsigned lanes = blockDim.x >= 32 ? 0xffffffffu : ((1u << blockDim.x) - 1u);
 
   // ---- phase 1: forward ACS, survivor words into shared memory -------------
-  auto load = [&](int t0, Acc (&dst)[Code::v][Code::R]) {
-    pbvd::load_block<kNarrow>(y, dtype, t0, T, B, b, valid, qmax, dst);
-  };
   auto store = [&](int t, int w, unsigned word, bool ok) {
     if (ok && valid) hist_smem[(static_cast<size_t>(t) * W + w) * G + g] = word;
   };
   auto no_pm = [](int, Acc) {};
-  pbvd::forward_acs_warp<Code, kS, kStagesPerStep, kNarrow, Acc>(T, norm_every, sub, G, lanes,
-                                                                 load, store, no_pm);
+  if constexpr (kK == 0) {
+    auto load = [&](int t0, Acc (&dst)[Code::v][Code::R]) {
+      pbvd::load_block<kNarrow>(y, dtype, t0, T, B, b, valid, qmax, dst);
+    };
+    pbvd::forward_acs_warp<Code, kS, kStagesPerStep, kNarrow, Acc>(T, norm_every, sub, G, lanes,
+                                                                   load, store, no_pm);
+  } else {
+    constexpr int kLoad = pbvd::WarpMatrix<Code, kS, kK>::kLoad;
+  auto load = [&](int t0, int (&dst)[kLoad][Code::R]) {  // narrow modes clip
+      if (qmax) {
+        pbvd::load_block<true>(y, dtype, t0, T, B, b, valid, qmax, dst);
+      } else {
+        pbvd::load_block<false>(y, dtype, t0, T, B, b, valid, qmax, dst);
+      }
+    };
+    pbvd::forward_acs_matrix_warp<Code, kS, kK>(T, norm_every, sub, G, lanes, load, store,
+                                                no_pm);
+  }
   __syncwarp(lanes);  // a block's lanes are in one warp
   if (sub == 0 && valid) {
     serial_walk(hist_smem + g, G, T, B, b, Code::v, start, decode_start, n_decode, bits);
@@ -245,7 +269,7 @@ struct Launch {
   const int* labels;
   const int* mtab;
   const int* start;
-  int T, R, B, log2n, norm_every, qmax, decode_start, n_decode, prefix, radix, S, G;
+  int T, R, B, log2n, norm_every, qmax, decode_start, n_decode, prefix, radix, k, S, G;
   pbvd::PrefixGeometry geo;
   int* bits;
   cudaStream_t stream;
@@ -268,12 +292,12 @@ int raise_smem_limit(Kernel kernel, size_t smem) {
 
 // ---- the warp body's launch ---------------------------------------------------
 
-template <class Code, int kS, int kStagesPerStep, bool kNarrow, typename Acc>
+template <class Code, int kS, int kStagesPerStep, bool kNarrow, typename Acc, int kK = 0>
 int launch_warp(const Launch& a) {
   constexpr int L = pbvd::WarpMap<Code, kS>::L;
   if ((a.G & (a.G - 1)) != 0 || a.G * L > 32 || a.prefix) return 1000;
   const size_t smem = fused_smem_bytes(a.G, 0, a.log2n, a.T, 0);
-  auto kernel = fused_warp_kernel<Code, kS, kStagesPerStep, kNarrow, Acc>;
+  auto kernel = fused_warp_kernel<Code, kS, kStagesPerStep, kNarrow, Acc, kK>;
   if (const int e = raise_smem_limit(kernel, smem)) return e;
   kernel<<<(a.B + a.G - 1) / a.G, a.G * L, smem, a.stream>>>(
       a.y, a.dtype, a.start, a.T, a.B, a.norm_every, a.qmax, a.decode_start, a.n_decode,
@@ -295,10 +319,35 @@ int warp_radix(const Launch& a) {
   return a.radix == 4 ? warp_mode<Code, kS, 2>(a) : warp_mode<Code, kS, 1>(a);
 }
 
-// the S variants, as K1's: 64, 32, 16 at N = 64; 64, 32 at N = 256
+// the matrix warp body: its one S per (code, k), integer symbols
+template <class Code, int kK>
+int launch_matrix_warp(const Launch& a) {
+  constexpr int S = pbvd::matrix_warp_states<Code>(kK);
+  if (a.S != S || a.dtype == 3) return 1000;
+  return launch_warp<Code, S, 1, false, int, kK>(a);
+}
+
+template <class Code>
+int matrix_warp_k(const Launch& a) {
+  switch (a.k) {
+    case 1: return launch_matrix_warp<Code, 1>(a);
+    case 2: return launch_matrix_warp<Code, 2>(a);
+    case 3:
+      if constexpr (Code::matrix_k_ok(3)) return launch_matrix_warp<Code, 3>(a);
+      return 1000;
+    case 4:
+      if constexpr (Code::matrix_k_ok(4)) return launch_matrix_warp<Code, 4>(a);
+      return 1000;
+    default: return 1000;
+  }
+}
+
+// the S variants, as K1's: 64, 32, 16 at N = 64; 64, 32 at N = 256; k > 0:
+// the matrix warp body
 template <class Code>
 int warp_states(const Launch& a) {
   if (a.log2n != Code::v || a.R != Code::R) return 1000;
+  if (a.k > 0) return matrix_warp_k<Code>(a);
   switch (a.S) {
     case 64: return warp_radix<Code, 64>(a);
     case 32: return warp_radix<Code, 32>(a);
@@ -353,14 +402,15 @@ int dispatch_mode(const Launch& a) {
 
 // y: (T, R, B) symbols, dtype 0 = int8, 1 = int16, 2 = int32, 3 = float32.
 // labels: (N, 2) int32 even/odd predecessor labels (read by the table
-// bodies); table: the matrix table of pbvd_acs_forward_matrix (read only
-// when k > 0); start: (B,) int32 start states. norm_every, qmax, radix: as
-// pbvd_acs_forward; k: 0 for the butterfly at radix, else the matrix
-// steps' k (1..4, integer symbols, code 0). prefix: 0 for the serial walk,
+// bodies); table: the matrix table of pbvd_acs_forward_matrix (read by the
+// table body when k > 0); start: (B,) int32 start states. norm_every,
+// qmax, radix: as pbvd_acs_forward; k: 0 for the butterfly at radix, else
+// the matrix steps' k (1..4, integer symbols). prefix: 0 for the serial walk,
 // 1 for the prefix walk with the geometry C, P, n_chunks, c_lo, c_hi of
 // prefix_chunk_geometry(T, decode_start, min(n_decode, T - decode_start),
 // tb_chunk). code, S: as pbvd_acs_forward; 0 for the table bodies, which
-// every prefix or matrix launch takes. G: parallel blocks per CTA: the
+// every prefix launch takes; with k > 0 a code runs the matrix warp body at
+// its one S for (code, k) (pbvd_acs_forward_matrix). G: parallel blocks per CTA: the
 // table bodies run G * N <= 1024 threads, the warp body G * N/S <= 32 (G a
 // power of two). bits: (n_decode / 32, B) int32 out. Requires
 // 0 <= decode_start < T, n_decode a multiple of 32.
@@ -377,7 +427,8 @@ extern "C" int pbvd_fused(const void* y, int dtype, int T, int R, int B, int log
       decode_start < 0 || decode_start >= T || n_decode < 32 || (n_decode & 31) ||
       norm_every < 0 || qmax < 0 || (norm_every > 0) != (qmax > 0) ||
       !(radix == 2 || (radix == 4 && log2n >= 2)) || k < 0 || k > 4 || k > log2n ||
-      k * R > 8 || (k > 0 && (table == nullptr || code != pbvd::kCodeTable)) ||
+      k * R > 8 || (k > 0 && code == pbvd::kCodeTable && table == nullptr) ||
+      (k > 0 && code != pbvd::kCodeTable && prefix) ||
       (prefix != 0 && prefix != 1) || dtype < 0 || dtype > 3 ||
       (code == pbvd::kCodeTable && (G << log2n) > 1024)) {
     return 1000;
@@ -390,7 +441,7 @@ extern "C" int pbvd_fused(const void* y, int dtype, int T, int R, int B, int log
   }
   Launch a{y, dtype, static_cast<const int*>(labels), static_cast<const int*>(table),
            static_cast<const int*>(start), T, R, B, log2n, norm_every, qmax, decode_start,
-           n_decode, prefix, radix, S, G,
+           n_decode, prefix, radix, k, S, G,
            pbvd::PrefixGeometry{C, P, c_lo, n_chunks - c_lo, c_hi - c_lo + 1,
                                 decode_start + P - c_lo * C, n_window},
            static_cast<int*>(bits), static_cast<cudaStream_t>(stream)};
@@ -413,3 +464,9 @@ extern "C" int pbvd_fused(const void* y, int dtype, int T, int R, int B, int log
 // The labels of the warp body's instantiation of code id `code`, as
 // pbvd_acs_code_labels.
 extern "C" int pbvd_fused_code_labels(int code, int* out) { return pbvd::code_labels(code, out); }
+
+// The matrix table of the matrix warp body's instantiation of code id
+// `code`, as pbvd_acs_code_matrix_table.
+extern "C" int pbvd_fused_code_matrix_table(int code, int k, int* out) {
+  return pbvd::code_matrix_table(code, k, out);
+}

@@ -13,12 +13,18 @@ symbols with ``impl="matrix"`` run the radix-2 body, as the reference
 lowers them. What bounds the kernel on the card and what its design does
 about it is noted in the CUDA source.
 
-The ACS phase runs K1's bodies: the warp body for the mother codes of
-``acs.WARP_CODES`` with the serial walk (its compile-time labels checked
-before the launch); the runtime-table body for any other code and for
-``tb_mode="prefix"`` (the prefix walk needs a thread per state, which the
-warp body does not have); the matrix body for ``impl="matrix"``. The
-survivor history lives in shared memory, ``T·ceil(N/32)·4`` bytes per
+The ACS phase runs K1's bodies (:func:`kernel_body`): for the mother codes
+of ``acs.WARP_CODES`` with the serial walk, the warp body, or with
+``impl="matrix"`` the matrix warp body of K1-matrix (the TPU kernel's
+``_acs_phase_mat_dbuf``) at its one S per (code, k), each with its
+compile-time tables checked before the launch; the runtime-table bodies
+(butterfly or matrix) for any other code and for ``tb_mode="prefix"`` (the
+prefix walk needs a thread per state, which the warp bodies do not have).
+On the H100 80GB HBM3 (700 W), at the main shapes, the serial matrix
+variant on the matrix warp body takes about 0.54 ms at k = 2 where the
+runtime-table matrix body took 1.98 ms, against the fused kernel's bound of
+0.0769 ms (PERF.md).
+The survivor history lives in shared memory, ``T·ceil(N/32)·4`` bytes per
 parallel block, stage-major with the block fastest, and in prefix mode the
 walk's scratch beside it.
 :func:`smem_plan` picks the parallel blocks per CTA and refuses, with
@@ -27,8 +33,9 @@ block per CTA; nothing falls back to the two-kernel path or the serial walk.
 
 ``launches`` counts the kernel's launches, and nothing else;
 ``matrix_launches``, ``prefix_launches`` and ``table_launches`` count those
-of them that ran the matrix ACS body, the prefix tail and the
-runtime-table butterfly body.
+of them that ran a matrix ACS body (either), the prefix tail and the
+runtime-table butterfly body, and ``matrix_table_launches`` those of the
+matrix launches that ran the runtime-table matrix body.
 """
 
 from __future__ import annotations
@@ -48,6 +55,9 @@ from .acs import (
     _labels_on,
     _matrix_table_on,
     check_warp_labels,
+    check_warp_matrix_table,
+    matrix_states_arg,
+    warp_code_id,
     warp_states_arg,
 )
 from .ref import (
@@ -59,11 +69,13 @@ from .ref import (
 from .traceback import SMEM_PER_CTA
 
 __all__ = [
+    "kernel_body",
     "pbvd_fused",
     "pbvd_fused_plain",
     "smem_plan",
     "launches",
     "matrix_launches",
+    "matrix_table_launches",
     "prefix_launches",
     "residency",
     "table_launches",
@@ -73,15 +85,24 @@ __all__ = [
 
 #: launches of the CUDA kernel since the counts were last set to 0
 launches = 0
-#: those of them that ran the matrix ACS body / the prefix tail / the
+#: those of them that ran a matrix ACS body / the prefix tail / the
 #: runtime-table butterfly body
 matrix_launches = 0
 prefix_launches = 0
 table_launches = 0
+#: the matrix launches that ran the runtime-table matrix body
+matrix_table_launches = 0
 
 #: shared memory of an H100 SM; each resident CTA also reserves 1 KB of it
 SMEM_PER_SM = 233472
 _MAX_CTAS_PER_SM = 32
+
+
+def kernel_body(code: ConvCode, tb_mode: str = "serial") -> str:
+    """The fused kernel's ACS body for ``code``: ``"warp"`` (the butterfly
+    warp body, or the matrix warp body under ``impl="matrix"``) for a mother
+    code of ``acs.WARP_CODES`` with the serial walk, else ``"table"``."""
+    return "warp" if tb_mode == "serial" and warp_code_id(code) else "table"
 
 
 def residency(G: int, smem: int, lanes: int) -> tuple[int, int]:
@@ -111,7 +132,8 @@ def smem_plan(
     (``lanes`` None) also two path-metric planes and the min-reduction
     slots (``csrc/acs_core.cuh::forward_smem_slots``), with ``matrix_k`` >
     0 also the 2^(kR-1) folded rows and k decision planes of ceil(N/32)
-    words (``matrix_smem_slots``); and in prefix mode the walk's scratch:
+    words (``matrix_smem_slots``; the matrix warp body keeps them in
+    registers); and in prefix mode the walk's scratch:
     the ``n_act`` composed maps of N entries, ``nc_e`` entry states and the
     ``n_decode/32`` words of the decode window (geometry of
     :func:`prefix_chunk_geometry` over the bits that exist). The table
@@ -126,7 +148,7 @@ def smem_plan(
     per_block = T * W
     if lanes is None:
         per_block += 2 * N + max(1, N // 32)
-    if matrix_k:
+    if matrix_k and lanes is None:
         per_block += (1 << (matrix_k * R - 1)) + matrix_k * W
     scratch = ""
     if tb_mode == "prefix":
@@ -166,6 +188,8 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.pbvd_fused_code_labels.argtypes = [i, p]
         lib.pbvd_fused_code_labels.restype = i
+        lib.pbvd_fused_code_matrix_table.argtypes = [i, i, p]
+        lib.pbvd_fused_code_matrix_table.restype = i
     return lib
 
 
@@ -196,7 +220,7 @@ def pbvd_fused(
     picks one of the warp body's S variants, as ``acs.acs_forward``'s
     (serial walk only).
     """
-    global launches, matrix_launches, prefix_launches, table_launches
+    global launches, matrix_launches, matrix_table_launches, prefix_launches, table_launches
     if y.device.type == "cpu":
         return pbvd_fused_plain(y, code, decode_start=decode_start, n_decode=n_decode,
                                 start_state=start_state, metric_mode=metric_mode, radix=radix,
@@ -241,14 +265,16 @@ def pbvd_fused(
         n_window = min(n_decode, T - decode_start)
         geometry = prefix_chunk_geometry(T, decode_start, n_window, tb_chunk)
     cid = S = 0
-    if not k_launch and tb_mode == "serial":  # the warp body walks serially only
-        cid = check_warp_labels(_lib(), "pbvd_fused_code_labels", code)
-        if cid:
+    if kernel_body(code, tb_mode) == "warp":  # the warp bodies walk serially only
+        if k_launch:
+            cid = check_warp_matrix_table(_lib(), "pbvd_fused_code_matrix_table", code, k_launch)
+            S = matrix_states_arg(code, k_launch, states_per_thread)
+        else:
+            cid = check_warp_labels(_lib(), "pbvd_fused_code_labels", code)
             S = warp_states_arg(code, states_per_thread)
     if states_per_thread is not None and not cid:
-        raise ValueError(f"the matrix, prefix and runtime-table bodies take no "
-                         f"states_per_thread (K={code.K} R={code.R}, impl={impl!r}, "
-                         f"tb_mode={tb_mode!r})")
+        raise ValueError(f"the prefix and runtime-table bodies take no states_per_thread "
+                         f"(K={code.K} R={code.R}, impl={impl!r}, tb_mode={tb_mode!r})")
     G, _ = smem_plan(T, code.n_states, tb_mode, tb_chunk, decode_start=decode_start,
                      n_decode=n_decode, matrix_k=k_launch, R=R,
                      lanes=code.n_states // S if cid else None)
@@ -271,6 +297,7 @@ def pbvd_fused(
         raise RuntimeError(f"pbvd_fused launch failed (error {rc})")
     launches += 1
     matrix_launches += bool(k_launch)
+    matrix_table_launches += bool(k_launch) and not cid
     prefix_launches += tb_mode == "prefix"
     table_launches += not (cid or k_launch)
     return bits

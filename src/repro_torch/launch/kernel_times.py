@@ -7,9 +7,12 @@
 At the main shapes (CCSDS, D = 512, L = 42, T = 596, 8,192 parallel blocks,
 int8 symbols made on the card from a fixed seed, zero start) it prints one
 JSON line of CUDA-event medians in ms: K1 (radix 2, radix 4, i8), K2,
-K2-prefix, K1-matrix (k = 2), the fused kernel (radix 2, radix 4, i8,
-prefix, matrix), and the host-clock medians of ``"cuda"`` and ``"fused"``
-decodes of the 4,194,304-bit stream. It calls only what every checkout of
+K2-prefix, K1-matrix (k = 2, 3, 4), the fused kernel (radix 2, radix 4,
+i8, prefix, matrix at k = 2 and 3), and the host-clock medians of
+``"cuda"`` and ``"fused"`` decodes of the 4,194,304-bit stream, at the
+default config and with ``acs_impl="matrix"``; first, the wall time of
+building ``acs.cu`` and ``fused.cu`` (in parallel) where they were not
+built yet, else null. It calls only what every checkout of
 the port since its prefix and matrix slice has, so it can time an older
 tree: ``--src`` imports ``repro_torch`` from there. ``--turns OTHER/src``
 runs OTHER and this checkout in separate processes, in the order OTHER,
@@ -40,10 +43,13 @@ def measure(src: Path) -> dict:
     from repro_torch.core.encoder import encode
     from repro_torch.core.engine import DecoderEngine
     from repro_torch.core.pbvd import PBVDConfig
-    from repro_torch.kernels import acs, fused, traceback
+    from repro_torch.kernels import _build, acs, fused, traceback
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: torch finds no CUDA device")
+    t0 = time.perf_counter()
+    built = _build.build_all(["acs", "fused"])
+    build_s = time.perf_counter() - t0 if built else None
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cfg = PBVDConfig()
@@ -52,6 +58,8 @@ def measure(src: Path) -> dict:
     coded = encode(torch.cat([payload, payload.new_zeros(code.v)]), code)
     y = transmit(gen, coded, 4.0, cfg.codespec.rate)
     engines = {be: DecoderEngine(PBVDConfig(backend=be), device=dev) for be in ("cuda", "fused")}
+    engines.update({f"{be} matrix": DecoderEngine(PBVDConfig(backend=be, acs_impl="matrix"),
+                                                  device=dev) for be in ("cuda", "fused")})
     blocks = engines["cuda"]._frame_one(y, n_bits)[0]
     i8_blocks = DecoderEngine(PBVDConfig(metric_mode="i8"), device=dev)._frame_one(y, n_bits)[0]
     sp, _ = acs.acs_forward(blocks, code)
@@ -89,15 +97,19 @@ def measure(src: Path) -> dict:
         "K2": cuda_ms(lambda: traceback.traceback(sp, code, cfg.L, cfg.D, 0)),
         "K2-prefix": cuda_ms(lambda: traceback.traceback_prefix(sp, code, cfg.L, cfg.D, 0, 64)),
         "K1-matrix k=2": cuda_ms(lambda: acs.acs_forward(blocks, code, impl="matrix", k=2)),
+        "K1-matrix k=3": cuda_ms(lambda: acs.acs_forward(blocks, code, impl="matrix", k=3)),
+        "K1-matrix k=4": cuda_ms(lambda: acs.acs_forward(blocks, code, impl="matrix", k=4)),
         "fused": cuda_ms(lambda: fused.pbvd_fused(blocks, code, **fkw)),
         "fused radix 4": cuda_ms(lambda: fused.pbvd_fused(blocks, code, radix=4, **fkw)),
         "fused i8": cuda_ms(lambda: fused.pbvd_fused(i8_blocks, code, metric_mode="i8", **fkw)),
         "fused prefix": cuda_ms(lambda: fused.pbvd_fused(blocks, code, tb_mode="prefix", **fkw)),
         "fused matrix": cuda_ms(lambda: fused.pbvd_fused(blocks, code, impl="matrix", k=2, **fkw)),
+        "fused matrix k=3": cuda_ms(lambda: fused.pbvd_fused(blocks, code, impl="matrix", k=3,
+                                                             **fkw)),
     }
     for be, eng in engines.items():
         out[f"{be} end to end"] = wall_ms(lambda: eng.decode(y, n_bits))
-    return {k: round(v, 4) for k, v in out.items()}
+    return {"build acs+fused s": build_s, **{k: round(v, 4) for k, v in out.items()}}
 
 
 def card() -> str:

@@ -69,29 +69,35 @@ Then the prefix traceback and the matrix ACS:
     each launch counted on the body its code chose (the matrix warp body
     for the mother codes, the runtime-table matrix body for (2,1,5)); float
     symbols, which launch the butterfly kernel and no K1-matrix;
-11. K2-prefix against its plain version: tb_chunk 1, 7, 64 and T+5, the
-    main window and one whose first chunk is chunk 0 (c_lo = 0), W = 1, 2
-    and 8, a ragged batch, random start states (scratch that does not fit
-    printed as refused; the ``"cuda"`` and ``"fused"`` backends refuse it
-    before any kernel launches);
+11. K2-prefix (lanes on parallel blocks) against its plain version and the
+    serial walk, each launch counted: tb_chunk 1, 7, 64 and T+5, the main
+    window and one whose first chunk is chunk 0 (c_lo = 0), W = 1, 2 and 8,
+    a ragged batch, random start states (scratch that does not fit printed
+    as refused; the ``"cuda"`` and ``"fused"`` backends refuse it before any
+    kernel launches); one geometry per size class of its CTA (G = 1, 2, 4,
+    8, 16 and 32 blocks, each planned at its class);
 12. the fused kernel against its plain version in prefix, in matrix and in
     both, including the K = 9, D = 4096, L = 64 history with the prefix
-    scratch and a geometry whose scratch does not fit (printed as refused);
-    the serial matrix variant on the matrix warp body for every mother code
-    at every built k, f32/i16/i8, ragged B and odd T; (2,1,5) and every
-    prefix-plus-matrix case on the runtime-table matrix body, each launch
-    counted on its body;
+    scratch and a geometry whose scratch does not fit (printed as refused):
+    every prefix case of a mother code on the warp bodies, the butterfly's
+    at each S variant the serial warp path builds and the matrix warp
+    body's at its one S per (code, k); the serial matrix variant on the
+    matrix warp body for every mother code at every built k, f32/i16/i8,
+    ragged B and odd T; (2,1,5) on the runtime-table bodies; each launch
+    counted on its body (the table-body counters stay at 0 for the mother
+    codes);
 13. the new main paths: the 4,194,304-bit stream through ``"cuda"`` and
     ``"fused"`` with ``acs_impl="matrix", acs_k=2, tb_mode="prefix"`` and
     with each knob alone, each bit-equal to ``"ref"`` at the default
     config, with their launch counts (``"cuda"``: one K1-matrix and/or one
-    K2-prefix; ``"fused"``: one fused launch, no K1 or K2), the matrix
-    launches of CCSDS on the matrix warp body and those with the prefix
-    walk on the runtime-table matrix body;
+    K2-prefix; ``"fused"``: one fused launch on a warp body, no K1 or K2);
 14. the matrix warp body's S per (code, k); times of K1-matrix (k = 2, 3,
-    4), K2-prefix and the fused variants (matrix at k = 2 and 3) beside
-    their plain versions, bounds and shares of them, and end-to-end Mb/s of
-    the new paths in turns. A kernel's bound is that of the function it
+    4), K2-prefix (with its device time) and the fused variants (matrix
+    at k = 2 and 3, prefix, prefix with matrix; each with its body, G and
+    resident blocks per SM) beside their plain versions, bounds and shares
+    of them; serial against prefix at B = 32, 264 and 8192 (K2 and
+    K2-prefix, the fused serial and prefix variants); and end-to-end Mb/s
+    of the new paths in turns. A kernel's bound is that of the function it
     computes, which is the function of K1, K2 or the fused serial kernel;
     the work of the algorithm it chose (the k-stage tournament, the composed
     maps) is printed beside it as a separate floor, with the kernel's share
@@ -313,6 +319,16 @@ def device_profile(torch, fn, top: int = 6):
             kernels.append((e.key[:70], us / 1e3, e.count))
     kernels.sort(key=lambda k: -k[1])
     return wall, kernels[:top], sum(k[1] for k in kernels)
+
+
+def kernel_device_ms(torch, fn, reps: int = 10) -> float | None:
+    """Device time per launch, under ``torch.profiler``, of the decoder kernel
+    that ``fn`` launches (kernels named traceback* or fused*); None when the
+    profiler saw no device time."""
+    fn()
+    _, kernels, _ = device_profile(torch, lambda: [fn() for _ in range(reps)], top=50)
+    hits = [(ms, c) for n, ms, c in kernels if "traceback" in n or "fused" in n]
+    return sum(ms for ms, _ in hits) / sum(c for _, c in hits) if hits else None
 
 
 def lm_phases(torch, dev, gen, decoder_counters) -> dict:
@@ -1171,7 +1187,25 @@ def main() -> int:
         f"sp equal to the butterfly's plain version")
 
     # ---- 11. K2-prefix against its plain version ------------------------------
+    def check_prefix(sp, code, ds, nd, start, tb, tag) -> float:
+        """One K2-prefix launch (counted) against the plain version and the
+        serial walk; returns the largest bit difference (0)."""
+        traceback.prefix_launches = traceback.launches = 0
+        bits_k = traceback.traceback_prefix(sp, code, ds, nd, start, tb)
+        torch.cuda.synchronize()
+        if (traceback.prefix_launches, traceback.launches) != (1, 0):
+            raise AssertionError(f"K2-prefix {tag}: launches {traceback.prefix_launches}, "
+                                 f"K2 {traceback.launches}")
+        bits_p = traceback.traceback_prefix_plain(sp, code, ds, nd, start, tb)
+        if not torch.equal(bits_k, bits_p):
+            raise AssertionError(f"K2-prefix {tag}: {int((bits_k != bits_p).sum())} bits differ")
+        if not torch.equal(bits_k, traceback.traceback_plain(sp, code, ds, nd, start)):
+            raise AssertionError(f"K2-prefix {tag}: differs from the serial walk")
+        log(f"[11 K2-prefix] {tag}: bits equal (and equal to the serial walk)")
+        return float((bits_k - bits_p).abs().max())
+
     pre_err = 0.0
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label in ("ccsds main", "ccsds ragged", "is95-k9", "(2,1,5)"):
         code, sp, _ = sp_keep[label]
         B = sp.shape[2]
@@ -1187,16 +1221,32 @@ def main() -> int:
                 except ValueError as err:
                     log(f"[11 refused] {tag}: {err}")
                     continue
-                bits_k = traceback.traceback_prefix(sp, code, ds, nd, start, tb)
-                torch.cuda.synchronize()
-                bits_p = traceback.traceback_prefix_plain(sp, code, ds, nd, start, tb)
-                if not torch.equal(bits_k, bits_p):
-                    raise AssertionError(f"K2-prefix {tag}: {int((bits_k != bits_p).sum())} "
-                                         f"bits differ")
-                if not torch.equal(bits_k, traceback.traceback_plain(sp, code, ds, nd, start)):
-                    raise AssertionError(f"K2-prefix {tag}: differs from the serial walk")
-                pre_err = max(pre_err, float((bits_k - bits_p).abs().max()))
-                log(f"[11 K2-prefix] {tag}: bits equal (and equal to the serial walk)")
+                G11 = traceback.prefix_plan(code.n_states, T, ds, nd, tb, B, n_sms)[1]
+                pre_err = max(pre_err, check_prefix(sp, code, ds, nd, start, tb, f"{tag} G={G11}"))
+
+    # one case per size class of K2-prefix's CTA (G blocks, the largest power
+    # of two up to 32 whose maps fit), each geometry planned at its class, at
+    # a batch wide enough (G CTAs' worth per SM) that the plan keeps it
+    k9 = is95
+    for G_want in (1, 2, 4, 8, 16, 32):
+        code = k9 if G_want < 32 else ccsds
+        n_act = (traceback.SMEM_PER_CTA // G_want) // (4 * code.n_states) - 1
+        Tc, ds, nd, tb = (n_act + 3, 3, min(20, n_act), 1) if G_want < 32 else (T, L, D, 64)
+        geo = traceback.prefix_chunk_geometry(Tc, ds, nd, tb)
+        G11, nbytes = traceback.prefix_smem_plan(code.n_states, geo[2] - geo[3],
+                                                 geo[4] - geo[3] + 1)
+        B = G_want * n_sms + 5
+        if (G11, traceback.prefix_plan(code.n_states, Tc, ds, nd, tb, B, n_sms)[1]) != (G_want,) * 2:
+            raise AssertionError(f"K2-prefix planned G={G11} for the class G={G_want}")
+        W = -(-code.n_states // 32)
+        sp_c = torch.randint(-2**31, 2**31 - 1, (Tc, W, B), generator=gen, device=dev,
+                             dtype=torch.int32)
+        start = torch.randint(0, code.n_states, (B,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        pre_err = max(pre_err, check_prefix(
+            sp_c, code, ds, nd, start, tb,
+            f"size class G={G11} ({nbytes} B of maps per CTA) N={code.n_states} T={Tc} B={B} "
+            f"tb_chunk={tb} window [{ds}, {ds + nd})"))
 
     # a prefix scratch that does not fit is refused before anything launches
     y_big = torch.randint(-127, 128, (T, 2, 64), generator=gen, device=dev).to(i8)
@@ -1252,8 +1302,18 @@ def main() -> int:
                  "random"),
                 (label, code, i8, bs[(k + 2) % 4], T, L, D, "i8", "serial", "matrix", k, 64,
                  "random")]
+    # every prefix case of a mother code's butterfly at each S variant the
+    # serial warp path builds (the matrix warp body has one S per (code, k))
+    fruns = []
+    for case in fcases:
+        code, dtype, tbm, impl = case[1], case[2], case[8], case[9]
+        butterfly = impl == "butterfly" or dtype == f32
+        if tbm == "prefix" and butterfly and fused.kernel_body(code, tbm) == "warp":
+            fruns += [(*case, S) for S in acs.warp_states(code)]
+        else:
+            fruns.append((*case, None))
     fused_new_err = {"matrix": 0.0, "prefix": 0.0}
-    for (label, code, dtype, B, Tc, ds, nd, mode, tbm, impl, rk, tb, policy) in fcases:
+    for (label, code, dtype, B, Tc, ds, nd, mode, tbm, impl, rk, tb, policy, S_run) in fruns:
         kw = dict(decode_start=ds, n_decode=nd, metric_mode=mode, tb_mode=tbm, tb_chunk=tb,
                   impl=impl, **({"k": rk} if impl == "matrix" else {"radix": rk}))
         tag = (f"{label:14s} {str(dtype):11s} T={Tc} B={B} {mode} {tbm}"
@@ -1269,7 +1329,8 @@ def main() -> int:
         fbody = fused.kernel_body(code, tbm)
         S = None
         if fbody == "warp":
-            S = acs.matrix_states(code, mk) if mk else acs.warp_states(code)[0]
+            S = acs.matrix_states(code, mk) if mk else S_run or acs.warp_states(code)[0]
+            kw["states_per_thread"] = S
         tag += f" ({fbody} body S={S})"
         try:
             if mk:
@@ -1281,23 +1342,29 @@ def main() -> int:
             log(f"[12 refused] {tag}: {err}")
             continue
         fused.launches = fused.matrix_launches = fused.prefix_launches = 0
-        fused.matrix_table_launches = 0
+        fused.matrix_table_launches = fused.table_launches = 0
         words_k = fused.pbvd_fused(y12, code, start_state=start, **kw)
         torch.cuda.synchronize()
         body = (fused.launches, fused.matrix_launches, fused.prefix_launches,
-                fused.matrix_table_launches)
-        if body != (1, int(mk > 0), int(tbm == "prefix"), int(mk > 0 and fbody == "table")):
+                fused.matrix_table_launches, fused.table_launches)
+        if body != (1, int(mk > 0), int(tbm == "prefix"), int(mk > 0 and fbody == "table"),
+                    int(mk == 0 and fbody == "table")):
             raise AssertionError(f"fused {tag}: launches (all, matrix, prefix, matrix on the "
-                                 f"table body) = {body}")
+                                 f"table body, butterfly on the table body) = {body}")
+        kw.pop("states_per_thread", None)
         words_p = fused.pbvd_fused_plain(y12, code, start_state=start, **kw)
         if not torch.equal(words_k, words_p):
             raise AssertionError(f"fused {tag}: {int((words_k != words_p).sum())} words differ")
+        if tbm == "prefix" and not torch.equal(words_k, fused.pbvd_fused_plain(
+                y12, code, start_state=start, **{**kw, "tb_mode": "serial"})):
+            raise AssertionError(f"fused {tag}: differs from the serial walk")
         err = float((words_k.double() - words_p.double()).abs().max())
         for part, on in (("matrix", mk > 0), ("prefix", tbm == "prefix")):
             if on:
                 fused_new_err[part] = max(fused_new_err[part], err)
-        log(f"[12 fused] {tag}: words equal (G={G}, {smem} B shared; launches all/matrix/"
-            f"prefix/matrix on the table body {body})")
+        log(f"[12 fused] {tag}: words equal{' (and to the serial walk)' if tbm == 'prefix' else ''} "
+            f"(G={G}, {smem} B shared; launches all/matrix/"
+            f"prefix/matrix on the table body/butterfly on the table body {body})")
 
     # ---- 13. the new main paths -------------------------------------------------
     variants = {"matrix+prefix": dict(acs_impl="matrix", acs_k=2, tb_mode="prefix"),
@@ -1328,11 +1395,8 @@ def main() -> int:
             if be == "cuda":
                 want_counts.update({"acs_matrix" if mat else "acs": 1,
                                     "traceback_prefix" if pre else "traceback": 1})
-            else:  # the prefix walk runs on the runtime-table bodies; serial matrix on
-                # the matrix warp body
-                want_counts.update(fused=1, fused_matrix=int(mat), fused_prefix=int(pre),
-                                   fused_table=int(pre and not mat),
-                                   fused_matrix_table=int(pre and mat))
+            else:  # CCSDS: every variant on a warp body, the prefix walk on its lanes
+                want_counts.update(fused=1, fused_matrix=int(mat), fused_prefix=int(pre))
             if counts != want_counts:
                 raise AssertionError(f"{be} {vname} main path launched {counts}")
             if got.shape != (n_bits,) or not torch.equal(got, ref_bits):
@@ -1371,6 +1435,13 @@ def main() -> int:
         f"bound {k2_bound:.4f} ms by {k2_by}, K2's function; the composed maps' own work "
         f"{p_bytes:.0f} B, {p_ops:.0f} int32 op, {p_algo[0]:.4f} ms by {p_algo[1]}; K2 serial "
         f"{k2_ms:.4f} ms)")
+    G14 = traceback.prefix_plan(cfg.code.n_states, cfg.T, cfg.L, cfg.D, tb64, n_blocks, n_sms)[1]
+    k2p_dev = kernel_device_ms(torch, lambda: traceback.traceback_prefix(
+        sp_keep["ccsds main"][1], cfg.code, cfg.L, cfg.D, 0, tb64))
+    log(f"[14 times] K2-prefix, lanes on blocks (G={G14} blocks per CTA): {k2p_dev} ms of "
+        f"device time per launch under the profiler, {p_algo[0] / k2p_dev:.1%} of the "
+        f"algorithm's floor ({p_algo[0]:.4f} ms)" if k2p_dev else
+        "[14 times] K2-prefix: the profiler saw no device time (not measured)")
     fvar = {"prefix": dict(tb_mode="prefix"), "matrix": dict(impl="matrix", k=2),
             "matrix k=3": dict(impl="matrix", k=3),
             "matrix+prefix": dict(impl="matrix", k=2, tb_mode="prefix")}
@@ -1386,12 +1457,48 @@ def main() -> int:
         ops = acs_ops + (p_ops if "prefix" in vname else walk_ops)
         algo = bound(f_bytes, ops, INT32_OPS_PER_S)
         body = fused.kernel_body(cfg.code, kw.get("tb_mode", "serial"))
-        log(f"[14 times] fused {vname} ({body} body): {fnew_ms[vname]:.4f} ms (plain "
+        S14 = (acs.matrix_states(cfg.code, kw["k"]) if "matrix" in vname
+               else acs.warp_states(cfg.code)[0])
+        G14, smem14 = fused.smem_plan(cfg.T, cfg.code.n_states, kw.get("tb_mode", "serial"), tb64,
+                                      lanes=cfg.code.n_states // S14, **fkw)
+        body += (f" body S={S14}, G={G14}, {smem14} B shared, "
+                 f"{fused.residency(G14, smem14, cfg.code.n_states // S14)[0] * G14} blocks "
+                 f"resident per SM")
+        log(f"[14 times] fused {vname} ({body}): {fnew_ms[vname]:.4f} ms (plain "
             f"{fnew_plain_ms[vname]:.3f} ms; bound {f_bound:.4f} ms by {f_by}, the fused "
             f"kernel's function, {f_bound / fnew_ms[vname]:.1%} of it; the chosen algorithms' "
             f"own work {ops:.0f} int32 op, {algo[0]:.4f} ms by {algo[1]}, "
             f"{algo[0] / fnew_ms[vname]:.1%} of it; fused serial butterfly "
             f"{fused_ms['f32', 2]:.4f} ms)")
+    # serial against prefix at a few widths: where, if anywhere, the shorter
+    # chain of the prefix walk wins on this card
+    small_b = {}
+    for Bs in (32, 264, n_blocks):
+        sp_b = sp_keep["ccsds main"][1][:, :, :Bs].contiguous()
+        y_b = blocks[:, :, :Bs].contiguous()
+        small_b[Bs] = {
+            "K2": cuda_ms(torch, lambda: traceback.traceback(sp_b, cfg.code, cfg.L, cfg.D, 0),
+                          reps=20),
+            "K2-prefix": cuda_ms(torch, lambda: traceback.traceback_prefix(
+                sp_b, cfg.code, cfg.L, cfg.D, 0, tb64), reps=20),
+            "fused serial": cuda_ms(torch, lambda: fused.pbvd_fused(y_b, cfg.code, **fkw),
+                                    reps=20),
+            "fused prefix": cuda_ms(torch, lambda: fused.pbvd_fused(
+                y_b, cfg.code, tb_mode="prefix", **fkw), reps=20)}
+        t = small_b[Bs]
+        dev_ms = {k: kernel_device_ms(torch, fn) for k, fn in (
+            ("K2", lambda: traceback.traceback(sp_b, cfg.code, cfg.L, cfg.D, 0)),
+            ("K2-prefix", lambda: traceback.traceback_prefix(sp_b, cfg.code, cfg.L, cfg.D, 0,
+                                                             tb64)),
+            ("fused serial", lambda: fused.pbvd_fused(y_b, cfg.code, **fkw)),
+            ("fused prefix", lambda: fused.pbvd_fused(y_b, cfg.code, tb_mode="prefix", **fkw)))}
+        log(f"[14 small B] B={Bs} (K2-prefix G="
+            f"{traceback.prefix_plan(cfg.code.n_states, cfg.T, cfg.L, cfg.D, tb64, Bs, n_sms)[1]}"
+            f"), ms by event (device ms per launch under the profiler): K2 "
+            f"{t['K2']:.4f} ({dev_ms['K2']}), K2-prefix {t['K2-prefix']:.4f} "
+            f"({dev_ms['K2-prefix']}); fused serial {t['fused serial']:.4f} "
+            f"({dev_ms['fused serial']}), fused prefix {t['fused prefix']:.4f} "
+            f"({dev_ms['fused prefix']})")
     for vname in variants:
         e2e_new = {"cuda": [], "fused": []}
         for be in ("cuda", "fused", "fused", "cuda"):

@@ -18,10 +18,10 @@
 //    memory, PM ping-pong in shared memory, one barrier per stage.
 // 3. forward_acs_matrix, the runtime-table matrix body: the k-stage
 //    (min,+) steps of K1-matrix and the fused matrix variant for any other
-//    code and for the fused prefix walk, on the table body's layout (below).
+//    code, on the table body's layout (below).
 // 4. forward_acs_matrix_warp, the matrix warp body: the k-stage (min,+)
-//    steps of K1-matrix and the fused serial matrix variant for the three
-//    mother codes, on the warp body's layout (below). It replaces the TPU
+//    steps of K1-matrix and the fused matrix variant (either walk) for the
+//    three mother codes, on the warp body's layout (below). It replaces the TPU
 //    kernels repro/kernels/acs.py::_acs_matrix_kernel (matrix_step) and
 //    repro/kernels/fused.py::_acs_phase_mat_dbuf for those codes.
 //

@@ -20,14 +20,17 @@
 // steps on the same layout, rows and metrics in registers; it replaces the
 // TPU's _acs_phase_mat_dbuf for those codes, with register prefetch where
 // the TPU double-buffers symbol tiles). After a __syncwarp, lane sub = 0 of
-// each block walks its history. The prefix walk needs N threads per block
-// to hide its chains of dependent shared loads (traceback_core.cuh: one
-// thread per state composes the chunk maps), and the warp bodies have L;
-// on L lanes the prefix variant ran slower than the table body's on the
-// H100, so tb_mode="prefix" runs fused_table_kernel (with the butterfly or
-// the runtime-table matrix body), as does every other code: one thread per
-// state, G = max(1, 128/N) blocks per CTA. The wrapper chooses the body and
-// counts table-body launches apart (table_launches for the butterfly,
+// each block walks its history (serial), or the CTA's lanes run the prefix
+// walk on the warp layout (prefix, a run-time flag: prefix_tail_warp, one
+// instantiation per W): sub-lane j of block g composes 32-state groups of
+// the block's chunks, loading each row's W words once for its 32 chains
+// (traceback_core.cuh's lane bodies, shared with K2-prefix), one lane per
+// block walks the maps, and (decode chunk, block) pairs expand on the
+// lanes. Every other code runs fused_table_kernel (the butterfly or the
+// runtime-table matrix body) with either walk, the prefix walk there one
+// thread per state (traceback_core.cuh::prefix_traceback): G = max(1,
+// 128/N) blocks per CTA. The wrapper chooses the body and counts
+// table-body launches apart (table_launches for the butterfly,
 // matrix_table_launches for the matrix).
 //
 // History. Each stage's survivor words go to dynamic shared memory, T*W*4
@@ -36,12 +39,14 @@
 // are neighbouring blocks, so a warp's stores and the walkers' loads fall
 // on distinct banks (at G = 16 and W = 2 the two words of a stage are 16
 // banks apart); the table bodies store one word per warp and read it the
-// same way, the serial walk with one thread per block, the prefix walk
-// (traceback_core.cuh) with thread s of a block on state s, stages below 0
-// reading as the zero pad; its phase C ors each decoded bit into the
-// window's words (atomicOr: the window starts at ds_local = decode_start +
-// P - c_lo * C, which is not word aligned, so a chunk's bits straddle
-// words) and the block then stores its n_decode/32 words.
+// same way, the serial walk with one thread per block, the prefix walks
+// with neighbouring lanes on neighbouring blocks (warp bodies) or thread s
+// of a block on state s (table bodies), stages below 0 reading as the zero
+// pad. The window starts at ds_local = decode_start + P - c_lo * C, which
+// is not word aligned, so a chunk's bits straddle words: the table bodies
+// or each decoded bit into the window (atomicOr), the warp bodies' lanes
+// gather a window word in a register and or it in once; the block then
+// stores its n_decode/32 words.
 //
 // Shared-memory plan (kernels/fused.py::smem_plan), at CCSDS, T = 596:
 // 4,768 B of history per parallel block (19,072 B at K = 9). The warp
@@ -53,7 +58,10 @@
 // blocks (three warps) per SM, 6,336 of the 8,192 blocks of the main path
 // at once. The table bodies add two path-metric planes and the min slots
 // per block (plus, for the matrix body, its rows and decision planes); the
-// prefix walk adds n_act*N + nc_e + n_decode/32 words per block. Above 48
+// prefix walk adds n_act*N + nc_e + n_decode/32 words per block, G-fastest
+// on the warp bodies (576 + 9 + 16 at the main geometry: 7,172 B per
+// block with the history, so G = 16 holds two CTAs, 32 blocks, two warps
+// per SM, where the serial variant holds 48). Above 48
 // KB the launch raises the kernel's dynamic shared-memory limit; the
 // wrapper refuses a history that does not fit even at G = 1 (it never
 // falls back to the two-kernel path).
@@ -141,6 +149,104 @@ __device__ __noinline__ void prefix_tail(const unsigned* hist_g, int G, int W, i
   }
 }
 
+// Phase 2 in prefix mode (warp bodies): the prefix walk of the CTA's G
+// parallel blocks (G a power of two) over its shared history (word (t, w)
+// of block g at hist[(t*W + w)*G + g]), on the nt = blockDim.x <= 32 lanes
+// of its one warp: lane l is block g = l & (G - 1), sub-lane j = l / G (the
+// warp body's own lane = sub * G + g). Scratch, G-fastest: maps[c][s][g],
+// entry[ci][g], window[w][g]. A: sub-lane j of block g composes items j,
+// j + L, ... of the block's n_act * N/32 (chunk, 32 states), loading each
+// row's W words once per lane (W <= 4; above that in the chain); the lanes
+// of a block read the same words (broadcast) and neighbouring blocks
+// neighbouring banks. B: sub-lane 0 of each block walks its maps. C:
+// (decode chunk, block) on lanes, block fastest; a lane gathers its chunk's
+// bits in a register and ors each finished word into the window once
+// (atomicOr: a chunk's first and last words may be shared with its
+// neighbours), then the lanes store the window, G neighbouring b per word.
+// Kept out of line, as prefix_tail.
+template <int kW>
+__device__ __noinline__ void prefix_tail_warp(const unsigned* hist, int G, int B, int b0,
+                                              int log2n, int n_words, unsigned* scratch,
+                                              const int* __restrict__ start,
+                                              pbvd::PrefixGeometry geo, unsigned lanes,
+                                              int* __restrict__ bits) {
+  constexpr int kK = 32;  // chains per lane: N >= 64 for the warp bodies
+  const int nt = blockDim.x, lane = threadIdx.x;
+  const int log2g = __ffs(G) - 1;
+  const int g = lane & (G - 1), j = lane >> log2g, L = nt >> log2g;
+  const bool valid = b0 + g < B;
+  const unsigned n_mask = (1u << log2n) - 1u;
+  unsigned* maps = scratch;
+  unsigned* entry = maps + (static_cast<size_t>(geo.n_act) << log2n) * G;
+  unsigned* window = entry + geo.nc_e * G;
+  for (int k = lane; k < n_words * G; k += nt) window[k] = 0u;
+
+  // ---- A: compose --------------------------------------------------------------
+  auto load_word = [&](int stage, unsigned w) -> unsigned {
+    return ~(stage < 0 ? 0u : hist[(static_cast<size_t>(stage) * kW + w) * G + g]);
+  };
+  auto load_row = [&](int stage, unsigned (&rw)[kW]) {
+#pragma unroll
+    for (int k = 0; k < kW; ++k) rw[k] = load_word(stage, kW - 1 - k);
+  };
+  const int log2sg = log2n - 5;  // 32-state groups per chunk
+  const int n_items = geo.n_act << log2sg;
+  for (int i = j; valid && i < n_items; i += L) {
+    const int c = i >> log2sg;
+    const unsigned s0 = static_cast<unsigned>(i & ((1 << log2sg) - 1)) << 5;
+    auto out = [&](int q, unsigned m) {
+      maps[((static_cast<size_t>(c) << log2n) + s0 + q) * G + g] = m;
+    };
+    pbvd::compose_chains<kW, kK>(geo.C, (geo.c_lo + c) * geo.C - geo.P, s0, n_mask, load_row,
+                                 load_word, out);
+  }
+  __syncwarp(lanes);
+
+  // ---- B: walk the maps ----------------------------------------------------------
+  if (j == 0 && valid) {
+    unsigned state = static_cast<unsigned>(start[b0 + g]) & n_mask;
+    for (int c = geo.n_act - 1; c >= 0; --c) {
+      if (c < geo.nc_e) entry[c * G + g] = state;
+      state = maps[((static_cast<size_t>(c) << log2n) + state) * G + g];
+    }
+  }
+  __syncwarp(lanes);
+
+  // ---- C: expand, a word of bits at a time -----------------------------------------
+  for (int t = lane; t < (geo.nc_e << log2g); t += nt) {
+    const int ci = t >> log2g, gt = t & (G - 1);
+    if (b0 + gt >= B) continue;
+    auto word = [&](int stage, unsigned w) -> unsigned {
+      return ~(stage < 0 ? 0u : hist[(static_cast<size_t>(stage) * kW + w) * G + gt]);
+    };
+    auto row_words = [&](int stage, unsigned (&rw)[kW]) {
+#pragma unroll
+      for (int k = 0; k < kW; ++k) rw[k] = word(stage, kW - 1 - k);
+    };
+    const int idx0 = ci * geo.C - geo.ds_local;  // window position of row 0
+    int cur = -1;                                // the window word being gathered
+    unsigned acc = 0u;
+    auto emit = [&](int row, unsigned bit) {
+      const int idx = idx0 + row;
+      if (idx < 0 || idx >= geo.n_window) return;
+      if ((idx >> 5) != cur) {
+        if (acc) atomicOr(&window[cur * G + gt], acc);
+        cur = idx >> 5;
+        acc = 0u;
+      }
+      acc |= bit << (idx & 31);
+    };
+    pbvd::expand_chain<kW>(geo.C, (geo.c_lo + ci) * geo.C - geo.P, entry[t], log2n, row_words,
+                           word, emit);
+    if (acc) atomicOr(&window[cur * G + gt], acc);
+  }
+  __syncwarp(lanes);
+  for (int k = lane; k < n_words * G; k += nt) {
+    const int gt = k & (G - 1);
+    if (b0 + gt < B) bits[static_cast<size_t>(k >> log2g) * B + b0 + gt] = static_cast<int>(window[k]);
+  }
+}
+
 // Phase 2 (serial) of parallel block b, by one thread: walk its history
 // (word (t, w) at hist_g[(t*W + w)*G]) from the start state down to
 // decode_start, packed bits out.
@@ -182,8 +288,8 @@ __device__ __forceinline__ void serial_walk(const unsigned* hist_g, int G, int T
 template <class Code, int kS, int kStagesPerStep, bool kNarrow, typename Acc, int kK = 0>
 __global__ void fused_warp_kernel(const void* __restrict__ y, int dtype,
                                   const int* __restrict__ start, int T, int B, int norm_every,
-                                  int qmax, int decode_start, int n_decode,
-                                  int* __restrict__ bits) {
+                                  int qmax, int decode_start, int n_decode, int prefix,
+                                  pbvd::PrefixGeometry geo, int* __restrict__ bits) {
   extern __shared__ __align__(16) unsigned hist_smem[];
   constexpr int L = pbvd::WarpMap<Code, kS>::L;
   constexpr int W = Code::W;
@@ -218,7 +324,10 @@ __global__ void fused_warp_kernel(const void* __restrict__ y, int dtype,
                                                 no_pm);
   }
   __syncwarp(lanes);  // a block's lanes are in one warp
-  if (sub == 0 && valid) {
+  if (prefix) {  // ---- phase 2 (prefix): the CTA's chunked walks on its lanes
+    prefix_tail_warp<W>(hist_smem, G, B, blockIdx.x * G, Code::v, n_decode >> 5,
+                        hist_smem + static_cast<size_t>(G) * T * W, start, geo, lanes, bits);
+  } else if (sub == 0 && valid) {  // ---- phase 2 (serial)
     serial_walk(hist_smem + g, G, T, B, b, Code::v, start, decode_start, n_decode, bits);
   }
 }
@@ -295,13 +404,13 @@ int raise_smem_limit(Kernel kernel, size_t smem) {
 template <class Code, int kS, int kStagesPerStep, bool kNarrow, typename Acc, int kK = 0>
 int launch_warp(const Launch& a) {
   constexpr int L = pbvd::WarpMap<Code, kS>::L;
-  if ((a.G & (a.G - 1)) != 0 || a.G * L > 32 || a.prefix) return 1000;
-  const size_t smem = fused_smem_bytes(a.G, 0, a.log2n, a.T, 0);
+  if ((a.G & (a.G - 1)) != 0 || a.G * L > 32) return 1000;
+  const size_t smem = fused_smem_bytes(a.G, 0, a.log2n, a.T, a.prefix_words());
   auto kernel = fused_warp_kernel<Code, kS, kStagesPerStep, kNarrow, Acc, kK>;
   if (const int e = raise_smem_limit(kernel, smem)) return e;
   kernel<<<(a.B + a.G - 1) / a.G, a.G * L, smem, a.stream>>>(
       a.y, a.dtype, a.start, a.T, a.B, a.norm_every, a.qmax, a.decode_start, a.n_decode,
-      a.bits);
+      a.prefix, a.geo, a.bits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -408,9 +517,9 @@ int dispatch_mode(const Launch& a) {
 // the matrix steps' k (1..4, integer symbols). prefix: 0 for the serial walk,
 // 1 for the prefix walk with the geometry C, P, n_chunks, c_lo, c_hi of
 // prefix_chunk_geometry(T, decode_start, min(n_decode, T - decode_start),
-// tb_chunk). code, S: as pbvd_acs_forward; 0 for the table bodies, which
-// every prefix launch takes; with k > 0 a code runs the matrix warp body at
-// its one S for (code, k) (pbvd_acs_forward_matrix). G: parallel blocks per CTA: the
+// tb_chunk), either walk on either body. code, S: as pbvd_acs_forward; 0
+// for the table bodies; with k > 0 a code runs the matrix warp body at its
+// one S for (code, k) (pbvd_acs_forward_matrix). G: parallel blocks per CTA: the
 // table bodies run G * N <= 1024 threads, the warp body G * N/S <= 32 (G a
 // power of two). bits: (n_decode / 32, B) int32 out. Requires
 // 0 <= decode_start < T, n_decode a multiple of 32.
@@ -428,7 +537,6 @@ extern "C" int pbvd_fused(const void* y, int dtype, int T, int R, int B, int log
       norm_every < 0 || qmax < 0 || (norm_every > 0) != (qmax > 0) ||
       !(radix == 2 || (radix == 4 && log2n >= 2)) || k < 0 || k > 4 || k > log2n ||
       k * R > 8 || (k > 0 && code == pbvd::kCodeTable && table == nullptr) ||
-      (k > 0 && code != pbvd::kCodeTable && prefix) ||
       (prefix != 0 && prefix != 1) || dtype < 0 || dtype > 3 ||
       (code == pbvd::kCodeTable && (G << log2n) > 1024)) {
     return 1000;

@@ -46,14 +46,34 @@
 // K2-prefix (pbvd_traceback_prefix) replaces the TPU kernel
 // repro/kernels/traceback.py::_traceback_prefix_kernel (driven by
 // traceback_prefix_pallas): the same bits from the chunked parallel-prefix
-// walk, whose three phases live in traceback_core.cuh, shared with the
-// fused kernel. A CTA holds G = max(1, 128/N) parallel blocks of N threads
-// and their composed maps in shared memory; the words come from global
-// memory through the read-only cache. The longest dependent chain drops
-// from T - 1 - decode_start loads to about C (compose) + n_act (walk) + C
-// (expand), 137 at the main geometry against K2's 553, for about
-// n_act * N * C word loads of work per block instead of 553 (operations,
-// not bytes or latency, should then bound it).
+// walk (traceback_core.cuh: compose the active chunks' maps, walk them,
+// expand the decode chunks). The longest dependent chain drops from
+// T - 1 - decode_start steps to about C (compose) + n_act (walk) + C
+// (expand), 137 at the main geometry against K2's 553, for n_act * N * C
+// composed steps per block instead of 553: operations, not bytes or
+// latency, bound it (the algorithm's own floor, 0.1100 ms at the main
+// shapes on the H100 80GB HBM3, 700 W).
+//
+// Design: lanes on blocks, the TPU kernel's own layout. Neighbouring lanes
+// hold neighbouring parallel blocks, so a row's W words for a warp's 32
+// blocks are W coalesced 128-byte rows; the warps of a CTA and 32 chains
+// per thread (K = min(N, 32) states of one (block, chunk)) split the N
+// states and the chunks. A thread loads a row's W words once, kLaneDepth
+// rows ahead, at addresses that do not depend on the chains, and steps its
+// K chains with a select and two funnel shifts each; no load sits in a
+// chain for W <= 4 (above that the chain loads the word its state selects,
+// through the read-only cache). The maps live in shared memory as
+// [c][s][Gb], so the Gb lanes of phase B and the stores of phase A fall on
+// distinct banks; phase C puts (decode chunk, block) on threads, block
+// fastest, reading coalesced rows and storing coalesced bits. A CTA holds
+// Gb = 32 blocks where their maps fit, else the largest power of two that
+// fits down to 1 (traceback.py::prefix_smem_plan: every geometry whose
+// maps fit at one block is taken), and fewer where the batch is too small
+// to give every SM a CTA (traceback.py::prefix_plan): a CTA's composition
+// runs on one SM, so 32 blocks in one CTA took 0.078 ms of device time
+// where K2 took 0.028 ms on the H100 80GB HBM3 (700 W). Staging the words
+// through shared memory by cp.async instead of loading them into
+// registers ran no faster there (PERF.md), so the loads stay direct.
 
 #include <cstdint>
 #include <cuda.h>
@@ -69,6 +89,8 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 
 constexpr int kSlots = 4;           // the ring: kSlots - 1 chunks in flight while one is walked
 constexpr int kSlotWords = 64 * 32;  // 8 KB: kChunk * W rows of 32 words
+
+constexpr int kPrefixMaxWarps = 16;  // K2-prefix: warps per CTA, at most
 
 __device__ __forceinline__ void cp_async4(int* dst, const int* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -247,26 +269,80 @@ int make_sp_map(CUtensorMap* map, const void* sp, int T, int W, int B) {
   return r == CUDA_SUCCESS ? 0 : 1002;
 }
 
-__global__ void traceback_prefix_kernel(const int* __restrict__ sp, const int* __restrict__ start,
-                                        int W, int B, int log2n, pbvd::PrefixGeometry geo,
-                                        int* __restrict__ bits) {
-  extern __shared__ int smem[];
-  const int N = 1 << log2n;
-  const int G = blockDim.x >> log2n;
-  const int g = threadIdx.x >> log2n;
-  const int b = blockIdx.x * G + g;
+// K2-prefix with lanes on blocks (see the header). A CTA holds Gb = 2^log2g
+// parallel blocks (Gb <= 32) and nw warps; lane l of a warp is block
+// l & (Gb - 1), sub-lane j = l >> log2g. The work of a block in phase A is
+// n_act * N / kK items (chunk c, state group), item i = (c, i mod N/kK);
+// sub-lane j of warp w takes items j + (32/Gb) * (w + nw * r). Maps are
+// [c][s][Gb] in shared memory, entries [ci][Gb]: a warp's loads in phase
+// B (Gb lanes, one block each) and stores in phase A fall on distinct banks.
+template <int kW, int kK>
+__global__ void __launch_bounds__(kPrefixMaxWarps * 32)
+    traceback_prefix_lanes_kernel(const int* __restrict__ sp, const int* __restrict__ start,
+                                  int B, int log2n, int log2g, pbvd::PrefixGeometry geo,
+                                  int* __restrict__ bits) {
+  extern __shared__ __align__(16) unsigned smem_u[];
+  const int N = 1 << log2n, Gb = 1 << log2g;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int blk = lane & (Gb - 1), J = 32 >> log2g, j = lane >> log2g;
+  const int b = blockIdx.x * Gb + blk;
   const bool valid = b < B;
-  int* maps = smem + g * (geo.n_act * N + geo.nc_e);
-  int* entry = maps + geo.n_act * N;
-  auto sp_word = [&](int stage, unsigned w) -> unsigned {
-    if (stage < 0 || !valid) return 0u;  // the virtual pad below stage 0
-    return static_cast<unsigned>(__ldg(sp + (static_cast<size_t>(stage) * W + w) * B + b));
+  const unsigned n_mask = static_cast<unsigned>(N) - 1u;
+  unsigned* maps = smem_u;                                         // [n_act][N][Gb]
+  unsigned* entry = maps + static_cast<size_t>(geo.n_act) * N * Gb;  // [nc_e][Gb]
+  const size_t row_words = static_cast<size_t>(kW) * B;
+
+  // ---- A: compose; the loaders of block b (words past B never read) -------
+  constexpr int log2k = pbvd::log2_exact(kK);
+  const int log2sg = log2n - log2k;  // state groups per chunk: N / kK
+  const int n_items = geo.n_act << log2sg;
+  auto load_word = [&](int stage, unsigned w) -> unsigned {
+    return ~(stage < 0 ? 0u : static_cast<unsigned>(__ldg(sp + stage * row_words + w * B + b)));
   };
-  auto emit = [&](int idx, unsigned bit) {
-    bits[static_cast<size_t>(idx) * B + b] = static_cast<int>(bit);
-  };
-  pbvd::prefix_traceback(geo, log2n, valid, valid ? static_cast<unsigned>(start[b]) : 0u, maps,
-                         entry, sp_word, emit);
+  for (int i = j + J * warp; valid && i < n_items; i += J * nw) {
+    const int c = i >> log2sg;
+    const unsigned s0 = static_cast<unsigned>(i & ((1 << log2sg) - 1)) << log2k;
+    const int stage0 = (geo.c_lo + c) * geo.C - geo.P;
+    auto out = [&](int q, unsigned m) {
+      maps[((static_cast<size_t>(c) << log2n) + s0 + q) * Gb + blk] = m;
+    };
+    auto load_row = [&](int stage, unsigned (&rw)[kW]) {
+#pragma unroll
+      for (int k = 0; k < kW; ++k) rw[k] = load_word(stage, kW - 1 - k);
+    };
+    pbvd::compose_chains<kW, kK>(geo.C, stage0, s0, n_mask, load_row, load_word, out);
+  }
+  __syncthreads();
+
+  // ---- B: one thread per block walks the maps -----------------------------
+  if (threadIdx.x < Gb && valid) {
+    unsigned state = static_cast<unsigned>(start[b]) & n_mask;
+    for (int c = geo.n_act - 1; c >= 0; --c) {
+      if (c < geo.nc_e) entry[c * Gb + blk] = state;
+      state = maps[((static_cast<size_t>(c) << log2n) + state) * Gb + blk];
+    }
+  }
+  __syncthreads();
+
+  // ---- C: (decode chunk, block) on threads, block fastest -----------------
+  for (int t = threadIdx.x; t < (geo.nc_e << log2g); t += blockDim.x) {
+    const int ci = t >> log2g, bt = blockIdx.x * Gb + (t & (Gb - 1));
+    if (bt >= B) continue;
+    auto word = [&](int stage, unsigned w) -> unsigned {
+      return ~(stage < 0 ? 0u : static_cast<unsigned>(__ldg(sp + stage * row_words + w * B + bt)));
+    };
+    auto load_row = [&](int stage, unsigned (&rw)[kW]) {
+#pragma unroll
+      for (int k = 0; k < kW; ++k) rw[k] = word(stage, kW - 1 - k);
+    };
+    const int idx0 = ci * geo.C - geo.ds_local;  // window position of row 0
+    auto emit = [&](int row, unsigned bit) {
+      const int idx = idx0 + row;
+      if (idx >= 0 && idx < geo.n_window) bits[static_cast<size_t>(idx) * B + bt] = static_cast<int>(bit);
+    };
+    pbvd::expand_chain<kW>(geo.C, (geo.c_lo + ci) * geo.C - geo.P, entry[t], log2n, load_row,
+                           word, emit);
+  }
 }
 
 }  // namespace
@@ -323,11 +399,42 @@ extern "C" int pbvd_traceback(const void* sp, const void* start, int T, int W, i
   return pbvd_traceback_copy(sp, start, T, W, B, log2n, decode_start, n_decode, 0, bits, stream);
 }
 
+namespace {
+
+// Warps per K2-prefix CTA: enough to take the block's items in as few
+// rounds as kPrefixMaxWarps warps take them, and no more.
+int prefix_warps(int n_items, int log2g) {
+  const int rounds = (n_items + (32 >> log2g) - 1) / (32 >> log2g);  // warp-rounds of a CTA
+  const int per_warp = (rounds + kPrefixMaxWarps - 1) / kPrefixMaxWarps;
+  return (rounds + per_warp - 1) / per_warp;
+}
+
+template <int kW, int kK>
+int launch_prefix(const int* sp, const int* start, int B, int log2n, int log2g,
+                  const pbvd::PrefixGeometry& geo, int* bits, cudaStream_t stream) {
+  const int nw = prefix_warps(geo.n_act * ((1 << log2n) / kK), log2g);
+  const size_t smem =
+      4 * (static_cast<size_t>(geo.n_act) * (1 << log2n) + geo.nc_e) * (size_t(1) << log2g);
+  if (smem > kMaxSmem) return 1001;
+  auto kernel = traceback_prefix_lanes_kernel<kW, kK>;
+  if (smem > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int Gb = 1 << log2g;
+  kernel<<<(B + Gb - 1) / Gb, nw * 32, smem, stream>>>(sp, start, B, log2n, log2g, geo, bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // K2-prefix. sp, start, bits: as pbvd_traceback. C, P, n_chunks, c_lo,
 // c_hi: prefix_chunk_geometry(T, decode_start, n_decode, tb_chunk). G:
-// parallel blocks per CTA (G * N <= 1024). Returns cudaGetLastError() after
-// the launch (or the error of raising the shared-memory limit); 1000 for a
-// bad argument, 1001 for scratch that does not fit in shared memory.
+// parallel blocks per CTA, a power of two <= 32 (traceback.py::
+// prefix_plan). Returns cudaGetLastError() after the launch (or the error
+// of raising the shared-memory limit); 1000 for a bad argument, 1001 for
+// scratch that does not fit in shared memory.
 extern "C" int pbvd_traceback_prefix(const void* sp, const void* start, int T, int W, int B,
                                      int log2n, int decode_start, int n_decode, int C, int P,
                                      int n_chunks, int c_lo, int c_hi, int G, void* bits,
@@ -335,22 +442,28 @@ extern "C" int pbvd_traceback_prefix(const void* sp, const void* start, int T, i
   if (log2n < 1 || log2n > 10 || B < 1 || decode_start < 0 || n_decode < 1 ||
       decode_start + n_decode > T || W != ((1 << log2n) + 31) / 32 || C < 1 || P < 0 ||
       P >= C || n_chunks * C != T + P || c_lo < 0 || c_hi < c_lo || c_hi >= n_chunks ||
-      G < 1 || (G << log2n) > 1024) {
+      G < 1 || G > 32 || (G & (G - 1))) {
     return 1000;
   }
-  const int N = 1 << log2n;
-  pbvd::PrefixGeometry geo{C, P, c_lo, n_chunks - c_lo, c_hi - c_lo + 1,
-                           decode_start + P - c_lo * C, n_decode};
-  const size_t smem = 4 * static_cast<size_t>(G) * (static_cast<size_t>(geo.n_act) * N + geo.nc_e);
-  if (smem > kMaxSmem) return 1001;
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        traceback_prefix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const pbvd::PrefixGeometry geo{C, P, c_lo, n_chunks - c_lo, c_hi - c_lo + 1,
+                                 decode_start + P - c_lo * C, n_decode};
+  const int log2g = __builtin_ctz(G);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* sp_i = static_cast<const int*>(sp);
+  const int* start_i = static_cast<const int*>(start);
+  int* bits_i = static_cast<int*>(bits);
+#define PBVD_K2P(KW, KK) launch_prefix<KW, KK>(sp_i, start_i, B, log2n, log2g, geo, bits_i, st)
+  switch (log2n) {  // kK = min(N, 32) chains per thread
+    case 1: return PBVD_K2P(1, 2);
+    case 2: return PBVD_K2P(1, 4);
+    case 3: return PBVD_K2P(1, 8);
+    case 4: return PBVD_K2P(1, 16);
+    case 5: return PBVD_K2P(1, 32);
+    case 6: return PBVD_K2P(2, 32);
+    case 7: return PBVD_K2P(4, 32);
+    case 8: return PBVD_K2P(8, 32);
+    case 9: return PBVD_K2P(16, 32);
+    default: return PBVD_K2P(32, 32);
   }
-  traceback_prefix_kernel<<<(B + G - 1) / G, G * N, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(sp), static_cast<const int*>(start), W, B, log2n, geo,
-      static_cast<int*>(bits));
-  return static_cast<int>(cudaGetLastError());
+#undef PBVD_K2P
 }

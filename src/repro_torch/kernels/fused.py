@@ -14,16 +14,13 @@ lowers them. What bounds the kernel on the card and what its design does
 about it is noted in the CUDA source.
 
 The ACS phase runs K1's bodies (:func:`kernel_body`): for the mother codes
-of ``acs.WARP_CODES`` with the serial walk, the warp body, or with
-``impl="matrix"`` the matrix warp body of K1-matrix (the TPU kernel's
-``_acs_phase_mat_dbuf``) at its one S per (code, k), each with its
-compile-time tables checked before the launch; the runtime-table bodies
-(butterfly or matrix) for any other code and for ``tb_mode="prefix"`` (the
-prefix walk needs a thread per state, which the warp bodies do not have).
-On the H100 80GB HBM3 (700 W), at the main shapes, the serial matrix
-variant on the matrix warp body takes about 0.54 ms at k = 2 where the
-runtime-table matrix body took 1.98 ms, against the fused kernel's bound of
-0.0769 ms (PERF.md).
+of ``acs.WARP_CODES``, the warp body, or with ``impl="matrix"`` the matrix
+warp body of K1-matrix (the TPU kernel's ``_acs_phase_mat_dbuf``) at its
+one S per (code, k), each with its compile-time tables checked before the
+launch, and then either walk: the serial walk, or the prefix walk on the
+warp's lanes (``csrc/traceback_core.cuh``'s lane bodies, shared with
+K2-prefix); the runtime-table bodies (butterfly or matrix) with either walk
+for any other code.
 The survivor history lives in shared memory, ``T·ceil(N/32)·4`` bytes per
 parallel block, stage-major with the block fastest, and in prefix mode the
 walk's scratch beside it.
@@ -101,8 +98,12 @@ _MAX_CTAS_PER_SM = 32
 def kernel_body(code: ConvCode, tb_mode: str = "serial") -> str:
     """The fused kernel's ACS body for ``code``: ``"warp"`` (the butterfly
     warp body, or the matrix warp body under ``impl="matrix"``) for a mother
-    code of ``acs.WARP_CODES`` with the serial walk, else ``"table"``."""
-    return "warp" if tb_mode == "serial" and warp_code_id(code) else "table"
+    code of ``acs.WARP_CODES``, with either walk, else ``"table"``.
+    ``tb_mode`` picks the tail (the serial walk or the prefix walk on the
+    body's lanes), not the body."""
+    if tb_mode not in ("serial", "prefix"):
+        raise ValueError(f"unknown tb_mode {tb_mode!r}")
+    return "warp" if warp_code_id(code) else "table"
 
 
 def residency(G: int, smem: int, lanes: int) -> tuple[int, int]:
@@ -138,10 +139,12 @@ def smem_plan(
     ``n_decode/32`` words of the decode window (geometry of
     :func:`prefix_chunk_geometry` over the bits that exist). The table
     bodies take G = max(1, 128/N) and drop to 1 when that does not fit. The
-    warp body (``lanes`` = N/S threads per block) takes the power of two
+    warp bodies (``lanes`` = N/S threads per block) take the power of two
     G <= 32/lanes (one warp) that keeps the most blocks resident on an SM
     (:func:`residency`), the larger on a tie. What does not fit at G = 1
-    raises ``ValueError`` naming T, N and the bytes.
+    raises ``ValueError`` naming T, N and the bytes; in prefix mode a
+    geometry is refused exactly where the table bodies' count does not fit
+    at G = 1, with their message, whichever body runs it.
     """
     N = n_states
     W = -(-N // 32)
@@ -166,6 +169,9 @@ def smem_plan(
         if need(G) > SMEM_PER_CTA:
             G = 1
     else:
+        if scratch:  # the prefix walk is refused where the table bodies refuse it
+            smem_plan(T, N, tb_mode, tb_chunk, decode_start=decode_start, n_decode=n_decode,
+                      matrix_k=matrix_k, R=R)
         fits = [1 << e for e in range((32 // lanes).bit_length())
                 if need(1 << e) <= SMEM_PER_CTA]
         G = max(fits or [1], key=lambda g: (g * residency(g, need(g), lanes)[0], g))
@@ -218,7 +224,7 @@ def pbvd_fused(
     On a CUDA tensor ``y`` must be contiguous, int8/int16/int32 or float32;
     the narrow metric modes need integer symbols. ``states_per_thread``
     picks one of the warp body's S variants, as ``acs.acs_forward``'s
-    (serial walk only).
+    (either walk).
     """
     global launches, matrix_launches, matrix_table_launches, prefix_launches, table_launches
     if y.device.type == "cpu":
@@ -265,7 +271,7 @@ def pbvd_fused(
         n_window = min(n_decode, T - decode_start)
         geometry = prefix_chunk_geometry(T, decode_start, n_window, tb_chunk)
     cid = S = 0
-    if kernel_body(code, tb_mode) == "warp":  # the warp bodies walk serially only
+    if kernel_body(code, tb_mode) == "warp":
         if k_launch:
             cid = check_warp_matrix_table(_lib(), "pbvd_fused_code_matrix_table", code, k_launch)
             S = matrix_states_arg(code, k_launch, states_per_thread)
@@ -273,7 +279,7 @@ def pbvd_fused(
             cid = check_warp_labels(_lib(), "pbvd_fused_code_labels", code)
             S = warp_states_arg(code, states_per_thread)
     if states_per_thread is not None and not cid:
-        raise ValueError(f"the prefix and runtime-table bodies take no states_per_thread "
+        raise ValueError(f"the runtime-table bodies take no states_per_thread "
                          f"(K={code.K} R={code.R}, impl={impl!r}, tb_mode={tb_mode!r})")
     G, _ = smem_plan(T, code.n_states, tb_mode, tb_chunk, decode_start=decode_start,
                      n_decode=n_decode, matrix_k=k_launch, R=R,

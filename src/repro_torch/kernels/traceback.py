@@ -3,12 +3,16 @@ counts.
 
 K2 replaces ``repro.kernels.traceback._traceback_kernel`` (driven by
 ``traceback_pallas``); K2-prefix replaces ``_traceback_prefix_kernel``
-(driven by ``traceback_prefix_pallas``), the chunked parallel-prefix walk
-whose three phases (``csrc/traceback_core.cuh``) it shares with the fused
-kernel. K2 is a staged walk: one warp walks 32 parallel blocks, and the
-stage slabs of a chunk of :func:`stage_chunk` stages are copied into a
-ring of ``STAGE_SLOTS`` shared-memory slots ahead of the walk.
-:func:`traceback` and :func:`traceback_prefix` take the plain
+(driven by ``traceback_prefix_pallas``), the chunked parallel-prefix walk.
+K2 is a staged walk: one warp walks 32 parallel blocks, and the stage
+slabs of a chunk of :func:`stage_chunk` stages are copied into a ring of
+``STAGE_SLOTS`` shared-memory slots ahead of the walk. K2-prefix puts
+lanes on parallel blocks (a CTA of the G blocks of :func:`prefix_plan`:
+as many as fit, up to 32, and fewer for a batch too small to fill the
+card's SMs), 32 chains of one (block, chunk) per thread
+stepping through words loaded once per row, the lane bodies of
+``csrc/traceback_core.cuh`` that it shares with the fused kernel's prefix
+tail. :func:`traceback` and :func:`traceback_prefix` take the plain
 PyTorch versions :func:`traceback_plain` (``ref.traceback_ref``) and
 :func:`traceback_prefix_plain` (``ref.traceback_prefix_chunked_ref``) for a
 CPU tensor; for a CUDA tensor they launch their kernel or raise. What
@@ -81,7 +85,7 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [p, p, i, i, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
         fn = lib.pbvd_traceback_prefix
-        fn.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, i, i, p, p]
+        fn.argtypes = [p, p] + [i] * 12 + [p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -90,32 +94,40 @@ def prefix_smem_plan(n_states: int, n_act: int, nc_e: int) -> tuple[int, int]:
     """(parallel blocks per CTA, shared bytes per CTA) of K2-prefix.
 
     A parallel block holds its ``n_act`` composed maps of N int32 entries
-    and ``nc_e`` entry states. G starts at max(1, 128/N) and drops to 1
-    when that does not fit; scratch that does not fit at G = 1 raises
+    and ``nc_e`` entry states. The body puts lanes on blocks, so G is the
+    size class of its CTA: the largest power of two up to 32 whose G blocks
+    fit, down to 1; scratch that does not fit at G = 1 raises
     ``ValueError`` (no fallback to the serial walk).
     """
     per_block = 4 * (n_act * n_states + nc_e)
-    G = max(1, 128 // n_states)
-    if G * per_block > SMEM_PER_CTA:
-        G = 1
     if per_block > SMEM_PER_CTA:
         raise ValueError(
             f"the prefix traceback's scratch of {n_act} composed maps at N={n_states} states "
             f"needs {per_block} bytes of shared memory per parallel block, above the "
             f"{SMEM_PER_CTA} bytes a CTA may use; use a larger tb_chunk"
         )
+    G = 32
+    while G * per_block > SMEM_PER_CTA:
+        G //= 2
     return G, G * per_block
 
 
 def prefix_plan(
-    n_states: int, T: int, decode_start: int, n_decode: int, tb_chunk: int
+    n_states: int, T: int, decode_start: int, n_decode: int, tb_chunk: int,
+    n_blocks: int | None = None, n_sms: int = 1,
 ) -> tuple[tuple[int, int, int, int, int], int]:
     """(chunk geometry, parallel blocks per CTA) of a K2-prefix launch:
     :func:`prefix_chunk_geometry` and :func:`prefix_smem_plan`, with their
-    ``ValueError`` s."""
+    ``ValueError`` s. With ``n_blocks`` given, a batch too small to give
+    each of the card's ``n_sms`` SMs a CTA of the planned size is spread
+    over them: G drops to the largest power of two up to n_blocks / n_sms
+    (at least 1), since a CTA's composition work runs on one SM."""
     geometry = prefix_chunk_geometry(T, decode_start, n_decode, tb_chunk)
     _, _, n_chunks, c_lo, c_hi = geometry
     G, _ = prefix_smem_plan(n_states, n_chunks - c_lo, c_hi - c_lo + 1)
+    if n_blocks is not None:
+        while G > 1 and G * n_sms > n_blocks:
+            G //= 2
     return geometry, G
 
 
@@ -206,8 +218,9 @@ def traceback_prefix(
         raise ValueError(f"sp has {W} words per stage, code needs {-(-code.n_states // 32)}")
     if code.n_states > _MAX_STATES:
         raise ValueError(f"K2-prefix takes n_states <= {_MAX_STATES}, got {code.n_states}")
+    n_sms = torch.cuda.get_device_properties(sp.device).multi_processor_count
     (C, P, n_chunks, c_lo, c_hi), G = prefix_plan(code.n_states, T, decode_start, n_decode,
-                                                   tb_chunk)
+                                                   tb_chunk, B, n_sms)
     start = torch.as_tensor(start_state, dtype=torch.int32, device=sp.device)
     start = start.broadcast_to((B,)).contiguous()
     bits = torch.empty((n_decode, B), dtype=torch.int32, device=sp.device)

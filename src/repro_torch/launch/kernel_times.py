@@ -8,11 +8,14 @@ At the main shapes (CCSDS, D = 512, L = 42, T = 596, 8,192 parallel blocks,
 int8 symbols made on the card from a fixed seed, zero start) it prints one
 JSON line of CUDA-event medians in ms: K1 (radix 2, radix 4, i8), K2,
 K2-prefix, K1-matrix (k = 2, 3, 4), the fused kernel (radix 2, radix 4,
-i8, prefix, matrix at k = 2 and 3), and the host-clock medians of
-``"cuda"`` and ``"fused"`` decodes of the 4,194,304-bit stream, at the
-default config and with ``acs_impl="matrix"``; first, the wall time of
-building ``acs.cu`` and ``fused.cu`` (in parallel) where they were not
-built yet, else null. It calls only what every checkout of
+i8, prefix, matrix at k = 2 and 3, prefix with matrix at k = 2), and
+the host-clock medians of ``"cuda"`` and ``"fused"`` decodes of the
+4,194,304-bit stream, at the default config, with ``acs_impl="matrix"``
+and with ``tb_mode="prefix"``; the device time per launch under
+``torch.profiler`` of K2, K2-prefix and the fused serial and prefix
+variants at 8,192, 264 and 32 blocks; first, the wall time of building
+``acs.cu`` and ``fused.cu`` (in parallel), then ``traceback.cu``, where
+they were not built yet, else null. It calls only what every checkout of
 the port since its prefix and matrix slice has, so it can time an older
 tree: ``--src`` imports ``repro_torch`` from there. ``--turns OTHER/src``
 runs OTHER and this checkout in separate processes, in the order OTHER,
@@ -50,6 +53,9 @@ def measure(src: Path) -> dict:
     t0 = time.perf_counter()
     built = _build.build_all(["acs", "fused"])
     build_s = time.perf_counter() - t0 if built else None
+    t0 = time.perf_counter()
+    built = _build.build_all(["traceback"])
+    build_tb_s = time.perf_counter() - t0 if built else None
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cfg = PBVDConfig()
@@ -59,6 +65,8 @@ def measure(src: Path) -> dict:
     y = transmit(gen, coded, 4.0, cfg.codespec.rate)
     engines = {be: DecoderEngine(PBVDConfig(backend=be), device=dev) for be in ("cuda", "fused")}
     engines.update({f"{be} matrix": DecoderEngine(PBVDConfig(backend=be, acs_impl="matrix"),
+                                                  device=dev) for be in ("cuda", "fused")})
+    engines.update({f"{be} prefix": DecoderEngine(PBVDConfig(backend=be, tb_mode="prefix"),
                                                   device=dev) for be in ("cuda", "fused")})
     blocks = engines["cuda"]._frame_one(y, n_bits)[0]
     i8_blocks = DecoderEngine(PBVDConfig(metric_mode="i8"), device=dev)._frame_one(y, n_bits)[0]
@@ -78,6 +86,25 @@ def measure(src: Path) -> dict:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+    def device_ms(fn, reps=10):
+        """Device time per launch of the decoder kernel ``fn`` launches (the
+        profiler's kernels named traceback* or fused*), else None."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+            if us > 0 and ("traceback" in e.key or "fused" in e.key):
+                total, count = total + us, count + e.count
+        return total / count / 1e3 if count else None
 
     def wall_ms(fn, reps=7):
         fn()
@@ -103,13 +130,27 @@ def measure(src: Path) -> dict:
         "fused radix 4": cuda_ms(lambda: fused.pbvd_fused(blocks, code, radix=4, **fkw)),
         "fused i8": cuda_ms(lambda: fused.pbvd_fused(i8_blocks, code, metric_mode="i8", **fkw)),
         "fused prefix": cuda_ms(lambda: fused.pbvd_fused(blocks, code, tb_mode="prefix", **fkw)),
+        "fused prefix matrix": cuda_ms(lambda: fused.pbvd_fused(blocks, code, tb_mode="prefix",
+                                                                impl="matrix", k=2, **fkw)),
         "fused matrix": cuda_ms(lambda: fused.pbvd_fused(blocks, code, impl="matrix", k=2, **fkw)),
         "fused matrix k=3": cuda_ms(lambda: fused.pbvd_fused(blocks, code, impl="matrix", k=3,
                                                              **fkw)),
     }
     for be, eng in engines.items():
         out[f"{be} end to end"] = wall_ms(lambda: eng.decode(y, n_bits))
-    return {"build acs+fused s": build_s, **{k: round(v, 4) for k, v in out.items()}}
+    # device time per launch under the profiler, serial against prefix, at
+    # the main width and two small ones
+    for B in (N_BLOCKS, 264, 32):
+        sp_b, y_b = sp[:, :, :B].contiguous(), blocks[:, :, :B].contiguous()
+        tag = "" if B == N_BLOCKS else f" B={B}"
+        out[f"K2{tag} device"] = device_ms(lambda: traceback.traceback(sp_b, code, cfg.L, cfg.D, 0))
+        out[f"K2-prefix{tag} device"] = device_ms(
+            lambda: traceback.traceback_prefix(sp_b, code, cfg.L, cfg.D, 0, 64))
+        out[f"fused{tag} device"] = device_ms(lambda: fused.pbvd_fused(y_b, code, **fkw))
+        out[f"fused prefix{tag} device"] = device_ms(
+            lambda: fused.pbvd_fused(y_b, code, tb_mode="prefix", **fkw))
+    return {"build acs+fused s": build_s, "build traceback s": build_tb_s,
+            **{k: v if v is None else round(v, 4) for k, v in out.items()}}
 
 
 def card() -> str:

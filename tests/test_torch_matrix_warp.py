@@ -559,14 +559,14 @@ def test_fused_smem_plan_matrix_warp_body(k, S, G, ctas):
 
 def test_routing():
     """Which (code, k, tb_mode) takes which body: the mother codes' K1-matrix
-    and fused serial matrix run the matrix warp body at its one S; (2,1,5)
-    and every prefix walk the runtime-table bodies; float symbols lower to
+    and fused matrix variant (serial or prefix walk) run the matrix warp body
+    at its one S; (2,1,5) the runtime-table bodies; float symbols lower to
     the butterfly."""
     for name in MOTHERS:
         code = get_code_spec(name).code
         assert acs.kernel_body(code) == "warp"
         assert fused.kernel_body(code, "serial") == "warp"
-        assert fused.kernel_body(code, "prefix") == "table"
+        assert fused.kernel_body(code, "prefix") == "warp"
         for k in built_k(code):
             S = acs.matrix_states(code, k)
             assert code.n_states // S <= 32

@@ -212,12 +212,12 @@ def test_smem_plans_count_the_prefix_scratch():
     assert G == 1 and nbytes == 4 * (2 * 256 + 8 + 4224 * 8 + 65 * 256 + 64 + 128)
     with pytest.raises(ValueError, match="with the prefix scratch of tb_chunk=16 needs"):
         fused.smem_plan(4224, 256, "prefix", 16, decode_start=64, n_decode=4096)
-    assert traceback.prefix_smem_plan(64, 9, 9) == (2, 4 * 2 * (9 * 64 + 9))
-    assert traceback.prefix_smem_plan(256, 65, 64)[0] == 1
+    assert traceback.prefix_smem_plan(64, 9, 9) == (32, 4 * 32 * (9 * 64 + 9))
+    assert traceback.prefix_smem_plan(256, 65, 64)[0] == 2
     with pytest.raises(ValueError, match="use a larger tb_chunk"):
         traceback.prefix_smem_plan(256, 554, 512)
     # the plan a K2-prefix launch (and the "cuda" backend, before K1) checks
-    assert traceback.prefix_plan(64, 596, 42, 512, 64) == ((64, 44, 10, 1, 9), 2)
+    assert traceback.prefix_plan(64, 596, 42, 512, 64) == ((64, 44, 10, 1, 9), 32)
     with pytest.raises(ValueError, match="use a larger tb_chunk"):
         traceback.prefix_plan(256, 596, 42, 512, 1)
 

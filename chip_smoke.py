@@ -135,6 +135,30 @@ Then the LM serving path, StarCoder2-3B at full width and depth:
     prefill tokens/s and decode ms per step, and a ``torch.profiler`` window
     over one prefill and 16 decode steps (device busy share, top kernels).
 
+Then streaming, the sessions and the session pool:
+
+18. the 4,194,304-bit stream of phase 4, fed from host memory to
+    ``DecoderEngine(...).session()`` in 4096-bit and in seeded random
+    chunks through ``"cuda"`` and ``"fused"``, at the defaults, at
+    ``acs_radix=4, metric_mode="i8"`` and with ``acs_impl="matrix",
+    tb_mode="prefix"``: each equal to its one-shot decode bit for bit, with
+    the counters at 0 before each session and one launch of each kernel of
+    its path per non-empty chunk after it; B = 1, 2, 3, 5, 8 and 33 blocks
+    per launch on both backends and both walks; a ccsds-3/4 stream in
+    random 1-D chunks and int8 chunks equal to ``"ref"``; a snapshot taken
+    halfway, pickled and restored into a fresh session; ``SessionPool`` over
+    64 streams × 65,536 bits in 16 rounds equal to ``decode_batch``, one
+    launch per group per step (a second group on ``"fused"``); a fault hook
+    that marks 3 of 64 streams, exactly those quarantined by
+    ``step(isolate=True)``; ``serve_decoder.main`` in single and pooled
+    modes;
+19. chunk latency (p50/p99) of one session at 1024-, 4096- and
+    65,536-bit chunks on ``"cuda"`` and ``"fused"``, the pool's step
+    latency and aggregate Mb/s (64 streams, 4096-bit chunks), the host
+    phases of a session step (ingest, window copy and framing, launch,
+    commit) and a ``torch.profiler`` window over 16 pool steps (device busy
+    share, top kernels).
+
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 torch finds no CUDA device or when the port's sources are missing.
@@ -619,6 +643,326 @@ def lm_phases(torch, dev, gen, decoder_counters) -> dict:
                  replaces="src/repro/_unused/flash_attention.py:54", launches=f32_launches,
                  max_abs_err=flash_err[f32], ms=f32_ms, plain_ms=f32_plain_ms, bound_ms=f32_bound,
                  bound_by=f32_by, library_ms=f32_library_ms)]
+
+
+def percentiles(ms: list[float]) -> str:
+    import numpy as np
+
+    a = np.asarray(ms, np.float64)
+    return (f"p50 {np.percentile(a, 50):.3f} ms, p99 {np.percentile(a, 99):.3f} ms, "
+            f"max {a.max():.3f} ms (n={a.size})")
+
+
+def streaming_phases(torch, dev, gen, counters, y, ref_bits) -> None:
+    """Phases 18-19: streaming sessions and the session pool on the card.
+    ``y`` is the main path's stream on the card, ``ref_bits`` its one-shot
+    ``"ref"`` decode; ``counters`` the (key, module, attribute) launch
+    counters of every decoder kernel."""
+    import contextlib
+    import io
+    import pickle
+    import re
+
+    import numpy as np
+
+    from repro_torch.core.channel import transmit
+    from repro_torch.core.codespec import get_code_spec
+    from repro_torch.core.encoder import encode
+    from repro_torch.core.engine import DecoderEngine
+    from repro_torch.core.pbvd import PBVDConfig
+    from repro_torch.core.quantize import quantize_soft
+    from repro_torch.launch import serve_decoder
+    from repro_torch.launch.faults import StreamError
+    from repro_torch.launch.serve_decoder import SessionPool
+
+    cfg = PBVDConfig()
+    D, L = cfg.D, cfg.L
+    n_bits = ref_bits.shape[0]
+    y_host = y.cpu().numpy()  # a receiver hands the session host memory
+    rng = np.random.default_rng(SEED)
+
+    def zero():
+        torch.cuda.synchronize()
+        for _, mod, attr in counters:
+            setattr(mod, attr, 0)
+
+    def read() -> dict:
+        torch.cuda.synchronize()
+        return {key: getattr(mod, attr) for key, mod, attr in counters if getattr(mod, attr)}
+
+    def want_counts(be: str, knobs: dict, n: int) -> dict:
+        mat, pre = knobs.get("acs_impl") == "matrix", knobs.get("tb_mode") == "prefix"
+        if be == "cuda":
+            return {"acs_matrix" if mat else "acs": n, "traceback_prefix" if pre else "traceback": n}
+        return {"fused": n, **({"fused_matrix": n} if mat else {}),
+                **({"fused_prefix": n} if pre else {})}
+
+    def by_rows(yh, rows: int) -> list:
+        return [yh[i : i + rows] for i in range(0, len(yh), rows)]
+
+    def random_parts(yh, n_parts: int) -> list:
+        cuts = np.sort(rng.choice(np.arange(1, len(yh)), n_parts - 1, replace=False))
+        return np.split(yh, cuts)
+
+    def stream(eng, parts, nb, label, want_bits, knobs, be):
+        """Feed ``parts`` to a fresh session with the counters at 0; check the
+        bits and that every non-empty output came from one launch of each
+        kernel of the path."""
+        sess = eng.session()
+        zero()
+        outs = [sess.decode(c) for c in parts]
+        outs.append(sess.finish(nb))
+        counts = read()
+        n_launch = sum(int(o.shape[0] > 0) for o in outs)
+        got = torch.cat(outs)
+        if got.shape != want_bits.shape or not torch.equal(got, want_bits):
+            raise AssertionError(f"session {label}: streamed bits differ from the one-shot decode")
+        if counts != want_counts(be, knobs, n_launch):
+            raise AssertionError(f"session {label}: launches {counts}, expected one of each "
+                                 f"kernel of the path per non-empty chunk ({n_launch})")
+        if sess.bits_emitted != nb:
+            raise AssertionError(f"session {label}: bits_emitted {sess.bits_emitted} != {nb}")
+        return counts, len(parts)
+
+    # ---- 18. streaming equals one-shot -------------------------------------------
+    main_configs = [("cuda", {}), ("fused", {}),
+                    ("cuda", dict(acs_radix=4, metric_mode="i8")),
+                    ("fused", dict(acs_radix=4, metric_mode="i8")),
+                    ("cuda", dict(acs_impl="matrix", tb_mode="prefix")),
+                    ("fused", dict(acs_impl="matrix", tb_mode="prefix"))]
+    engines = {}
+    for be, knobs in main_configs:
+        eng = DecoderEngine(PBVDConfig(backend=be, **knobs), device=dev)
+        engines[be, tuple(knobs.items())] = eng
+        want_bits = eng.decode(y, n_bits) if knobs else ref_bits
+        for chunking, parts in (("4096-bit chunks", by_rows(y_host, 4096)),
+                                ("seeded random chunks", random_parts(y_host, 700))):
+            counts, n_parts = stream(eng, parts, n_bits, f"{be} {knobs} {chunking}", want_bits,
+                                     knobs, be)
+            log(f"[18 session] {n_bits} bits, {be} {knobs or 'default'}, {n_parts} {chunking}: == "
+                f"one-shot{' (ref)' if not knobs else ''} bit for bit; launches {counts}")
+
+    # B parallel blocks per launch: a first chunk of B·D + L stages, then B·D
+    # per chunk; every block's window lies inside the prefix, so its bits are
+    # those of the whole stream's one-shot decode
+    for B in (1, 2, 3, 5, 8, 33):
+        nb = 4 * B * D
+        parts = [y_host[: B * D + L]] + [y_host[L + i * B * D : L + (i + 1) * B * D]
+                                         for i in range(1, 4)]
+        for be in ("cuda", "fused"):
+            for walk in ("serial", "prefix"):
+                knobs = {"tb_mode": walk} if walk == "prefix" else {}
+                eng = DecoderEngine(PBVDConfig(backend=be, **knobs), device=dev)
+                counts, _ = stream(eng, parts, nb, f"B={B} {be} {walk}", ref_bits[:nb], knobs, be)
+                if min(counts.values()) != 4:
+                    raise AssertionError(f"B={B} {be} {walk}: launches {counts}, expected 4")
+        log(f"[18 small B] B={B} blocks per launch, 4 launches: cuda and fused, serial and "
+            f"prefix walks == ref bit for bit")
+
+    # a punctured stream (1-D wire format, random cuts through the puncture
+    # period) and pre-quantized int8 chunks
+    spec34 = get_code_spec("ccsds-3/4")
+    nb34 = n_bits // 4
+    pay34 = torch.randint(0, 2, (nb34 + spec34.code.v,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    y34 = transmit(gen, spec34.puncture_stream(encode(pay34, spec34.code)), EBN0_DB, spec34.rate)
+    eng34 = DecoderEngine(PBVDConfig(spec=spec34), device=dev)
+    want34 = DecoderEngine(PBVDConfig(spec=spec34, backend="ref"), device=dev).decode(y34, nb34)
+    if not torch.equal(eng34.decode(y34, nb34), want34):
+        raise AssertionError("ccsds-3/4 one-shot: cuda differs from ref")
+    counts, n_parts = stream(eng34, random_parts(y34.cpu().numpy(), 500), nb34, "ccsds-3/4",
+                             want34, {}, "cuda")
+    log(f"[18 session] ccsds-3/4, {nb34} bits in {n_parts} random 1-D chunks: == ref bit for "
+        f"bit; launches {counts}; {int((want34 != pay34[:nb34]).sum())} bit errors at "
+        f"{EBN0_DB} dB")
+    yq = quantize_soft(y, 8).cpu().numpy()
+    counts, n_parts = stream(engines["cuda", ()], by_rows(yq, 4096), n_bits, "int8 chunks",
+                             ref_bits, {}, "cuda")
+    log(f"[18 session] pre-quantized int8 chunks ({n_parts}): == ref bit for bit; launches {counts}")
+
+    # a snapshot halfway, through pickle, restored into a fresh session
+    parts = by_rows(y_host, 4096)
+    half = len(parts) // 2
+    first = engines["cuda", ()].session()
+    head = [first.decode(c) for c in parts[:half]]
+    snap = pickle.loads(pickle.dumps(first.snapshot()))
+    second = engines["cuda", ()].session()
+    second.restore(snap)
+    tail = [second.decode(c) for c in parts[half:]] + [second.finish(n_bits)]
+    if not torch.equal(torch.cat(head + tail), ref_bits):
+        raise AssertionError("snapshot/restore: the continued stream differs from ref")
+    log(f"[18 snapshot] snapshot after {half} of {len(parts)} chunks ({len(pickle.dumps(snap))} "
+        f"B pickled, {snap['store']['rows'].shape[0]} buffered stages), restored into a fresh "
+        f"session: == ref bit for bit")
+
+    # the pool: N_STREAMS streams of STREAM_BITS in 16 rounds against decode_batch
+    pay = torch.randint(0, 2, (N_STREAMS, STREAM_BITS), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pay = torch.cat([pay, pay.new_zeros((N_STREAMS, cfg.code.v))], dim=1)
+    ys = transmit(gen, encode(pay, cfg.code), EBN0_DB, cfg.codespec.rate)
+    eng_c, eng_f = engines["cuda", ()], engines["fused", ()]
+    batch = eng_c.decode_batch(list(ys), [STREAM_BITS] * N_STREAMS)
+    ys_host = ys.cpu().numpy()
+    bounds = np.linspace(0, ys_host.shape[1], 17).astype(int)
+    n_fused = 8  # a second group: the first streams again, on "fused"
+
+    def run_pool(isolate_marks=None):
+        pool = SessionPool()
+        handles = [pool.open(eng_c) for _ in range(N_STREAMS)]
+        fhandles = [] if isolate_marks else [pool.open(eng_f) for _ in range(n_fused)]
+        if isolate_marks:
+            marked = {handles[i] for i in isolate_marks}
+
+            def hook(entries, isolating):
+                if any(ps in marked for ps, _ in entries):
+                    raise StreamError("marked stream")
+
+            pool.fault_hook = hook
+        outs = [[] for _ in handles + fhandles]
+        per_step = []
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            for i, h in enumerate(handles + fhandles):
+                h.feed(ys_host[i % N_STREAMS, lo:hi])
+            before = pool.launches
+            zero()
+            pool.step(isolate=bool(isolate_marks))
+            per_step.append((pool.launches - before, read()))
+            for o, h in zip(outs, handles + fhandles):
+                o.append(h.take())
+        return pool, handles, fhandles, outs, per_step
+
+    pool, handles, fhandles, outs, per_step = run_pool()
+    for (n_l, counts), hi in zip(per_step, bounds[1:]):
+        want = (2, {"acs": 1, "traceback": 1, "fused": 1}) if hi >= D + L else (0, {})
+        if (n_l, counts) != want:
+            raise AssertionError(f"pool step: {n_l} launches, kernels {counts}; expected one "
+                                 f"per group (K1 and K2 for cuda, one fused)")
+    for i, h in enumerate(handles + fhandles):
+        got = torch.cat(outs[i] + [h.finish(STREAM_BITS)])
+        if not torch.equal(got, batch[i % N_STREAMS]):
+            raise AssertionError(f"pool stream {i} differs from decode_batch")
+    log(f"[18 pool] {N_STREAMS} streams x {STREAM_BITS} bits on cuda + {n_fused} on fused, 16 "
+        f"rounds: == decode_batch bit for bit; launches per step {[n for n, _ in per_step]} "
+        f"(kernels per step {per_step[-1][1]}); {pool.launches} launches in all "
+        f"with the {N_STREAMS + n_fused} finishes")
+
+    marks = (1, N_STREAMS // 2, N_STREAMS - 1)
+    pool, handles, _, outs, per_step = run_pool(isolate_marks=marks)
+    bad = pool.drain_quarantined()
+    if {ps for ps, _ in bad} != {handles[i] for i in marks} or len(pool) != N_STREAMS - 3:
+        raise AssertionError(f"isolate: quarantined {len(bad)} streams, pool keeps {len(pool)}")
+    for i, h in enumerate(handles):
+        if i in marks:
+            continue
+        if not torch.equal(torch.cat(outs[i] + [h.finish(STREAM_BITS)]), batch[i]):
+            raise AssertionError(f"isolate: healthy stream {i} differs from decode_batch")
+    log(f"[18 isolate] hook marks streams {marks} of {N_STREAMS}: exactly those quarantined "
+        f"({', '.join(type(e).__name__ for _, e in bad)}); the other {N_STREAMS - 3} == "
+        f"decode_batch bit for bit; launches per step {[n for n, _ in per_step]}")
+
+    for argv in (["--chunk-bits", "4096", "--n-chunks", "64"],
+                 ["--streams", "16", "--chunk-bits", "4096", "--n-chunks", "16"]):
+        buf = io.StringIO()
+        zero()
+        with contextlib.redirect_stdout(buf):
+            serve_decoder.main(argv)
+        counts = read()
+        lines = buf.getvalue().strip().splitlines()
+        m = re.search(r"BER = \S+ \((\d+) errors", lines[-1])
+        total = int(argv[argv.index("--chunk-bits") + 1]) * int(argv[argv.index("--n-chunks") + 1])
+        total *= int(argv[1]) if argv[0] == "--streams" else 1
+        if m is None or int(m.group(1)) > total * 1e-3 or counts.get("acs", 0) < 1:
+            raise AssertionError(f"serve_decoder {argv}: {lines}, launches {counts}")
+        for line in lines:
+            log(f"[18 cli] {line}")
+        log(f"[18 cli] launches {counts}")
+
+    # ---- 19. times ---------------------------------------------------------------
+    for be in ("cuda", "fused"):
+        eng = engines[be, ()]
+        for chunk_bits in (1024, 4096, 65536):
+            sess = eng.session()
+            lat = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for c in by_rows(y_host, chunk_bits):
+                t1 = time.perf_counter()
+                sess.decode(c)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t1) * 1e3)
+            sess.finish(n_bits)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            log(f"[19 latency] {be} session, {chunk_bits}-bit chunks: chunk latency "
+                f"{percentiles(lat)}; {n_bits} bits in {wall:.1f} ms = "
+                f"{n_bits / wall / 1e3:.1f} Mb/s")
+
+    for rep in range(2):  # the second run is the one read
+        pool = SessionPool()
+        handles = [pool.open(eng_c) for _ in range(N_STREAMS)]
+        step_ms = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            for i, h in enumerate(handles):
+                h.feed(ys_host[i, lo:hi])
+            t1 = time.perf_counter()
+            pool.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            for h in handles:
+                h.take()
+        for h in handles:
+            h.finish(STREAM_BITS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    log(f"[19 pool] {N_STREAMS} streams x {STREAM_BITS} bits in 16 rounds of "
+        f"{STREAM_BITS // 16}-bit chunks on cuda: step latency {percentiles(step_ms)}; "
+        f"{N_STREAMS * STREAM_BITS} bits in {wall:.1f} ms (feeds, steps, takes, finishes) = "
+        f"aggregate {N_STREAMS * STREAM_BITS / wall / 1e3:.1f} Mb/s")
+
+    # the host phases of a session step at 4096-bit chunks
+    phases = {"ingest": [], "window copy and framing": [], "launch": [], "commit": []}
+    for be in ("cuda", "fused"):
+        eng = engines[be, ()]
+        sess = eng.session()
+        for k in phases:
+            phases[k] = []
+        for c in by_rows(y_host, 4096)[:512]:
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            sess.ingest(c)
+            t.append(time.perf_counter())
+            b1 = sess.ready_blocks()
+            blocks = sess._frame_ready(b1)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            eng._decode_blocks(blocks, (b1 - sess._blocks_done,)).t().reshape(-1)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            sess._commit(b1)
+            t.append(time.perf_counter())
+            for k, a, b in zip(phases, t[:-1], t[1:]):
+                phases[k].append((b - a) * 1e3)
+        log(f"[19 host] {be} session step at 4096-bit chunks (8 blocks), medians over "
+            f"{len(phases['ingest'])} chunks: " + ", ".join(
+                f"{k} {statistics.median(v):.4f} ms" for k, v in phases.items()))
+
+    def sixteen_steps():
+        pool = SessionPool()
+        handles = [pool.open(eng_c) for _ in range(N_STREAMS)]
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            for i, h in enumerate(handles):
+                h.feed(ys_host[i, lo:hi])
+            pool.step()
+
+    wall, kernels_p, busy = device_profile(torch, sixteen_steps)
+    if busy <= 0:
+        log("[19 profile] the profiler saw no device time (not measured)")
+    else:
+        log(f"[19 profile] 16 pool steps of {N_STREAMS} streams: wall {wall:.3f} ms under the "
+            f"profiler, device busy {busy:.3f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; "
+            f"top kernels: " + "; ".join(f"{n} {ms:.3f} ms × {c}" for n, ms, c in kernels_p))
 
 
 def main() -> int:
@@ -1521,6 +1865,7 @@ def main() -> int:
             + "; ".join(f"{n} {ms:.3f} ms × {c}" for n, ms, c in kernels_p))
 
     flash_rows = lm_phases(torch, dev, gen, [(mod, attr) for _, mod, attr in counters])
+    streaming_phases(torch, dev, gen, counters, y, ref_bits)
 
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith(("jax.", "jaxlib")) or mod == "repro" or mod.startswith("repro."):

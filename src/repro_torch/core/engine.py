@@ -1,7 +1,7 @@
-"""The one-shot decode path of the port: ``DecoderEngine``.
+"""The decode path of the port: ``DecoderEngine`` and streaming sessions.
 
-The counterpart of ``repro.core.engine.DecoderEngine`` without the mesh and
-the streaming sessions (still to be ported):
+The counterpart of ``repro.core.engine`` without the mesh (still to be
+ported):
 
 * **codes** come from a :class:`~repro_torch.core.codespec.CodeSpec` —
   punctured streams are depunctured with BM-neutral zeros first;
@@ -16,7 +16,13 @@ the streaming sessions (still to be ported):
   decoded in ONE launch of each kernel (one fused launch on ``"fused"``).
   The kernels mask the ragged lane edge, so no lanes are padded;
   per-stream bits equal sequential :meth:`DecoderEngine.decode` calls
-  because parallel blocks never interact.
+  because parallel blocks never interact;
+* **streaming** is :meth:`DecoderEngine.session`: a
+  :class:`DecoderSession` carries the inter-block overlap tail (host-side,
+  in an :class:`ArraySessionStore`) and the puncture phase across
+  ``decode()`` calls, so an unbounded stream decodes chunk by chunk, bit
+  for bit as the one-shot decode. Each launch holds exactly the ready
+  blocks, so the kernels see 0, 1 or a few blocks per chunk.
 
 The engine runs on the GPU unless the caller asks for the CPU: ``device``
 defaults to ``"cuda"``, and with no CUDA device the engine refuses to start
@@ -27,7 +33,9 @@ are int32 tensors there.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import DeviceUnavailableError, resolve_device
 from repro_torch.kernels.ops import pbvd_decode_blocks
@@ -36,7 +44,77 @@ from repro_torch.launch.faults import SymbolError, check_finite_symbols
 from .codespec import CodeSpec
 from .pbvd import PBVDConfig, frame_stream
 
-__all__ = ["DecoderEngine", "DeviceUnavailableError", "resolve_device"]
+__all__ = [
+    "ArraySessionStore",
+    "DecoderEngine",
+    "DecoderSession",
+    "DeviceUnavailableError",
+    "resolve_device",
+]
+
+
+class ArraySessionStore:
+    """Default storage for a session's buffered soft symbols: one contiguous
+    per-session float32 ndarray on the host.
+
+    A *session store* is the seam that lets a serving layer swap the
+    per-session buffer for shared, slab-allocated pages without the session
+    noticing: :class:`DecoderSession` only ever touches its buffer through
+    this interface. The contract (all stage indices are LOCAL, i.e. relative
+    to the store's first held stage):
+
+    * ``len(store)`` — stages currently held;
+    * ``append(rows)`` — append ``(n, R)`` float-convertible symbol rows;
+    * ``grow(n)`` — append ``n`` all-zero stages (punctured ingest scatters
+      into them afterwards);
+    * ``scatter(stage_idx, sym_idx, values)`` — elementwise write;
+    * ``read(lo, n)`` — up to ``n`` rows from ``lo`` (short at the tail,
+      never padded: framing owns the zero-padding);
+    * ``drop_prefix(n)`` — discard the first ``n`` stages (committed blocks);
+    * ``close()`` — release backing storage (idempotent);
+    * ``snapshot()`` — a picklable dict of the held rows (logical content
+      only, numpy, independent of any device);
+    * ``restore(snap)`` — load a snapshot into an EMPTY store.
+
+    The snapshot format is the reference's, so a snapshot taken on either
+    side restores on the other.
+    """
+
+    def __init__(self, R: int):
+        self._a = np.zeros((0, R), np.float32)
+
+    def __len__(self) -> int:
+        return len(self._a)
+
+    def append(self, rows: np.ndarray) -> None:
+        self._a = np.concatenate([self._a, rows.astype(np.float32)])
+
+    def grow(self, n: int) -> None:
+        if n > 0:
+            self._a = np.concatenate(
+                [self._a, np.zeros((n, self._a.shape[1]), np.float32)]
+            )
+
+    def scatter(self, stage_idx, sym_idx, values) -> None:
+        self._a[stage_idx, sym_idx] = values
+
+    def read(self, lo: int, n: int) -> np.ndarray:
+        return self._a[lo : lo + n]
+
+    def drop_prefix(self, n: int) -> None:
+        if n > 0:
+            self._a = self._a[n:]
+
+    def close(self) -> None:
+        self._a = np.zeros((0, self._a.shape[1]), np.float32)
+
+    def snapshot(self) -> dict:
+        return {"rows": self._a.copy()}
+
+    def restore(self, snap: dict) -> None:
+        if len(self._a):
+            raise ValueError("restore() target store is not empty")
+        self._a = np.asarray(snap["rows"], np.float32).copy()
 
 
 class DecoderEngine:
@@ -103,6 +181,15 @@ class DecoderEngine:
             out.append(bits[:, lo : lo + k].t().reshape(-1)[:n_bits])
             lo += k
         return out
+
+    # ------------------------------------------------------------------ streaming
+    def session(self, *, store=None) -> "DecoderSession":
+        """Open a stateful streaming session (see :class:`DecoderSession`).
+
+        ``store`` swaps the session's symbol buffer for another
+        :class:`ArraySessionStore`-shaped backend.
+        """
+        return DecoderSession(self, store=store)
 
     # ------------------------------------------------------------------ internals
     def _to_device(self, y) -> torch.Tensor:
@@ -185,3 +272,244 @@ class DecoderEngine:
             acs_impl=cfg.acs_impl,
             acs_k=cfg.acs_k,
         )
+
+
+def _host_symbols(chunk) -> np.ndarray:
+    """A chunk as a host numpy array: a tensor (on any device) is copied to
+    the host once, floats as float32."""
+    if isinstance(chunk, torch.Tensor):
+        t = chunk.detach()
+        if t.is_floating_point():
+            t = t.to(torch.float32)
+        return t.cpu().numpy()
+    return np.asarray(chunk)
+
+
+class DecoderSession:
+    """Chunk-by-chunk decoding of an unbounded stream.
+
+    The session buffers received symbols on the host (depuncturing
+    incrementally for punctured specs) and decodes a parallel block as soon
+    as its full window ``[bD - L, bD + D + L)`` is available — exactly the
+    window the one-shot framing would build, so the concatenation of all
+    ``decode()`` outputs plus ``finish()`` is bit-identical to
+    ``engine.decode`` on the whole stream.
+
+    The carried state between calls is the overlap tail (at most ``D + L``
+    stages of soft symbols), the puncture phase, and the block counter.
+
+    Internally the launch is split into three phases so a
+    :class:`~repro_torch.launch.serve_decoder.SessionPool` can pack the ready
+    blocks of many sessions into one launch: :meth:`ready_blocks` (how far
+    the stream can decode), :meth:`_frame_ready` (build the framed window on
+    the engine's device, no launch), and :meth:`_commit` (advance the block
+    counter, trim the buffer). ``decode()``/``finish()`` compose them with a
+    solo launch of exactly the ready blocks. Outputs are int32 tensors on
+    the engine's device.
+    """
+
+    def __init__(self, engine: DecoderEngine, *, store=None):
+        self.engine = engine
+        self.cfg = engine.cfg
+        self.spec = engine.spec
+        # the buffered-symbol storage backend (see ArraySessionStore for the
+        # contract); a serving layer passes a slab-paged store instead
+        self._store = store if store is not None else ArraySessionStore(self.spec.code.R)
+        self._base = 0  # global stage index of the store's first held stage
+        self._blocks_done = 0
+        self._kept_seen = 0  # punctured symbols consumed (puncture phase)
+        self._int_dtype = None  # numpy dtype of pre-quantized (integer) chunks
+        self._started = False
+        self.bits_emitted = 0
+
+    # ---- public API ----------------------------------------------------------------
+    def decode(self, chunk) -> torch.Tensor:
+        """Feed a chunk of received symbols; return newly decodable bits.
+
+        ``chunk`` (numpy or a tensor on any device) is (n, R) full-rate soft
+        symbols for unpunctured specs, or a 1-D punctured symbol stream for
+        punctured specs (the wire format — full-rate chunks would
+        desynchronize the carried puncture phase). Integer chunks are
+        treated as pre-quantized (like ``engine.decode``) and must not be
+        mixed with float chunks. Returns an int32 tensor on the engine's
+        device (possibly empty): ``D`` bits per parallel block whose window
+        is now complete.
+        """
+        self.ingest(chunk)
+        out = self._decode_upto(self.ready_blocks())
+        self.bits_emitted += out.shape[0]
+        return out
+
+    def finish(self, n_bits: int | None = None) -> torch.Tensor:
+        """Flush the stream: decode the remaining blocks (zero-padded tail).
+
+        ``n_bits`` is the total payload length of the stream (defaults to the
+        number of full-rate stages received); the returned tail makes the
+        session's concatenated output equal ``engine.decode(y, n_bits)``.
+        """
+        n_bits, n_blocks, prior = self._finish_plan(n_bits)
+        out = self._decode_upto(n_blocks)
+        out = out[: max(0, n_bits - prior)]
+        self.bits_emitted += out.shape[0]
+        return out
+
+    def close(self) -> None:
+        """Release the session's buffered-symbol storage (idempotent)."""
+        self._store.close()
+
+    def ingest(self, chunk) -> None:
+        """Buffer a chunk without decoding (used by pooled sessions)."""
+        self._ingest(_host_symbols(chunk))
+
+    def snapshot(self) -> dict:
+        """Picklable session state: the buffered-symbol window plus the
+        scalars that position it in the stream (overlap base, block counter,
+        puncture phase, quantization dtype as a numpy dtype string).
+        Restoring it into a fresh session continues the stream bit-exact;
+        the format is the reference's, so snapshots cross between the two
+        packages."""
+        return dict(
+            store=self._store.snapshot(),
+            base=self._base,
+            blocks_done=self._blocks_done,
+            kept_seen=self._kept_seen,
+            int_dtype=(
+                np.dtype(self._int_dtype).str if self._int_dtype is not None else None
+            ),
+            started=self._started,
+            bits_emitted=self.bits_emitted,
+        )
+
+    def restore(self, snap: dict) -> None:
+        """Load a :meth:`snapshot` into this (freshly created) session."""
+        self._store.restore(snap["store"])
+        self._base = int(snap["base"])
+        self._blocks_done = int(snap["blocks_done"])
+        self._kept_seen = int(snap["kept_seen"])
+        self._int_dtype = (
+            np.dtype(snap["int_dtype"]) if snap["int_dtype"] is not None else None
+        )
+        self._started = bool(snap["started"])
+        self.bits_emitted = int(snap["bits_emitted"])
+
+    def ready_blocks(self) -> int:
+        """Highest block index b1 such that blocks [0, b1) are decodable now."""
+        D, L = self.cfg.D, self.cfg.L
+        return max(self._blocks_done, (self._stages_complete() - L) // D)
+
+    # ---- internals -----------------------------------------------------------------
+    def _finish_plan(self, n_bits: int | None) -> tuple[int, int, int]:
+        """The flush arithmetic shared by every finish path.
+
+        Returns ``(n_bits, n_blocks, prior)``: the resolved payload length,
+        the total block count to decode, and the bits already covered by
+        committed blocks. :meth:`finish` and ``PooledSession.finish`` both
+        trim their flush launch with exactly this plan, so the solo and
+        pooled tails are bit-identical for every non-block-aligned
+        ``n_bits``.
+        """
+        D = self.cfg.D
+        if n_bits is None:
+            n_bits = self._base + len(self._store)
+        return n_bits, -(-n_bits // D), self._blocks_done * D
+
+    def _stages_complete(self) -> int:
+        """Stages for which every (unpunctured) symbol has been received."""
+        if not self.spec.is_punctured:
+            return self._base + len(self._store)
+        next_slot = int(self.spec.kept_slot_indices(self._kept_seen, 1)[0])
+        return next_slot // self.spec.code.R
+
+    def _ingest(self, chunk: np.ndarray) -> None:
+        R = self.spec.code.R
+        if chunk.size:
+            # validate BEFORE buffering: a rejected chunk must leave the
+            # session state untouched so the stream (or its quarantine) never
+            # sees a half-ingested chunk
+            check_finite_symbols(chunk, "session send()")
+            # pre-quantized (integer) streams skip the session's quantization,
+            # mirroring engine.decode; mixing dtypes would corrupt the buffer
+            is_int = np.issubdtype(chunk.dtype, np.integer)
+            if not self._started:
+                self._int_dtype = chunk.dtype if is_int else None
+                self._started = True
+            elif is_int != (self._int_dtype is not None):
+                raise SymbolError(
+                    "cannot mix integer (pre-quantized) and float chunks "
+                    "within one session"
+                )
+        if self.spec.is_punctured:
+            if chunk.ndim != 1:
+                # a punctured wire format is the 1-D kept-symbol stream; a
+                # full-rate chunk would desynchronize the puncture phase
+                raise SymbolError(
+                    f"punctured sessions take 1-D punctured symbol chunks, "
+                    f"got shape {chunk.shape}"
+                )
+            n = len(chunk)
+            if n == 0:
+                return
+            slots = self.spec.kept_slot_indices(self._kept_seen, n)
+            need_stages = int(slots[-1]) // R + 1
+            grow = need_stages - (self._base + len(self._store))
+            if grow > 0:
+                self._store.grow(grow)
+            local = slots - self._base * R
+            self._store.scatter(local // R, local % R, chunk)
+            self._kept_seen += n
+        elif chunk.ndim == 2 and chunk.shape[1] == R:
+            self._store.append(chunk)
+        else:
+            raise SymbolError(
+                f"chunk shape {chunk.shape} invalid for code R={R} "
+                f"(punctured={self.spec.is_punctured})"
+            )
+
+    def _frame_ready(self, b1: int) -> torch.Tensor:
+        """Frame blocks [blocks_done, b1) → (T, R, b1 - blocks_done) quantized
+        symbols on the engine's device, zero-padding the first block's left
+        edge and the partial last block past the buffered tail.
+
+        Only the buffered rows of the window cross to the device; the zero
+        pads are added there after quantization (a zero symbol quantizes to
+        zero), and the quantizer is elementwise, so the symbols equal the
+        one-shot path's. Does NOT advance the session (see :meth:`_commit`).
+        """
+        b0 = self._blocks_done
+        k = b1 - b0
+        cfg = self.cfg
+        D, L = cfg.D, cfg.L
+        T = D + 2 * L
+        lo = b0 * D - L  # global first stage of the combined window
+        hi_pad = b1 * D + L  # exclusive global end incl. padding
+        left_pad = max(0, -lo)  # only the very first block reaches stage -L
+        need = hi_pad - max(lo, 0)
+        window = self._store.read(max(lo, 0) - self._base, need)
+        if self._int_dtype is not None:  # pre-quantized stream: exact passthrough
+            y = self.engine._to_device(window.astype(self._int_dtype))
+        else:
+            y = torch.from_numpy(np.ascontiguousarray(window)).to(self.engine.device)
+            y = cfg.quantize(y)
+        y = F.pad(y, (0, 0, left_pad, need - len(window)))  # (k·D + 2L, R)
+        idx = torch.arange(T, device=y.device)[:, None] + torch.arange(k, device=y.device) * D
+        return y[idx].permute(0, 2, 1).contiguous()  # (T, R, k)
+
+    def _commit(self, b1: int) -> None:
+        """Advance past blocks [blocks_done, b1); trim the consumed buffer."""
+        D, L = self.cfg.D, self.cfg.L
+        self._blocks_done = b1
+        new_base = max(0, b1 * D - L)
+        drop = new_base - self._base
+        if drop > 0:
+            self._store.drop_prefix(min(drop, len(self._store)))
+            self._base = new_base
+
+    def _decode_upto(self, b1: int) -> torch.Tensor:
+        """Decode blocks [blocks_done, b1) in one solo launch; advance."""
+        k = b1 - self._blocks_done
+        if k <= 0:
+            return torch.zeros((0,), dtype=torch.int32, device=self.engine.device)
+        bits = self.engine._decode_blocks(self._frame_ready(b1), (k,))  # (D, k)
+        out = bits.t().reshape(-1)
+        self._commit(b1)
+        return out

@@ -39,7 +39,7 @@ from .quantize import (
 )
 from .trellis import CCSDS_27, ConvCode
 
-__all__ = ["PBVDConfig", "frame_stream", "throughput_model"]
+__all__ = ["PBVDConfig", "decode_stream", "frame_stream", "throughput_model"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +172,17 @@ def frame_stream(y: torch.Tensor, D: int, L: int, n_blocks: int) -> torch.Tensor
     idx = torch.arange(T, device=y.device)[:, None] + torch.arange(n_blocks, device=y.device) * D
     blocks = yp.index_select(-2, idx.reshape(-1)).reshape(*lead, T, n_blocks, R)
     return blocks.transpose(-1, -2).contiguous()
+
+
+def decode_stream(y, n_bits: int, cfg: PBVDConfig = PBVDConfig(), *, device=None) -> torch.Tensor:
+    """Decode a soft-symbol stream. y: (n_sym, R) → (n_bits,) int32 bits.
+
+    Thin wrapper over :class:`~repro_torch.core.engine.DecoderEngine`;
+    ``device`` follows the engine's rule (``None`` means ``"cuda"``).
+    """
+    from .engine import DecoderEngine  # the engine imports this module
+
+    return DecoderEngine(cfg, device=device).decode(y, n_bits)
 
 
 def throughput_model(

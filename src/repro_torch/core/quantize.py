@@ -2,17 +2,24 @@
 
 The port's counterpart of ``repro.core.quantize``: soft symbols are
 quantized to q-bit signed integers (int8 for q ≤ 8) before framing, so the
-forward ACS kernel reads one byte per symbol. The saturation-budget helpers
-are copied as they are; they are plain integer arithmetic on the code.
+forward ACS kernel reads one byte per symbol. The packing helpers are the
+paper's storage schemes: ⌊32/q⌋ q-bit symbols per int32 word and eight
+decoded bits per byte. The saturation-budget helpers are copied as they
+are; they are plain integer arithmetic on the code.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 __all__ = [
     "quantize_soft",
     "dequantize_soft",
+    "pack_words",
+    "unpack_words",
+    "pack_bits",
+    "unpack_bits",
     "u1_bytes",
     "u2_bytes",
     "pm_spread_bound",
@@ -52,6 +59,59 @@ def dequantize_soft(z: torch.Tensor, q: int = 8, scale: float | None = None) -> 
     if scale is None:
         scale = qmax / 4.0
     return z.to(torch.float32) / scale
+
+
+def pack_words(z: torch.Tensor, q: int = 8) -> torch.Tensor:
+    """Pack q-bit values along the last axis into int32 words (⌊32/q⌋ per word).
+
+    A last-dim length that is not a multiple of ⌊32/q⌋ is zero-padded into the
+    final word; ``unpack_words(..., per_axis_len=n)`` trims the pad again.
+    Where ⌊32/q⌋·q = 32 the last value lands on bit 31, the int32 sign bit:
+    the words are summed in int64 and wrapped to int32 explicitly.
+    """
+    per = 32 // q
+    n = z.shape[-1]
+    if n % per:
+        z = F.pad(z, (0, (-n) % per))
+    zi = z.to(torch.int64) & ((1 << q) - 1)
+    zi = zi.reshape(*z.shape[:-1], z.shape[-1] // per, per)
+    shifts = torch.arange(per, dtype=torch.int64, device=z.device) * q
+    w = (zi << shifts).sum(dim=-1)  # disjoint bit ranges: the sum is the OR
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def unpack_words(w: torch.Tensor, q: int = 8, per_axis_len: int | None = None) -> torch.Tensor:
+    """Inverse of pack_words; returns sign-extended int32 values."""
+    per = 32 // q
+    shifts = torch.arange(per, dtype=torch.int64, device=w.device) * q
+    vals = (w.to(torch.int64)[..., None] >> shifts) & ((1 << q) - 1)
+    sign_bit = 1 << (q - 1)
+    vals = torch.where(vals >= sign_bit, vals - (1 << q), vals)
+    out = vals.reshape(*w.shape[:-1], w.shape[-1] * per)
+    if per_axis_len is not None:
+        out = out[..., :per_axis_len]
+    return out.to(torch.int32)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Pack bits (..., T) with T % 8 == 0 into uint8 bytes (..., T/8). LSB-first."""
+    t = bits.shape[-1]
+    if t % 8:
+        raise ValueError(f"bit length {t} not a multiple of 8")
+    b = bits.to(torch.uint8).reshape(*bits.shape[:-1], t // 8, 8)
+    weights = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8, device=bits.device)
+    return (b * weights).sum(dim=-1).to(torch.uint8)
+
+
+def unpack_bits(bytes_: torch.Tensor, n_bits: int | None = None) -> torch.Tensor:
+    """Inverse of pack_bits: (..., nb) uint8 → (..., 8·nb) int32 bits, trimmed
+    to ``n_bits``."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bytes_.device)
+    bits = (bytes_[..., None] >> shifts) & 1
+    out = bits.reshape(*bytes_.shape[:-1], bytes_.shape[-1] * 8).to(torch.int32)
+    if n_bits is not None:
+        out = out[..., :n_bits]
+    return out
 
 
 def u1_bytes(R: int, q: int | None) -> float:

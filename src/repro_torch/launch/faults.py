@@ -1,10 +1,12 @@
 """The engine-boundary part of the failure taxonomy (``repro.launch.faults``).
 
-Only what the one-shot decode path raises is here: the root
-:class:`DecodeError`, the per-stream :class:`StreamError`, the symbol
-validation error :class:`SymbolError` and the non-finite symbol check. The
-serving taxonomy (dispatch, capacity, retry and fault injection) comes with
-the port of the serving layer.
+Only what the decode path, the streaming sessions and the session pool
+raise is here: the root :class:`DecodeError`, the per-stream
+:class:`StreamError` (the pool's quarantine records), the symbol validation
+error :class:`SymbolError` and the non-finite symbol check, which takes
+tensors and the sessions' host numpy chunks alike. The rest of the serving
+taxonomy (dispatch, capacity, retry and fault injection) comes with the port
+of the async service.
 """
 
 from __future__ import annotations

@@ -1,0 +1,534 @@
+"""Serving entry point: streaming decode through the DecoderEngine + SessionPool.
+
+    # one stream, one session:
+    PYTHONPATH=src python -m repro_torch.launch.serve_decoder --code ccsds-3/4 \\
+        --chunk-bits 4096 --n-chunks 100 --ebn0 4.0
+
+    # many concurrent streams coalesced into batched launches:
+    PYTHONPATH=src python -m repro_torch.launch.serve_decoder --streams 16 \\
+        --chunk-bits 1024 --n-chunks 50
+
+The counterpart of ``repro.launch.serve_decoder`` on one card, without the
+mesh and without the async and durable serving modes (ROADMAP A.3, A.4). A
+long-lived session object carries the decoder state (the inter-block overlap
+tail + puncture phase) across chunks, so an unbounded symbol stream decodes
+chunk by chunk — the serving shape of the paper's multi-stream pipelining
+(§IV-D). It runs on the card (``--device cuda``, the default, with
+``--backend cuda``); ``--device cpu`` is a rehearsal with the kernels' plain
+versions, whose times are the CPU's.
+
+The :class:`SessionPool` is the multi-tenant layer on top: many concurrent
+:class:`~repro_torch.core.engine.DecoderSession`\\ s register with the pool,
+chunks are *fed* (buffered) per session, and :meth:`SessionPool.step`
+coalesces every session's ready blocks — grouped by launch compatibility —
+into ONE ``pbvd_decode_blocks`` launch per group (one launch of each kernel
+the backend runs). Each session keeps its own overlap tail and puncture
+phase; only the launch is shared, so per-session bits stay bit-exact to a
+solo session.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from repro_torch.core.channel import transmit
+from repro_torch.core.codespec import available_code_specs, get_code_spec
+from repro_torch.core.encoder import encode, terminate
+from repro_torch.core.engine import DecoderEngine, DecoderSession
+from repro_torch.core.pbvd import PBVDConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import (
+    DEFAULT_TB_CHUNK,
+    available_backends,
+    backend_tb_chunk_sensitive,
+)
+from repro_torch.kernels.registry import resolve_tb_mode
+from repro_torch.launch.faults import StreamError
+
+__all__ = ["SessionPool", "PooledSession", "main"]
+
+
+def _no_bits(device) -> torch.Tensor:
+    return torch.zeros((0,), dtype=torch.int32, device=device)
+
+
+class PooledSession:
+    """One stream's handle inside a :class:`SessionPool`.
+
+    ``feed`` buffers a chunk (no launch); decoded bits arrive on the next
+    :meth:`SessionPool.step` and are drained with :meth:`take`. ``finish``
+    flushes the zero-padded tail exactly like ``DecoderSession.finish``.
+    """
+
+    def __init__(self, pool: "SessionPool", session: DecoderSession):
+        self._pool = pool
+        self._session = session
+        self._queue: list[torch.Tensor] = []
+        self.bits_emitted = 0
+
+    def feed(self, chunk) -> None:
+        """Buffer a chunk of received symbols (same wire formats as
+        ``DecoderSession.decode``); decoding happens at ``pool.step()``."""
+        self._session.ingest(chunk)
+
+    def take(self) -> torch.Tensor:
+        """Drain every decoded bit delivered by pool steps so far."""
+        if not self._queue:
+            return _no_bits(self._session.engine.device)
+        out = torch.cat(self._queue)
+        self._queue.clear()
+        return out
+
+    def finish(self, n_bits: int | None = None) -> torch.Tensor:
+        """Flush the stream: any undrained step() output first, then the
+        remaining blocks (zero-padded tail), trimmed so the session's total
+        delivery is ``n_bits``.
+
+        Undelivered step() output is folded into the return value (an
+        implicit :meth:`take`), so ``finish`` alone accounts for every
+        decoded bit. The flush launch is framed and trimmed by the same
+        ``DecoderSession._finish_plan`` / ``_frame_ready`` path as
+        ``DecoderSession.finish``, so pooled and solo tails are
+        bit-identical for every non-block-aligned ``n_bits``.
+        """
+        s = self._session
+        n_bits, n_blocks, prior = s._finish_plan(n_bits)
+        if n_blocks > s._blocks_done:
+            # launch BEFORE draining the queue: a failed flush launch then
+            # leaves the handle exactly as it was (the launch commits nothing
+            # on failure), so the caller can retry finish() without losing
+            # the undrained step() output
+            tail = self._pool._launch([(self, n_blocks)])[0]
+        else:
+            tail = _no_bits(s.engine.device)
+        head = self.take()
+        tail = tail[: max(0, n_bits - prior)]
+        self.bits_emitted += tail.shape[0]
+        return torch.cat([head, tail]) if head.shape[0] else tail
+
+    def _deliver(self, bits: torch.Tensor) -> None:
+        self._queue.append(bits)
+        self.bits_emitted += bits.shape[0]
+
+
+class SessionPool:
+    """Coalesce the ready blocks of many concurrent sessions into batched
+    kernel launches.
+
+    Sessions are grouped by *launch compatibility* — the key is
+    ``(mother code, D, L, backend, start_policy, metric_mode, acs_impl,
+    radix under butterfly, k under matrix, resolved tb_mode, tb_chunk where
+    it matters, window dtype, engine device)``: everything that shapes or
+    parameterizes the launch. Code specs that share a mother code but differ
+    in puncturing land in the same group (puncturing only affects ingest),
+    as do sessions with different payload lengths or chunk cadences; a CPU
+    engine and a CUDA engine never share a launch.
+
+    One :meth:`step` builds, per group, a single frames × blocks lane axis
+    from each member's ready window (``frame_counts`` records the
+    per-session block counts), launches once with exactly those blocks (the
+    kernels mask the ragged lane edge, so nothing is padded), and hands the
+    per-frame bits back to each session, which then advances its own
+    overlap tail exactly as a solo launch would have.
+    """
+
+    def __init__(self):
+        self._members: list[PooledSession] = []
+        self.launches = 0  # batched launches issued (for reporting/tests)
+        # fault-tolerance hooks: ``fault_hook(entries, isolating)`` is
+        # consulted before every launch (the injection point for a fault
+        # injector); quarantined members land in ``quarantined`` as
+        # (session, StreamError) pairs for the serving layer to drain
+        self.fault_hook = None
+        self.quarantined: list[tuple[PooledSession, StreamError]] = []
+
+    # ---- membership ----------------------------------------------------------------
+    def open(self, engine: DecoderEngine, *, store=None) -> PooledSession:
+        """Open a pooled streaming session on ``engine``; ``store`` is
+        forwarded to :meth:`DecoderEngine.session`."""
+        ps = PooledSession(self, engine.session(store=store))
+        self._members.append(ps)
+        return ps
+
+    def close(self, ps: PooledSession) -> None:
+        """Remove a session from the pool (it keeps its buffered state).
+        Idempotent: closing a closed (or never-opened) member is a no-op."""
+        if ps in self._members:
+            self._members.remove(ps)
+
+    def __len__(self) -> int:
+        return len(self._members)
+
+    # ---- scheduling ----------------------------------------------------------------
+    def pending_blocks(self) -> int:
+        """Blocks decodable right now across every member."""
+        return sum(
+            ps._session.ready_blocks() - ps._session._blocks_done
+            for ps in self._members
+        )
+
+    def step(self, *, isolate: bool = False) -> int:
+        """Decode every ready block in the pool; returns the block count.
+
+        Sessions with no complete window are skipped; compatible sessions
+        share one launch per group. A failed launch commits nothing —
+        sessions only advance after their bits exist — so a plain ``step``
+        that raises is safely retryable as-is.
+
+        ``isolate=True`` switches to the quarantine protocol: a group whose
+        launch raises is bisected until the culprit member(s) are isolated,
+        each culprit is removed from the pool with a typed
+        :class:`~repro_torch.launch.faults.StreamError` recorded in
+        ``self.quarantined``, and every healthy member's relaunch delivers
+        bits identical to an undisturbed step (PBVD blocks are mutually
+        independent, so batch composition never changes per-stream bits).
+        """
+        groups: dict[tuple, list[tuple[PooledSession, int]]] = defaultdict(list)
+        for ps in self._members:
+            s = ps._session
+            b1 = s.ready_blocks()
+            if b1 > s._blocks_done:
+                groups[self._group_key(s)].append((ps, b1))
+        total = 0
+        for entries in groups.values():
+            if isolate:
+                delivered = self._launch_isolated(entries)
+            else:
+                delivered = list(zip(entries, self._launch(entries)))
+            for (ps, _), bits in delivered:
+                ps._deliver(bits)
+                total += bits.shape[0] // ps._session.cfg.D
+        return total
+
+    # ---- internals -----------------------------------------------------------------
+    @staticmethod
+    def _group_key(s: DecoderSession) -> tuple:
+        cfg = s.cfg
+        q = cfg.effective_q  # narrow metric modes force/cap the quantizer
+        if s._int_dtype is not None:
+            dt = np.dtype(s._int_dtype).str
+        elif q is not None:
+            dt = "int8" if q <= 8 else "int16"
+        else:
+            dt = "float32"
+        # key on the RESOLVED tb mode so an "auto" session coalesces with
+        # one that spelled the backend's preferred mode out explicitly
+        tb_mode = resolve_tb_mode(cfg.backend, cfg.tb_mode)
+        return (
+            cfg.code,
+            cfg.D,
+            cfg.L,
+            cfg.backend,
+            cfg.start_policy,
+            cfg.metric_mode,
+            # each acs_impl's inert knob is dropped from the key, so e.g.
+            # matrix sessions coalesce regardless of their butterfly radix
+            cfg.acs_impl,
+            cfg.acs_radix if cfg.acs_impl == "butterfly" else None,
+            cfg.acs_k if cfg.acs_impl == "matrix" else None,
+            tb_mode,
+            # tb_chunk only parameterizes chunk-sensitive prefix launches
+            cfg.tb_chunk
+            if tb_mode == "prefix" and backend_tb_chunk_sensitive(cfg.backend)
+            else None,
+            dt,
+            s.engine.device,
+        )
+
+    def _launch(
+        self,
+        entries: list[tuple[PooledSession, int]],
+        *,
+        isolating: bool = False,
+    ) -> list[torch.Tensor]:
+        """One batched launch for ``entries`` = [(session, decode-up-to-b1)].
+
+        Returns each entry's decoded bits (whole blocks, forward order) and
+        commits each session's overlap tail past the decoded blocks. An
+        exception (from the hook or the kernel) commits NOTHING, so the
+        identical launch can be rebuilt from session state.
+        """
+        if self.fault_hook is not None:
+            self.fault_hook(entries, isolating)
+        frames, counts = [], []
+        for ps, b1 in entries:
+            s = ps._session
+            frames.append(s._frame_ready(b1))
+            counts.append(b1 - s._blocks_done)
+        packed = torch.cat(frames, dim=2) if len(frames) > 1 else frames[0]
+        lead = entries[0][0]._session
+        bits = lead.engine._decode_blocks(packed, tuple(counts))  # (D, sum(counts))
+        self.launches += 1
+        outs, lo = [], 0
+        for (ps, b1), k in zip(entries, counts):
+            outs.append(bits[:, lo : lo + k].t().reshape(-1))
+            ps._session._commit(b1)
+            lo += k
+        return outs
+
+    # ---- quarantine ----------------------------------------------------------------
+    def _launch_isolated(
+        self, entries: list[tuple[PooledSession, int]]
+    ) -> list[tuple[tuple[PooledSession, int], torch.Tensor]]:
+        """Launch ``entries``, bisecting on failure to isolate culprits.
+
+        Healthy members decode bit-exact to the full coalesced launch (block
+        independence); members whose single-member launch still fails are
+        quarantined via :meth:`_quarantine` and excluded from the result.
+        Worst case this costs O(f·log n) launches for f culprits among n
+        members.
+        """
+        try:
+            outs = self._launch(entries, isolating=True)
+            return list(zip(entries, outs))
+        except Exception as exc:  # noqa: BLE001 - classify, don't mask
+            if len(entries) == 1:
+                ps = entries[0][0]
+                err = (
+                    exc
+                    if isinstance(exc, StreamError)
+                    else StreamError(
+                        f"stream quarantined: its lane-group reproducibly "
+                        f"fails the launch ({exc!r})",
+                        stream=ps,
+                    )
+                )
+                if err.__cause__ is None and err is not exc:
+                    err.__cause__ = exc
+                self._quarantine(ps, err)
+                return []
+            mid = len(entries) // 2
+            return self._launch_isolated(entries[:mid]) + self._launch_isolated(
+                entries[mid:]
+            )
+
+    def _quarantine(self, ps: PooledSession, err: StreamError) -> None:
+        """Remove ``ps`` from the pool and record its typed failure; the
+        member's buffered session state is left intact."""
+        self.close(ps)
+        self.quarantined.append((ps, err))
+
+    def drain_quarantined(self) -> list[tuple[PooledSession, StreamError]]:
+        """Hand the accumulated quarantine records to the caller (and reset)."""
+        out, self.quarantined = self.quarantined, []
+        return out
+
+    def repoint_engine(self, old: DecoderEngine, new: DecoderEngine) -> int:
+        """Swap every member bound to engine ``old`` onto ``new``. Members'
+        ready-but-undecoded blocks replay on the new engine at the next
+        step, bit-exact to the uninterrupted run (block content is host-side
+        session state). Returns the number of members repointed.
+        """
+        n = 0
+        for ps in self._members:
+            s = ps._session
+            if s.engine is old:
+                s.engine = new
+                n += 1
+        return n
+
+
+# ---------------------------------------------------------------------------
+# Command line
+# ---------------------------------------------------------------------------
+def _make_stream(spec, n_bits: int, ebn0: float, seed: int, device):
+    """A seeded transmission: the payload (numpy) and the received symbols,
+    made on ``device`` and handed over as host numpy, as a receiver's
+    front end would deliver them."""
+    rng = np.random.default_rng(seed)
+    payload = rng.integers(0, 2, n_bits)
+    coded = encode(torch.as_tensor(terminate(payload, spec.code), device=device), spec.code)
+    tx = spec.puncture_stream(coded) if spec.is_punctured else coded
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return payload, transmit(gen, tx, ebn0, spec.rate).cpu().numpy()
+
+
+def _latency_summary(lat_ms) -> str:
+    """p50/p99 of a latency sample, guarded for tiny sample counts —
+    ``np.percentile`` on an empty array raises, and a p99 quoted from a
+    handful of chunks is noise dressed as a tail, so say so."""
+    lat = np.asarray(lat_ms, np.float64)
+    if lat.size == 0:
+        return "no latency samples"
+    out = f"p50={np.percentile(lat, 50):.1f} ms p99={np.percentile(lat, 99):.1f} ms"
+    if lat.size < 20:  # p99 interpolated from < 20 samples ≈ the max
+        out += f" (n={lat.size}: p99≈max)"
+    return out
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _serve_single(engine, spec, cfg, args) -> None:
+    n_bits = args.chunk_bits * args.n_chunks
+    payload, y = _make_stream(spec, n_bits, args.ebn0, args.seed, engine.device)
+    sess = engine.session()
+    bounds = np.linspace(0, len(y), args.n_chunks + 1).astype(int)
+    decoded, lat_ms = [], []
+    t0 = time.perf_counter()
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        t1 = time.perf_counter()
+        decoded.append(sess.decode(y[lo:hi]))
+        _sync(engine.device)  # a chunk's latency ends when its bits exist
+        lat_ms.append((time.perf_counter() - t1) * 1e3)
+    # the finish flush decodes the final (often largest) window
+    t1 = time.perf_counter()
+    decoded.append(sess.finish(n_bits))
+    _sync(engine.device)
+    lat_ms.append((time.perf_counter() - t1) * 1e3)
+    dt = time.perf_counter() - t0
+
+    bits = torch.cat(decoded).cpu().numpy()
+    errors = int(np.sum(bits != payload))
+    print(
+        f"[serve_decoder] {n_bits} bits in {dt*1e3:.0f} ms → {n_bits/dt/1e6:.2f} Mbps; "
+        f"chunk latency {_latency_summary(lat_ms)}"
+    )
+    print(f"[serve_decoder] BER = {errors / n_bits:.2e} ({errors} errors)")
+
+
+def _serve_pooled(engine, spec, cfg, args) -> None:
+    n_bits = args.chunk_bits * args.n_chunks
+    streams = [
+        _make_stream(spec, n_bits, args.ebn0, args.seed + i, engine.device)
+        for i in range(args.streams)
+    ]
+    pool = SessionPool()
+    handles = [pool.open(engine) for _ in streams]
+    bounds = np.linspace(0, len(streams[0][1]), args.n_chunks + 1).astype(int)
+    outs = [[] for _ in streams]
+    step_ms = []
+    t0 = time.perf_counter()
+    for lo, hi in zip(bounds[:-1], bounds[1:]):  # one ingest round, one step
+        for (_, y), h in zip(streams, handles):
+            h.feed(y[lo:hi])
+        t1 = time.perf_counter()
+        pool.step()
+        _sync(engine.device)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        for i, h in enumerate(handles):
+            outs[i].append(h.take())
+    for i, h in enumerate(handles):
+        outs[i].append(h.finish(n_bits))
+    _sync(engine.device)
+    dt = time.perf_counter() - t0
+
+    total_bits = n_bits * args.streams
+    errors = sum(
+        int(np.sum(torch.cat(o).cpu().numpy() != p)) for o, (p, _) in zip(outs, streams)
+    )
+    print(
+        f"[serve_decoder] {args.streams} streams × {n_bits} bits in {dt*1e3:.0f} ms "
+        f"→ aggregate {total_bits/dt/1e6:.2f} Mbps; "
+        f"{pool.launches} batched launches "
+        f"({args.n_chunks * args.streams} chunks fed); "
+        f"step latency {_latency_summary(step_ms)}"
+    )
+    print(
+        f"[serve_decoder] BER = {errors/total_bits:.2e} ({errors} errors "
+        f"over {total_bits} bits)"
+    )
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--code", default="ccsds", choices=available_code_specs())
+    ap.add_argument("--backend", default="cuda", choices=available_backends())
+    ap.add_argument(
+        "--device", default=None, help="cuda (the default) or cpu for a rehearsal"
+    )
+    ap.add_argument("--d", type=int, default=512, help="decode block length D")
+    ap.add_argument("--l", type=int, default=42, help="traceback depth L")
+    ap.add_argument("--q", type=int, default=8, help="quantization bits (0 = float32)")
+    ap.add_argument(
+        "--metric-mode",
+        default="f32",
+        choices=["f32", "i16", "i8"],
+        help="path-metric pipeline (narrow modes re-cap q to the saturation budget)",
+    )
+    ap.add_argument(
+        "--tb-mode",
+        default="auto",
+        choices=["auto", "serial", "prefix"],
+        help="traceback algorithm (auto = the backend's declared mode; "
+        "prefix = chunked survivor-map composition)",
+    )
+    ap.add_argument(
+        "--tb-chunk",
+        type=int,
+        default=DEFAULT_TB_CHUNK,
+        help="prefix traceback chunk size (stages composed per chunk map)",
+    )
+    ap.add_argument(
+        "--acs-radix",
+        type=int,
+        default=2,
+        choices=[2, 4],
+        help="forward-ACS radix (4 = stage-fused two-stage steps, bit-exact)",
+    )
+    ap.add_argument(
+        "--acs-impl",
+        default="butterfly",
+        choices=["butterfly", "matrix"],
+        help="forward-pass formulation (matrix = k-stage (min,+) steps, bit-exact)",
+    )
+    ap.add_argument(
+        "--acs-k",
+        type=int,
+        default=2,
+        help="matrix-ACS fusion depth k (stages per (min,+) step)",
+    )
+    ap.add_argument("--chunk-bits", type=int, default=4096, help="payload bits per chunk")
+    ap.add_argument("--n-chunks", type=int, default=100)
+    ap.add_argument(
+        "--streams",
+        type=int,
+        default=1,
+        help="concurrent streams; >1 coalesces sessions through a SessionPool",
+    )
+    ap.add_argument("--ebn0", type=float, default=4.0)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device, user="serve_decoder")
+    spec = get_code_spec(args.code)
+    cfg = PBVDConfig(
+        spec=spec,
+        D=args.d,
+        L=args.l,
+        q=args.q or None,
+        backend=args.backend,
+        metric_mode=args.metric_mode,
+        tb_mode=args.tb_mode,
+        tb_chunk=args.tb_chunk,
+        acs_radix=args.acs_radix,
+        acs_impl=args.acs_impl,
+        acs_k=args.acs_k,
+    )
+    engine = DecoderEngine(cfg, device=device)
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
+    print(
+        f"[serve_decoder] {spec.name} on {where}: K={spec.code.K}, rate={spec.rate:.3f}, "
+        f"D={cfg.D}, L={cfg.L}, q={cfg.effective_q}, backend={cfg.backend}, "
+        f"metric_mode={cfg.metric_mode}, tb_mode={cfg.tb_mode} "
+        f"(→ {resolve_tb_mode(cfg.backend, cfg.tb_mode)}), "
+        f"acs_impl={cfg.acs_impl}"
+        f"{f' (k={cfg.acs_k})' if cfg.acs_impl == 'matrix' else f', acs_radix={cfg.acs_radix}'}; "
+        f"{args.streams} stream(s) × {args.chunk_bits * args.n_chunks} payload bits "
+        f"in {args.n_chunks} chunks at Eb/N0={args.ebn0} dB"
+    )
+    if args.streams > 1:
+        _serve_pooled(engine, spec, cfg, args)
+    else:
+        _serve_single(engine, spec, cfg, args)
+
+
+if __name__ == "__main__":
+    main()

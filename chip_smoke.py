@@ -159,6 +159,29 @@ Then streaming, the sessions and the session pool:
     commit) and a ``torch.profiler`` window over 16 pool steps (device busy
     share, top kernels).
 
+Then the serving fabric, the async service over paged slabs:
+
+20. on ``"cuda"`` and ``"fused"`` at the defaults, each run with the
+    counters at 0 before it and one launch of each kernel of the path per
+    pool launch after it, no slab page left in use, and every stream equal
+    bit for bit to its one-shot ``engine.decode``: ``run_poisson_trace`` of
+    64 streams × 65,536 bits in 4096-bit chunks through a slab of 1024
+    pages of D + 2L = 596 stages, at 25 and 200 chunks/s per stream
+    (dispatches, launches, blocks per launch, slab high-water, slab
+    backpressure); 512 streams × 8192 bits through 1024 pages; the
+    reference's chaos schedule (stream poison, dispatch, slab, device loss,
+    an admission fault) plus a silent corruption caught by the integrity
+    sentinel, on 64 streams at 14 dB: healthy streams exact, failures typed,
+    the injector's and the service's counts equal to the schedule; the
+    ``serve_decoder`` CLI in its durable mode, killed by SIGKILL at its
+    third dispatch and recovered from its journal, every stream exact and
+    delivered once;
+21. chunk latency p50/p99 and sustained Mb/s of the 25 chunks/s trace on
+    ``"cuda"`` at deadline 1 and 5 ms × ``max_batch_blocks`` 32 and 512,
+    and a ``torch.profiler`` window over one trace (device busy share, top
+    kernels, device time per pool launch against the p50), each line with
+    the card's name and power limit.
+
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 torch finds no CUDA device or when the port's sources are missing.
@@ -178,6 +201,7 @@ SEED = 20261016
 N_MAIN_BLOCKS = 8192  # 8192 × D=512 = 4,194,304 decoded bits
 EBN0_DB = 4.0
 N_STREAMS, STREAM_BITS = 64, 65536
+SLAB_STREAMS, SLAB_STREAM_BITS, SLAB_PAGES = 512, 8192, 1024  # phase 20's slab
 
 # H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM3. The sheet gives
 # 67 TFLOP/s float32 outside the tensor cores, i.e. 132 SMs × 128 lanes × 2
@@ -653,6 +677,22 @@ def percentiles(ms: list[float]) -> str:
             f"max {a.max():.3f} ms (n={a.size})")
 
 
+def counter_fns(torch, counters):
+    """(zero, read) over the (key, module, attribute) launch counters: set
+    every count to 0, and read the non-zero ones, each after a synchronize."""
+
+    def zero():
+        torch.cuda.synchronize()
+        for _, mod, attr in counters:
+            setattr(mod, attr, 0)
+
+    def read() -> dict:
+        torch.cuda.synchronize()
+        return {key: getattr(mod, attr) for key, mod, attr in counters if getattr(mod, attr)}
+
+    return zero, read
+
+
 def streaming_phases(torch, dev, gen, counters, y, ref_bits) -> None:
     """Phases 18-19: streaming sessions and the session pool on the card.
     ``y`` is the main path's stream on the card, ``ref_bits`` its one-shot
@@ -681,14 +721,7 @@ def streaming_phases(torch, dev, gen, counters, y, ref_bits) -> None:
     y_host = y.cpu().numpy()  # a receiver hands the session host memory
     rng = np.random.default_rng(SEED)
 
-    def zero():
-        torch.cuda.synchronize()
-        for _, mod, attr in counters:
-            setattr(mod, attr, 0)
-
-    def read() -> dict:
-        torch.cuda.synchronize()
-        return {key: getattr(mod, attr) for key, mod, attr in counters if getattr(mod, attr)}
+    zero, read = counter_fns(torch, counters)
 
     def want_counts(be: str, knobs: dict, n: int) -> dict:
         mat, pre = knobs.get("acs_impl") == "matrix", knobs.get("tb_mode") == "prefix"
@@ -963,6 +996,257 @@ def streaming_phases(torch, dev, gen, counters, y, ref_bits) -> None:
         log(f"[19 profile] 16 pool steps of {N_STREAMS} streams: wall {wall:.3f} ms under the "
             f"profiler, device busy {busy:.3f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; "
             f"top kernels: " + "; ".join(f"{n} {ms:.3f} ms × {c}" for n, ms, c in kernels_p))
+
+
+def serving_phases(torch, dev, gen, counters, power: str) -> None:
+    """Phases 20-21: the serving fabric on the card (the async service over
+    paged slabs, its failure model, the chunk journal and crash recovery,
+    the CLI's async and durable modes), at the default config on ``"cuda"``
+    and ``"fused"``. ``counters`` are the (key, module, attribute) launch
+    counters of every decoder kernel; ``power`` is the card's name and
+    power limit as nvidia-smi prints them."""
+    import asyncio
+    import contextlib
+    import os
+    import shutil
+
+    from repro_torch.core.channel import transmit
+    from repro_torch.core.encoder import encode
+    from repro_torch.core.engine import DecoderEngine
+    from repro_torch.core.pbvd import PBVDConfig
+    from repro_torch.launch.faults import FaultInjector, IntegrityError, StreamError, SymbolError
+    from repro_torch.launch.serve_async import AsyncDecodeService, run_poisson_trace
+    from repro_torch.launch.slab import SymbolSlab
+
+    cfg = PBVDConfig()
+    D, L = cfg.D, cfg.L
+    page = D + 2 * L  # one decode window per slab page
+    zero, read = counter_fns(torch, counters)
+    engines = {be: DecoderEngine(PBVDConfig(backend=be), device=dev) for be in ("cuda", "fused")}
+
+    def streams(n: int, n_bits: int, ebn0: float):
+        """n seeded streams on the card: (symbols on the card, host copies)."""
+        pay = torch.randint(0, 2, (n, n_bits + cfg.code.v), generator=gen, device=dev,
+                            dtype=torch.int32)
+        pay[:, n_bits:] = 0  # terminated
+        ys = transmit(gen, encode(pay, cfg.code), ebn0, cfg.codespec.rate)
+        return ys, ys.cpu().numpy()  # a receiver hands the service host memory
+
+    def one_shot(be: str, ys, n_bits: int) -> list:
+        return [engines[be].decode(y, n_bits) for y in ys]
+
+    @contextlib.contextmanager
+    def clocked(*names):
+        """Count the calls of, and the host seconds spent in, these methods of
+        AsyncDecodeService (a coroutine's seconds include its awaits)."""
+        stats = {n: [0, 0.0] for n in names}
+        saved = {n: getattr(AsyncDecodeService, n) for n in names}
+
+        def wrap(n, f):
+            if asyncio.iscoroutinefunction(f):
+                async def g(*a, **k):
+                    t = time.perf_counter()
+                    try:
+                        return await f(*a, **k)
+                    finally:
+                        stats[n][0] += 1
+                        stats[n][1] += time.perf_counter() - t
+            else:
+                def g(*a, **k):
+                    t = time.perf_counter()
+                    try:
+                        return f(*a, **k)
+                    finally:
+                        stats[n][0] += 1
+                        stats[n][1] += time.perf_counter() - t
+            return g
+
+        for n, f in saved.items():
+            setattr(AsyncDecodeService, n, wrap(n, f))
+        try:
+            yield stats
+        finally:
+            for n, f in saved.items():
+                setattr(AsyncDecodeService, n, f)
+
+    def trace(be, ys_host, n_bits, rate, *, slab_pages, chunk=4096, mbb=512, deadline=5.0,
+              injector=None, extra=None):
+        """One run_poisson_trace with the counters at 0 before it and read
+        after: (results, metrics, launches by kernel, slab, host seconds,
+        host breakdown)."""
+        slab = SymbolSlab(n_pages=slab_pages, page_stages=page, R=cfg.code.R)
+        zero()
+        t0 = time.perf_counter()
+        with clocked("_dispatch", "_wait_for_space", "_finish") as stats:
+            results, report = asyncio.run(run_poisson_trace(
+                engines[be], list(ys_host), [n_bits] * len(ys_host), chunk_symbols=chunk,
+                rate_chunks_per_s=rate, seed=SEED, slab=slab, fault_injector=injector,
+                service_kwargs=dict(max_batch_blocks=mbb, deadline_ms=deadline,
+                                    **(extra or {}))))
+        wall = time.perf_counter() - t0
+        host = (f"host: {wall:.3f} s in all, {stats['_dispatch'][1]:.3f} s in "
+                f"{stats['_dispatch'][0]} dispatch calls, {stats['_finish'][1]:.3f} s in "
+                f"{stats['_finish'][0]} finishes, {stats['_wait_for_space'][0]} admission "
+                f"waits parked {stats['_wait_for_space'][1]:.3f} s in all")
+        counts = read()
+        want = ({"acs": report["launches"], "traceback": report["launches"]} if be == "cuda"
+                else {"fused": report["launches"]})
+        if counts != want:
+            raise AssertionError(f"service on {be}: kernel launches {counts}, expected one of "
+                                 f"each kernel of the path per pool launch ({report['launches']})")
+        if slab.pages_in_use != 0 or slab.high_water > slab_pages:
+            raise AssertionError(f"service on {be}: {slab.pages_in_use} pages leaked, "
+                                 f"high-water {slab.high_water} of {slab_pages}")
+        return results, report, counts, slab, host
+
+    def check_bits(label, results, refs, skip=()):
+        for i, (got, ref) in enumerate(zip(results, refs)):
+            if i in skip:
+                continue
+            if not isinstance(got, torch.Tensor) or not torch.equal(got, ref):
+                raise AssertionError(f"{label}: stream {i} differs from its one-shot decode "
+                                     f"({type(got).__name__})")
+
+    def summary(report, n_blocks) -> str:
+        mbps = report["sustained_mbps"]
+        return (f"{report['dispatches']} dispatches, {report['launches']} launches, "
+                f"{n_blocks / report['launches']:.1f} blocks per launch, slab high-water "
+                f"{report['slab_pages_high_water']} pages, slab backpressure "
+                f"{report['errors_by_class'].get('SlabExhausted', 0)}; chunk latency p50 "
+                f"{report['p50_ms']:.3f} ms, p99 {report['p99_ms']:.3f} ms (n={report['chunks']}); "
+                f"sustained {mbps:.3f} Mb/s")
+
+    # ---- 20. the service: 64 streams, under and over the pool's capacity ------------
+    n_bits = STREAM_BITS
+    ys, ys_host = streams(N_STREAMS, n_bits, EBN0_DB)
+    n_blocks = N_STREAMS * (n_bits // D)
+    svc_refs = {}
+    for be in ("cuda", "fused"):
+        refs = svc_refs[be] = one_shot(be, ys, n_bits)
+        for rate in (25.0, 200.0):
+            results, report, counts, slab, host = trace(be, ys_host, n_bits, rate,
+                                                        slab_pages=1024)
+            check_bits(f"[20 service] {be} {rate}/s", results, refs)
+            log(f"[20 service] {be}, {N_STREAMS} streams x {n_bits} bits in 4096-bit chunks at "
+                f"{rate:g} chunks/s per stream, deadline 5 ms, max_batch_blocks 512, 1024 "
+                f"pages of {page} stages: == one-shot bit for bit; {summary(report, n_blocks)}; "
+                f"launches {counts}; {host}")
+
+    # ---- 20. the slab: 512 short streams through 1024 pages --------------------------
+    ys_s, ys_s_host = streams(SLAB_STREAMS, SLAB_STREAM_BITS, EBN0_DB)
+    for be in ("cuda", "fused"):
+        refs = one_shot(be, ys_s, SLAB_STREAM_BITS)
+        results, report, counts, slab, host = trace(be, ys_s_host, SLAB_STREAM_BITS, 25.0,
+                                                    slab_pages=SLAB_PAGES)
+        check_bits(f"[20 slab] {be}", results, refs)
+        log(f"[20 slab] {be}, {SLAB_STREAMS} streams x {SLAB_STREAM_BITS} bits "
+            f"({SLAB_STREAMS * SLAB_STREAM_BITS} bits) in 4096-bit chunks through {SLAB_PAGES} "
+            f"pages: == one-shot bit for bit; "
+            f"{summary(report, SLAB_STREAMS * SLAB_STREAM_BITS // D)}; pages in use at the end "
+            f"{slab.pages_in_use}; {host}")
+
+    # ---- 20. chaos: the reference's schedule plus a silent corruption ---------------
+    chaos_bits, poisoned = 4096, {3, 17}
+    schedule = {"stream_poison": poisoned, "dispatch": {1, 4}, "slab": {5, 30}, "mesh": {2},
+                "admission": {100}, "decode_corrupt": {40}}
+    # 14 dB: the clean re-encode agrees on every symbol, so a bound of 0.9995
+    # catches one flipped bit (10 re-encoded symbols) in spans to 20,000 symbols
+    ys_c, ys_c_host = streams(N_STREAMS, chaos_bits, 14.0)
+    for be in ("cuda", "fused"):
+        refs = one_shot(be, ys_c, chaos_bits)
+        injector = FaultInjector(seed=5, schedule=schedule)
+        results, report, counts, slab, host = trace(
+            be, ys_c_host, chaos_bits, 200.0, slab_pages=1024, chunk=1024, injector=injector,
+            extra=dict(integrity_rate=1.0, integrity_min_agreement=0.9995))
+        failed = {i: type(r).__name__ for i, r in enumerate(results)
+                  if not isinstance(r, torch.Tensor)}
+        typed = all(isinstance(results[i], StreamError) for i in failed)
+        corrupt = [i for i, r in enumerate(results) if isinstance(r, IntegrityError)]
+        admission = [i for i, r in enumerate(results) if isinstance(r, SymbolError)]
+        errs = report["errors_by_class"]
+        fired = {k: len(v) for k, v in schedule.items()}
+        if (not poisoned <= set(failed) or not typed or len(corrupt) != 1
+                or len(admission) > 1 or dict(injector.fired) != fired
+                or report["faults_injected"] != fired
+                or (errs.get("DispatchError"), errs.get("MeshLost"), errs.get("SlabExhausted"),
+                    errs.get("SymbolError"), errs.get("IntegrityError")) != (2, 1, 2, 1, 1)
+                or not 1 <= errs.get("StreamError", 0) <= 2
+                or report["quarantined_streams"] != len(failed)
+                or report["integrity_flagged"] != 1):
+            raise AssertionError(f"[20 chaos] {be}: failed {failed}, fired "
+                                 f"{dict(injector.fired)}, errors {errs}, report {report}")
+        check_bits(f"[20 chaos] {be}", results, refs, skip=failed)
+        log(f"[20 chaos] {be}, {N_STREAMS} streams x {chaos_bits} bits, schedule "
+            f"{ {k: sorted(v) for k, v in schedule.items()} }, integrity_rate 1.0: the "
+            f"{N_STREAMS - len(failed)} healthy streams == one-shot bit for bit; failed {failed}; "
+            f"fired {dict(injector.fired)}; errors_by_class {errs}; retries {report['retries']}; "
+            f"integrity {report['integrity_flagged']}/{report['integrity_checked']} flagged; "
+            f"launches {counts}; {host}")
+
+    # ---- 20. durable: the CLI killed by SIGKILL at its 3rd dispatch, then recovered --
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    n_streams_d, chunk_bits_d, n_chunks_d = 4, 2048, 8
+    for be in ("cuda", "fused"):
+        jdir = root / "build" / f"serve-journal-{be}"
+        shutil.rmtree(jdir, ignore_errors=True)
+        argv = [sys.executable, "-m", "repro_torch.launch.serve_decoder", "--backend", be,
+                "--device", dev.type, "--serve-async", "--journal-dir", str(jdir), "--streams", str(n_streams_d),
+                "--chunk-bits", str(chunk_bits_d), "--n-chunks", str(n_chunks_d),
+                "--rate-chunks-per-s", "100", "--integrity-rate", "1.0"]
+        t0 = time.perf_counter()
+        killed = subprocess.run(argv + ["--kill-at", "3"], capture_output=True, text=True,
+                                cwd=root, env=env, timeout=300)
+        t1 = time.perf_counter()
+        sizes = [(jdir / f"delivered-{i}.bits").stat().st_size
+                 for i in range(n_streams_d) if (jdir / f"delivered-{i}.bits").exists()]
+        recovered = subprocess.run(argv + ["--recover"], capture_output=True, text=True,
+                                   cwd=root, env=env, timeout=300)
+        t2 = time.perf_counter()
+        final = [(jdir / f"delivered-{i}.bits").stat().st_size for i in range(n_streams_d)]
+        if killed.returncode != -9:
+            raise AssertionError(f"[20 durable] {be}: --kill-at 3 exited {killed.returncode}, "
+                                 f"not by SIGKILL:\n{killed.stdout}\n{killed.stderr}")
+        if (recovered.returncode != 0 or "all streams bit-exact" not in recovered.stdout
+                or final != [chunk_bits_d * n_chunks_d] * n_streams_d):
+            raise AssertionError(f"[20 durable] {be}: --recover exited {recovered.returncode}, "
+                                 f"files {final}:\n{recovered.stdout}\n{recovered.stderr}")
+        log(f"[20 durable] {be}: --kill-at 3 died by SIGKILL (returncode -9) after "
+            f"{t1 - t0:.1f} s with {sum(sizes)} bits persisted; --recover exit 0 in "
+            f"{t2 - t1:.1f} s, every stream {chunk_bits_d * n_chunks_d} bits exactly once: "
+            f"{recovered.stdout.strip().splitlines()[-1]}")
+        shutil.rmtree(jdir, ignore_errors=True)
+
+    # ---- 21. latency by trigger, and where a dispatch's time goes -------------------
+    for deadline in (1.0, 5.0):
+        for mbb in (32, 512):
+            results, report, _, _, host = trace("cuda", ys_host, n_bits, 25.0, slab_pages=1024,
+                                                mbb=mbb, deadline=deadline)
+            check_bits(f"[21 latency] deadline {deadline} mbb {mbb}", results, svc_refs["cuda"])
+            log(f"[21 latency] {power}: cuda, 25 chunks/s per stream, deadline_ms {deadline:g}, "
+                f"max_batch_blocks {mbb}: {summary(report, n_blocks)}; {host}")
+    profiled = {}
+
+    def profiled_trace():
+        results, profiled["report"], *_ = trace("cuda", ys_host, n_bits, 25.0, slab_pages=1024)
+        check_bits("[21 profile]", results, svc_refs["cuda"])
+
+    wall, kernels_p, busy = device_profile(torch, profiled_trace)
+    report = profiled["report"]
+    if busy <= 0:
+        log(f"[21 profile] {power}: the profiler saw no device time (not measured)")
+        return
+    per_launch = busy / report["launches"]  # the pool's launches: steps and flushes
+    if report["p50_ms"] < per_launch:
+        raise AssertionError(f"[21 profile] chunk latency p50 {report['p50_ms']} ms is below "
+                             f"the device time of a pool launch ({per_launch} ms)")
+    log(f"[21 profile] {power}: the 25 chunks/s trace on cuda (deadline 5 ms, "
+        f"max_batch_blocks 512) under the profiler: wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; "
+        f"{report['dispatches']} dispatches and {report['launches']} pool launches, "
+        f"{per_launch:.3f} ms of device time per launch <= chunk latency p50 "
+        f"{report['p50_ms']:.3f} ms; top kernels: "
+        + "; ".join(f"{n} {ms:.3f} ms × {c}" for n, ms, c in kernels_p))
 
 
 def main() -> int:
@@ -1866,6 +2150,12 @@ def main() -> int:
 
     flash_rows = lm_phases(torch, dev, gen, [(mod, attr) for _, mod, attr in counters])
     streaming_phases(torch, dev, gen, counters, y, ref_bits)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    power = smi.stdout.strip().splitlines()[0]
+    serving_phases(torch, dev, gen, counters, power)
 
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith(("jax.", "jaxlib")) or mod == "repro" or mod.startswith("repro."):
@@ -1931,11 +2221,7 @@ def main() -> int:
             raise AssertionError(f"{row['name']}: {row['ms']} ms is below its bound "
                                  f"{row['bound_ms']} ms: the operation count or the peak is wrong")
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(power, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

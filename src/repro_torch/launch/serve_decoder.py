@@ -8,9 +8,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve_decoder --streams 16 \\
         --chunk-bits 1024 --n-chunks 50
 
+    # the asyncio service under a Poisson arrival trace:
+    PYTHONPATH=src python -m repro_torch.launch.serve_decoder --serve-async \\
+        --streams 64 --chunk-bits 4096 --n-chunks 16 --rate-chunks-per-s 25
+
+    # crash drill: journal, SIGKILL at the 3rd dispatch, then recover:
+    PYTHONPATH=src python -m repro_torch.launch.serve_decoder --serve-async \\
+        --journal-dir /tmp/j --streams 4 --n-chunks 8 --kill-at 3
+    PYTHONPATH=src python -m repro_torch.launch.serve_decoder --serve-async \\
+        --journal-dir /tmp/j --streams 4 --n-chunks 8 --recover
+
 The counterpart of ``repro.launch.serve_decoder`` on one card, without the
-mesh and without the async and durable serving modes (ROADMAP A.3, A.4). A
-long-lived session object carries the decoder state (the inter-block overlap
+mesh. A long-lived session object carries the decoder state (the inter-block overlap
 tail + puncture phase) across chunks, so an unbounded symbol stream decodes
 chunk by chunk — the serving shape of the paper's multi-stream pipelining
 (§IV-D). It runs on the card (``--device cuda``, the default, with
@@ -437,6 +446,200 @@ def _serve_pooled(engine, spec, cfg, args) -> None:
     )
 
 
+def _serve_async_durable(engine, spec, cfg, args) -> int:
+    """Durable serving drill: journaled admissions, client-side delivered-bit
+    persistence, optional mid-trace SIGKILL, and ``recover()`` restart.
+
+    The client protocol per stream ``i``:
+
+    * deliveries are drained with ``take(ack=False)``, appended to
+      ``{journal_dir}/delivered-{i}.bits`` (one uint8 byte per bit),
+      fsync'd, and only THEN acked — so the service's ack watermark never
+      runs ahead of the durable file;
+    * sending resumes from ``stream.chunks_admitted`` (the WAL-derived
+      cursor), so a chunk lost in the crash gap between ``send()`` and its
+      admit record is simply re-sent;
+    * on ``--recover``, each file is truncated back to the recovered ack
+      watermark — bytes persisted after the last durable ack are exactly
+      the bits recovery will redeliver (the no-duplicate invariant).
+
+    Returns a process exit code: 0 = every stream's delivered bits match
+    the one-shot decode on the engine's device, 1 = mismatch, 3 =
+    ``--kill-at`` was set but the trace completed without reaching it.
+    """
+    import asyncio
+    import os
+    import signal
+
+    from repro_torch.launch.journal import ChunkJournal
+    from repro_torch.launch.serve_async import AsyncDecodeService
+    from repro_torch.launch.slab import SymbolSlab
+
+    n_bits = args.chunk_bits * args.n_chunks
+    streams = [
+        _make_stream(spec, n_bits, args.ebn0, args.seed + i, engine.device)
+        for i in range(args.streams)
+    ]
+    cs = max(1, len(streams[0][1]) // args.n_chunks)
+    chunk_lists = [
+        [y[k * cs : (k + 1) * cs] for k in range(-(-len(y) // cs))]
+        for _, y in streams
+    ]
+    slab = SymbolSlab(
+        n_pages=args.slab_pages, page_stages=cfg.D + 2 * cfg.L, R=spec.code.R
+    )
+    journal = ChunkJournal(args.journal_dir)
+    service_kwargs = dict(
+        max_batch_blocks=args.max_batch_blocks,
+        deadline_ms=args.deadline_ms,
+        slab=slab,
+        journal=journal,
+        integrity_rate=args.integrity_rate,
+    )
+    if args.kill_at is not None:
+
+        def _kill_hook(svc):
+            if svc.dispatches >= args.kill_at:
+                os.kill(os.getpid(), signal.SIGKILL)  # no cleanup: a real crash
+
+        service_kwargs["on_dispatch"] = _kill_hook
+
+    async def _client(i, stream):
+        path = os.path.join(args.journal_dir, f"delivered-{i}.bits")
+        if stream is None:  # finished before the crash; its file is complete
+            return
+        mode = "r+b" if args.recover and os.path.exists(path) else "wb"
+        with open(path, mode) as f:
+            if mode == "r+b":
+                f.seek(0, os.SEEK_END)
+                if f.tell() < stream.acked_bits:
+                    raise RuntimeError(
+                        f"stream {i}: durable file shorter than ack watermark "
+                        f"({f.tell()} < {stream.acked_bits})"
+                    )
+                f.truncate(stream.acked_bits)  # un-acked tail gets redelivered
+                f.seek(0, os.SEEK_END)
+
+            def persist(bits):
+                if bits.shape[0]:
+                    f.write(bits.to(torch.uint8).cpu().numpy().tobytes())
+                    f.flush()
+                    os.fsync(f.fileno())
+                stream.ack()
+
+            chunks = chunk_lists[i]
+            # paced sends (deterministic spacing, not Poisson): the deadline
+            # dispatcher must run between arrivals, or the whole trace would
+            # flush inside finish() and no --kill-at boundary would be crossed
+            gap_s = 1.0 / args.rate_chunks_per_s if args.rate_chunks_per_s else 0.0
+            for k in range(stream.chunks_admitted, len(chunks)):
+                await stream.send(chunks[k])
+                await asyncio.sleep(gap_s)
+                persist(stream.take(ack=False))
+            persist(await stream.finish(n_bits))
+
+    async def drive():
+        if args.recover:
+            kw = {k: v for k, v in service_kwargs.items() if k != "journal"}
+            svc = AsyncDecodeService.recover(journal, engine, **kw)
+        else:
+            svc = AsyncDecodeService(**service_kwargs)
+        async with svc:
+            # sid == stream index by construction: streams open in index
+            # order on the fresh run, and sids are stable across recovery
+            if args.recover:
+                handles = [svc.recovered_streams.get(i) for i in range(args.streams)]
+            else:
+                handles = [svc.open(engine) for _ in range(args.streams)]
+            await asyncio.gather(*(_client(i, h) for i, h in enumerate(handles)))
+            return svc.metrics()
+
+    t0 = time.perf_counter()
+    m = asyncio.run(drive())
+    dt = time.perf_counter() - t0
+    journal.close()
+    if args.kill_at is not None:
+        print(
+            f"[serve_decoder] --kill-at {args.kill_at} never reached "
+            f"({m['dispatches']} dispatches total)"
+        )
+        return 3
+
+    bad = 0
+    for i, (_, y) in enumerate(streams):
+        path = os.path.join(args.journal_dir, f"delivered-{i}.bits")
+        with open(path, "rb") as f:
+            got = np.frombuffer(f.read(), np.uint8)
+        ref = engine.decode(y, n_bits).cpu().numpy()
+        if len(got) != n_bits or np.any(got != ref):
+            bad += 1
+            print(f"[serve_decoder] stream {i}: delivered bits != reference")
+    print(
+        f"[serve_decoder] durable: {args.streams} streams × {n_bits} bits in "
+        f"{dt*1e3:.0f} ms ({m['dispatches']} dispatches, "
+        f"{m['checkpoints']} checkpoints, journal seq {m['journal_seq']}, "
+        f"integrity {m['integrity_flagged']}/{m['integrity_checked']} flagged); "
+        f"{'all streams bit-exact vs reference' if not bad else f'{bad} stream(s) MISMATCHED'}"
+    )
+    return 0 if bad == 0 else 1
+
+
+def _serve_async(engine, spec, cfg, args) -> None:
+    """Drive the asyncio service under a Poisson arrival trace (the
+    serving-layer shape: admission → paged slabs → deadline dispatch)."""
+    import asyncio
+
+    from repro_torch.launch.serve_async import run_poisson_trace
+    from repro_torch.launch.slab import SymbolSlab
+
+    n_bits = args.chunk_bits * args.n_chunks
+    streams = [
+        _make_stream(spec, n_bits, args.ebn0, args.seed + i, engine.device)
+        for i in range(args.streams)
+    ]
+    ys = [y for _, y in streams]
+    chunk_symbols = max(1, len(ys[0]) // args.n_chunks)
+    slab = SymbolSlab(
+        n_pages=args.slab_pages,
+        page_stages=cfg.D + 2 * cfg.L,
+        R=spec.code.R,
+    )
+    t0 = time.perf_counter()
+    bits, report = asyncio.run(
+        run_poisson_trace(
+            engine,
+            ys,
+            [n_bits] * len(ys),
+            chunk_symbols=chunk_symbols,
+            rate_chunks_per_s=args.rate_chunks_per_s,
+            seed=args.seed,
+            slab=slab,
+            service_kwargs=dict(
+                max_batch_blocks=args.max_batch_blocks,
+                deadline_ms=args.deadline_ms,
+            ),
+        )
+    )
+    dt = time.perf_counter() - t0
+    total_bits = n_bits * args.streams
+    errors = sum(
+        int(np.sum(b.cpu().numpy() != p)) for b, (p, _) in zip(bits, streams)
+    )
+    mbps = report["sustained_mbps"]
+    print(
+        f"[serve_decoder] async: {args.streams} streams × {n_bits} bits in "
+        f"{dt*1e3:.0f} ms → sustained "
+        f"{mbps if mbps is not None else float('nan'):.2f} Mbps "
+        f"({report['dispatches']} dispatches, {report['launches']} launches, "
+        f"slab high-water {report['slab_pages_high_water']} pages); "
+        f"chunk latency p50={report['p50_ms']:.1f} ms p99={report['p99_ms']:.1f} ms"
+    )
+    print(
+        f"[serve_decoder] BER = {errors/total_bits:.2e} ({errors} errors "
+        f"over {total_bits} bits)"
+    )
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--code", default="ccsds", choices=available_code_specs())
@@ -495,7 +698,71 @@ def main(argv: list[str] | None = None) -> None:
     )
     ap.add_argument("--ebn0", type=float, default=4.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument(
+        "--serve-async",
+        action="store_true",
+        help="drive the asyncio serving layer (repro_torch.launch.serve_async) "
+        "under a Poisson arrival trace instead of the synchronous loop",
+    )
+    ap.add_argument(
+        "--deadline-ms",
+        type=float,
+        default=5.0,
+        help="async dispatch deadline: max age of the oldest undispatched "
+        "chunk before a coalesced step fires anyway",
+    )
+    ap.add_argument(
+        "--max-batch-blocks",
+        type=int,
+        default=32,
+        help="async dispatch size trigger: ready blocks that fire a step",
+    )
+    ap.add_argument(
+        "--slab-pages",
+        type=int,
+        default=1024,
+        help="session-state slab capacity (pages of D+2L stages each)",
+    )
+    ap.add_argument(
+        "--rate-chunks-per-s",
+        type=float,
+        default=1000.0,
+        help="per-stream Poisson chunk arrival rate for --serve-async",
+    )
+    ap.add_argument(
+        "--journal-dir",
+        default=None,
+        help="with --serve-async: write-ahead journal admitted chunks + "
+        "checkpoint session state under this directory, and persist each "
+        "stream's delivered bits to delivered-<i>.bits (crash-safe serving)",
+    )
+    ap.add_argument(
+        "--integrity-rate",
+        type=float,
+        default=0.0,
+        help="fraction of deliveries screened by the re-encode integrity "
+        "sentinel (0 = off; 1 = every delivery); flagged streams quarantine "
+        "with IntegrityError",
+    )
+    ap.add_argument(
+        "--kill-at",
+        type=int,
+        default=None,
+        help="with --journal-dir: SIGKILL this process the moment the "
+        "dispatch counter reaches N (crash drill; exit 3 if never reached)",
+    )
+    ap.add_argument(
+        "--recover",
+        action="store_true",
+        help="with --journal-dir: rebuild the service from the journal "
+        "(checkpoint + replay) instead of starting fresh, resume the trace, "
+        "and verify delivered bits against the one-shot decode",
+    )
     args = ap.parse_args(argv)
+    if (args.kill_at is not None or args.recover) and args.journal_dir is None:
+        ap.error("--kill-at/--recover require --journal-dir")
+    if args.journal_dir is not None and not args.serve_async:
+        ap.error("--journal-dir requires --serve-async")
 
     device = resolve_device(args.device, user="serve_decoder")
     spec = get_code_spec(args.code)
@@ -524,7 +791,11 @@ def main(argv: list[str] | None = None) -> None:
         f"{args.streams} stream(s) × {args.chunk_bits * args.n_chunks} payload bits "
         f"in {args.n_chunks} chunks at Eb/N0={args.ebn0} dB"
     )
-    if args.streams > 1:
+    if args.serve_async and args.journal_dir is not None:
+        raise SystemExit(_serve_async_durable(engine, spec, cfg, args))
+    elif args.serve_async:
+        _serve_async(engine, spec, cfg, args)
+    elif args.streams > 1:
         _serve_pooled(engine, spec, cfg, args)
     else:
         _serve_single(engine, spec, cfg, args)

@@ -182,6 +182,22 @@ Then the serving fabric, the async service over paged slabs:
     kernels, device time per pool launch against the p50), each line with
     the card's name and power limit.
 
+Then the lane split over a decode mesh (a device list that names the one
+card once per shard, or distinct cards where torch finds more than one):
+
+22. the 4,194,304-bit main path through ``"cuda"`` and ``"fused"`` at
+    ``data=4`` under both shard dispatches, each equal to phase 4's
+    ``"ref"`` bits with one launch of each kernel per shard; a ragged
+    ``decode_batch`` of 64 streams at ``data=8`` equal to meshless; the
+    pool with a meshless, a ``"constraint"`` and a ``"shard_map"`` group
+    at a ragged cadence, equal to ``decode_batch``; the mesh-loss drill
+    (``data=4`` → 3 → 2 → meshless under a ``FaultInjector`` schedule) on
+    16 streams, every stream exact and the counts equal to the schedule;
+    the CLI's pooled mode with ``--mesh data=1``; end-to-end ms of
+    meshless against ``data=4`` in turns, with the card's name and power
+    limit, and a ``torch.profiler`` window over five ``data=4`` decodes of
+    each backend (device busy share, top kernels).
+
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 torch finds no CUDA device or when the port's sources are missing.
@@ -1249,6 +1265,200 @@ def serving_phases(torch, dev, gen, counters, power: str) -> None:
         + "; ".join(f"{n} {ms:.3f} ms × {c}" for n, ms, c in kernels_p))
 
 
+def mesh_phases(torch, dev, counters, y, ref_bits, ys, batch, power: str) -> None:
+    """Phase 22: the lane split over a decode mesh on the card. The mesh is
+    a device list that names ``cuda:0`` once per shard (distinct devices
+    where torch finds more than one card). ``y``/``ref_bits`` are the main
+    path's stream and its ``"ref"`` decode, ``ys``/``batch`` phase 5's 64
+    streams and their per-stream decodes; ``counters`` the (key, module,
+    attribute) launch counters of every decoder kernel; ``power`` the card's
+    name and power limit as nvidia-smi prints them."""
+    import asyncio
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+
+    from repro_torch.core.engine import DecoderEngine
+    from repro_torch.core.pbvd import PBVDConfig
+    from repro_torch.kernels.ops import SHARD_DISPATCH
+    from repro_torch.launch import serve_decoder
+    from repro_torch.launch.faults import FaultInjector
+    from repro_torch.launch.mesh import make_decode_mesh
+    from repro_torch.launch.serve_async import AsyncDecodeService
+    from repro_torch.launch.serve_decoder import SessionPool
+
+    cfg = PBVDConfig()
+    D = cfg.D
+    n_bits = ref_bits.shape[0]
+    zero, read = counter_fns(torch, counters)
+    n_cards = torch.cuda.device_count()
+
+    def mesh(n: int):
+        devs = [torch.device("cuda", i % n_cards) for i in range(n)]
+        return make_decode_mesh(f"data={n}", devices=devs)
+
+    def where(m) -> str:
+        names = [str(d) for d in m.devices.flat]
+        if len(set(names)) == 1:
+            return f"{m.size} shards on one card ({names[0]} named {m.size} times)"
+        return f"{m.size} shards on {len(set(names))} cards ({', '.join(names)})"
+
+    def engine(be: str, n: int, dispatch: str = "constraint"):
+        return DecoderEngine(PBVDConfig(backend=be), mesh=mesh(n), shard_dispatch=dispatch)
+
+    one_launch = {"cuda": {"acs": 1, "traceback": 1}, "fused": {"fused": 1}}
+
+    # ---- the main path at data=4, both backends, both dispatches ------------------
+    for be in ("cuda", "fused"):
+        for dispatch in SHARD_DISPATCH:
+            eng = engine(be, 4, dispatch)
+            eng.decode(y[: 4 * D], 4 * D)
+            zero()
+            bits = eng.decode(y, n_bits)
+            counts = read()
+            want = {k: 4 * v for k, v in one_launch[be].items()}
+            if not torch.equal(bits, ref_bits) or counts != want:
+                raise AssertionError(f"[22 mesh] {be} {dispatch}: equal {torch.equal(bits, ref_bits)}, "
+                                     f"launches {counts}, expected {want}")
+            log(f"[22 mesh] {n_bits} bits, {be}, data=4 {dispatch}, {where(eng.mesh)}: == ref "
+                f"(phase 4) bit for bit; launches {counts} (one per kernel per shard)")
+
+    # ---- a ragged 64-stream decode_batch at data=8 against meshless ---------------
+    lens = [STREAM_BITS - (i * 1013) % (STREAM_BITS * 5 // 8) for i in range(len(ys))]
+    plain = DecoderEngine(cfg, device=dev)
+    base = plain.decode_batch(ys, lens)
+    for dispatch in SHARD_DISPATCH:
+        eng = engine("cuda", 8, dispatch)
+        zero()
+        got = eng.decode_batch(ys, lens)
+        counts = read()
+        bad = [i for i, (a, b) in enumerate(zip(got, base)) if not torch.equal(a, b)]
+        if bad or counts != {"acs": 8, "traceback": 8}:
+            raise AssertionError(f"[22 mesh] ragged batch {dispatch}: streams {bad} differ, "
+                                 f"launches {counts}")
+        log(f"[22 mesh] decode_batch of {len(ys)} ragged streams ({min(lens)}-{max(lens)} bits, "
+            f"{sum(-(-n // D) for n in lens)} blocks), cuda, data=8 {dispatch}, {where(eng.mesh)}: "
+            f"== meshless bit for bit; launches {counts}")
+
+    # ---- the three-group pool at a ragged cadence ---------------------------------
+    n_pool = 8
+    ys_host = [t.cpu().numpy() for t in ys[:n_pool]]
+    engines = [plain, engine("cuda", 4), engine("cuda", 4, "shard_map")]
+    pool = SessionPool()
+    handles = [pool.open(e) for e in engines for _ in range(n_pool)]
+    pos, outs = [0] * len(handles), [[] for _ in handles]
+    cut = np.random.default_rng(SEED)
+    steps = []
+    while any(p < len(ys_host[0]) for p in pos):
+        for i, h in enumerate(handles):
+            step = int(cut.integers(2000, 9000))
+            h.feed(ys_host[i % n_pool][pos[i]: pos[i] + step])
+            pos[i] += step
+        before = pool.launches
+        zero()
+        pool.step()
+        steps.append((pool.launches - before, read()))
+        for o, h in zip(outs, handles):
+            o.append(h.take())
+    groups = len({pool._group_key(h._session) for h in handles})
+    for i, h in enumerate(handles):
+        if not torch.equal(torch.cat(outs[i] + [h.finish(STREAM_BITS)]), batch[i % n_pool]):
+            raise AssertionError(f"[22 pool] handle {i} (group {i // n_pool}) differs")
+    full = [c for n, c in steps if n == 3]
+    if groups != 3 or not full or max(n for n, _ in steps) != 3:
+        raise AssertionError(f"[22 pool] {groups} groups, launches per step {steps}")
+    log(f"[22 pool] {n_pool} streams x {STREAM_BITS} bits on each of meshless, data=4 constraint "
+        f"and data=4 shard_map ({where(engines[1].mesh)}), chunks of 2000-9000 stages: "
+        f"{groups} groups, each == decode_batch bit for bit; pool launches per step "
+        f"{[n for n, _ in steps]}, kernels of the first step with all three groups {full[0]} "
+        f"(meshless one K1 and one K2, each data=4 group one per non-empty shard)")
+
+    # ---- the mesh-loss drill: data=4 → 3 → 2 → meshless ------------------------------
+    n_drill, n_chunks = 16, 8
+    drill_host = [t.cpu().numpy() for t in ys[:n_drill]]
+    schedule = {"mesh": {1, 3, 5}}
+
+    async def drill():
+        inj = FaultInjector(schedule=schedule)
+        svc = AsyncDecodeService(max_batch_blocks=100000, deadline_ms=0.0, fault_injector=inj)
+        eng = engine("cuda", 4)
+        streams = [svc.open(eng) for _ in range(n_drill)]
+        shapes = [4]
+        cs = -(-len(drill_host[0]) // n_chunks)
+        for k in range(n_chunks):
+            for st, yh in zip(streams, drill_host):
+                await st.send(yh[k * cs: (k + 1) * cs])
+            for _ in range(2):
+                svc.poll()
+                e = streams[0]._handle._session.engine
+                shape = None if e.mesh is None else e.mesh.shape["data"]
+                if shape != shapes[-1]:
+                    shapes.append(shape)
+        outs = [torch.cat([st.take(), await st.finish(STREAM_BITS)]) for st in streams]
+        return outs, svc.metrics(), inj, shapes
+
+    zero()
+    outs, m, inj, shapes = asyncio.run(drill())
+    counts = read()
+    bad = [i for i, o in enumerate(outs) if not torch.equal(o, batch[i])]
+    fired = {k: len(v) for k, v in schedule.items()}
+    if (bad or dict(inj.fired) != fired or m["faults_injected"] != fired
+            or m["errors_by_class"] != {"MeshLost": 3} or shapes != [4, 3, 2, None]):
+        raise AssertionError(f"[22 drill] streams {bad} differ; fired {dict(inj.fired)}, "
+                             f"errors {m['errors_by_class']}, meshes {shapes}")
+    log(f"[22 drill] {n_drill} streams x {STREAM_BITS} bits in {n_chunks} chunks, cuda, "
+        f"FaultInjector(schedule={ {k: sorted(v) for k, v in schedule.items()} }): meshes "
+        f"data={' → data='.join(str(s) for s in shapes[:-1])} → meshless; every stream == "
+        f"decode_batch bit for bit; fired {dict(inj.fired)}; errors_by_class "
+        f"{m['errors_by_class']}; retries {m['retries']}; {m['dispatches']} dispatches, "
+        f"{m['launches']} pool launches; kernels {counts}")
+
+    # ---- the CLI on a one-device mesh -----------------------------------------------
+    argv = ["--mesh", "data=1", "--shard-dispatch", "shard_map", "--streams", "8",
+            "--chunk-bits", "4096", "--n-chunks", "8"]
+    buf = io.StringIO()
+    zero()
+    with contextlib.redirect_stdout(buf):
+        serve_decoder.main(argv)
+    counts = read()
+    lines = buf.getvalue().strip().splitlines()
+    errs = re.search(r"BER = \S+ \((\d+) errors", lines[-1])
+    if (errs is None or int(errs.group(1)) > 8 * 4096 * 8 * 1e-3 or counts.get("acs", 0) < 1
+            or not lines[0].startswith("[serve_decoder] mesh {'data': 1}")):
+        raise AssertionError(f"[22 cli] serve_decoder {argv}: {lines}, launches {counts}")
+    for line in lines:
+        log(f"[22 cli] {line}")
+    log(f"[22 cli] launches {counts}")
+
+    # ---- end to end: meshless against data=4 on the card, in turns -------------------
+    for be in ("cuda", "fused"):
+        engs = {"meshless": DecoderEngine(PBVDConfig(backend=be), device=dev),
+                "constraint": engine(be, 4), "shard_map": engine(be, 4, "shard_map")}
+        turns = ("meshless", "constraint", "shard_map", "shard_map", "constraint", "meshless")
+        ms = {k: [] for k in engs}
+        for k in turns:
+            ms[k].append(wall_ms(torch, lambda: engs[k].decode(y, n_bits), reps=10))
+        base_ms = statistics.mean(ms["meshless"])
+        log(f"[22 times] {power}: {be}, {n_bits} bits end to end, ms in turns "
+            f"(meshless, constraint, shard_map, shard_map, constraint, meshless): "
+            + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)}" for k, v in ms.items())
+            + f"; data=4 ({where(engs['constraint'].mesh)}) over meshless: constraint "
+            f"{statistics.mean(ms['constraint']) / base_ms:.2f}x, shard_map "
+            f"{statistics.mean(ms['shard_map']) / base_ms:.2f}x")
+        eng = engs["constraint"]
+        wall, kernels_p, busy = device_profile(torch, lambda: [eng.decode(y, n_bits)
+                                                               for _ in range(5)])
+        if busy <= 0:
+            log(f"[22 profile] {be} data=4: the profiler saw no device time (not measured)")
+            continue
+        log(f"[22 profile] {power}: {be}, data=4 constraint ({where(eng.mesh)}), 5 decodes of "
+            f"{n_bits} bits: wall {wall:.3f} ms under the profiler, device busy {busy:.3f} ms "
+            f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; top kernels: "
+            + "; ".join(f"{n} {t:.3f} ms × {c}" for n, t, c in kernels_p))
+
+
 def main() -> int:
     import torch
 
@@ -2156,6 +2366,7 @@ def main() -> int:
     )
     power = smi.stdout.strip().splitlines()[0]
     serving_phases(torch, dev, gen, counters, power)
+    mesh_phases(torch, dev, counters, y, ref_bits, ys, batch, power)
 
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith(("jax.", "jaxlib")) or mod == "repro" or mod.startswith("repro."):

@@ -1,7 +1,6 @@
 """The decode path of the port: ``DecoderEngine`` and streaming sessions.
 
-The counterpart of ``repro.core.engine`` without the mesh (still to be
-ported):
+The counterpart of ``repro.core.engine``:
 
 * **codes** come from a :class:`~repro_torch.core.codespec.CodeSpec` —
   punctured streams are depunctured with BM-neutral zeros first;
@@ -17,6 +16,11 @@ ported):
   The kernels mask the ragged lane edge, so no lanes are padded;
   per-stream bits equal sequential :meth:`DecoderEngine.decode` calls
   because parallel blocks never interact;
+* **sharding** is a constructor argument (``mesh`` + ``block_axes`` +
+  ``shard_dispatch``): the lane axis is cut into equal slices, one per lane
+  shard of a :class:`~repro_torch.launch.mesh.DecodeMesh`, each decoded on
+  its shard's device (:func:`~repro_torch.sharding.smap.lane_split`) with
+  no communication between shards, and joined on the engine's device;
 * **streaming** is :meth:`DecoderEngine.session`: a
   :class:`DecoderSession` carries the inter-block overlap tail (host-side,
   in an :class:`ArraySessionStore`) and the puncture phase across
@@ -26,20 +30,26 @@ ported):
 
 The engine runs on the GPU unless the caller asks for the CPU: ``device``
 defaults to ``"cuda"``, and with no CUDA device the engine refuses to start
-(:class:`DeviceUnavailableError`) instead of carrying on on the CPU.
+(:class:`DeviceUnavailableError`) instead of carrying on on the CPU. A
+mesh-bound engine's device is its mesh's first device.
 Inputs (numpy arrays or tensors) are moved to the engine's device; outputs
 are int32 tensors there.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceUnavailableError, resolve_device
-from repro_torch.kernels.ops import pbvd_decode_blocks
+from repro_torch.kernels.ops import check_mesh_launch, pbvd_decode_blocks
 from repro_torch.launch.faults import SymbolError, check_finite_symbols
+from repro_torch.launch.mesh import canonical_device
+from repro_torch.sharding.rules import block_mesh_axes
+from repro_torch.sharding.smap import lane_shard_devices, lane_split
 
 from .codespec import CodeSpec
 from .pbvd import PBVDConfig, frame_stream
@@ -123,13 +133,56 @@ class DecoderEngine:
     Parameters
     ----------
     cfg: PBVDConfig — decode geometry (D, L), quantization, backend, code/spec.
-    device: where the engine decodes; ``None`` means ``"cuda"``.
+    device: where the engine decodes; ``None`` means ``"cuda"``, or the
+        mesh's first device when a mesh is bound (another device is refused).
+    mesh: optional :class:`~repro_torch.launch.mesh.DecodeMesh`; when given,
+        the lane (flattened frames × blocks) axis of every decode is split
+        over ``block_axes``, one equal slice per lane shard, each decoded on
+        its shard's device. Blocks never interact, so the split needs no
+        communication and the bits equal the meshless decode.
+    block_axes: mesh axes carrying the lane axis. ``None`` resolves the
+        ``"blocks"`` rule of :mod:`repro_torch.sharding.rules` against the
+        mesh (``("pod", "data")`` on a mesh with a ``pod`` axis, ``("data",)``
+        otherwise).
+    shard_dispatch: ``"constraint"`` (default) launches each shard with only
+        its real lanes; ``"shard_map"`` decodes every lane of every slice and
+        trims the pad lanes after the join (see
+        :data:`~repro_torch.kernels.ops.SHARD_DISPATCH`). Both are bit-exact;
+        validated at construction (:func:`~repro_torch.kernels.ops.check_mesh_launch`).
     """
 
-    def __init__(self, cfg: PBVDConfig | None = None, *, device=None):
+    def __init__(
+        self,
+        cfg: PBVDConfig | None = None,
+        *,
+        device=None,
+        mesh=None,
+        block_axes: tuple[str, ...] | None = ("data",),
+        shard_dispatch: str = "constraint",
+    ):
         self.cfg = cfg if cfg is not None else PBVDConfig()
         self.spec: CodeSpec = self.cfg.codespec
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if block_axes is None:
+            block_axes = ("data",) if mesh is None else block_mesh_axes(mesh)
+        self.block_axes = tuple(block_axes)
+        self.shard_dispatch = shard_dispatch
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.n_shards = 1
+            return
+        # eager: a bad mesh binding fails when the engine is BUILT, with a
+        # clear error naming the axis/backend — never inside a pooled launch
+        self.n_shards = check_mesh_launch(
+            mesh, self.block_axes, self.cfg.backend, dispatch=shard_dispatch
+        )
+        self.device = mesh.devices.flat[0]
+        if device is not None and canonical_device(device, "DecoderEngine") != self.device:
+            raise ValueError(
+                f"DecoderEngine: device={str(device)!r} is not the mesh's first "
+                f"device {str(self.device)!r}; a mesh-bound engine decodes there"
+            )
+        self._shard_devices = lane_shard_devices(mesh, self.block_axes)
 
     # ------------------------------------------------------------------ one-shot
     def decode(self, y, n_bits: int | None = None) -> torch.Tensor:
@@ -141,6 +194,7 @@ class DecoderEngine:
         number of full-rate stages in the stream.
         """
         blocks, n_blocks, n_bits = self._frame_one(y, n_bits)
+        blocks = self._pad_lanes(blocks)
         bits = self._decode_blocks(blocks, (n_blocks,))  # (D, n_blocks)
         return bits.t().reshape(-1)[:n_bits]
 
@@ -171,6 +225,7 @@ class DecoderEngine:
             frame_counts = tuple(k for _, k, _ in framed)
             bit_counts = tuple(nb for _, _, nb in framed)
             packed = torch.cat([b for b, _, _ in framed], dim=2)
+        packed = self._pad_lanes(packed)
         bits = self._decode_blocks(packed, frame_counts)  # (D, total)
         if uniform is not None:  # equal frames: one reshape, not S slices
             S, k, n_bits = len(ys), frame_counts[0], bit_counts[0]
@@ -192,6 +247,22 @@ class DecoderEngine:
         return DecoderSession(self, store=store)
 
     # ------------------------------------------------------------------ internals
+    def _lane_budget(self, n: int) -> int:
+        """Lanes a launch of ``n`` real lanes takes: the smallest multiple of
+        ``n_shards`` that is at least ``n``, so the lanes split into equal
+        slices. Without a mesh this is ``n``: the kernels mask the ragged
+        lane edge, so the port keeps no power-of-two shape budget."""
+        s = self.n_shards
+        return -(-n // s) * s
+
+    def _pad_lanes(self, blocks: torch.Tensor) -> torch.Tensor:
+        """Pad the lane axis to :meth:`_lane_budget` with zero-symbol blocks."""
+        total = blocks.shape[2]
+        budget = self._lane_budget(total)
+        if budget > total:
+            blocks = F.pad(blocks, (0, budget - total))
+        return blocks
+
     def _to_device(self, y) -> torch.Tensor:
         """Symbols as a tensor on the engine's device: floats as float32,
         integers other than int8/int16/int32 as int32 (the reference's
@@ -255,22 +326,39 @@ class DecoderEngine:
         return y
 
     def _decode_blocks(self, blocks: torch.Tensor, frame_counts: tuple[int, ...]):
-        """(T, R, B) framed symbols → (D, sum(frame_counts)) bits."""
+        """(T, R, B) framed symbols → (D, sum(frame_counts)) bits.
+
+        ``frame_counts`` is the per-frame real-block layout along the lane
+        axis; lanes beyond the real blocks are padding. With a mesh bound,
+        the lane axis arrives padded to :meth:`_lane_budget` (every caller
+        rounds once, before launch) and is split over the lane shards by
+        the configured dispatch.
+        """
         cfg = self.cfg
-        return pbvd_decode_blocks(
-            blocks,
-            self.spec.code,
+        launch = functools.partial(
+            pbvd_decode_blocks,
+            code=self.spec.code,
             decode_start=cfg.L,
             n_decode=cfg.D,
             start_policy=cfg.start_policy,
             backend=cfg.backend,
-            frame_counts=frame_counts,
             metric_mode=cfg.metric_mode,
             tb_mode=cfg.tb_mode,
             tb_chunk=cfg.tb_chunk,
             acs_radix=cfg.acs_radix,
             acs_impl=cfg.acs_impl,
             acs_k=cfg.acs_k,
+        )
+        if self.mesh is None:
+            return launch(blocks, frame_counts=frame_counts)
+        n_real = sum(frame_counts)
+        if self.shard_dispatch == "shard_map":
+            # every lane of every slice, pad lanes included; the trim
+            # happens once, on the joined result
+            bits = lane_split(launch, blocks, self._shard_devices, out_device=self.device)
+            return bits[:, :n_real]
+        return lane_split(
+            launch, blocks, self._shard_devices, out_device=self.device, n_real=n_real
         )
 
 
@@ -509,7 +597,11 @@ class DecoderSession:
         k = b1 - self._blocks_done
         if k <= 0:
             return torch.zeros((0,), dtype=torch.int32, device=self.engine.device)
-        bits = self.engine._decode_blocks(self._frame_ready(b1), (k,))  # (D, k)
+        # the lane budget of the engine (a multiple of its shard count), the
+        # same padding the pooled launch uses, so a solo and a pooled flush
+        # build identical launches lane for lane
+        blocks = self.engine._pad_lanes(self._frame_ready(b1))
+        bits = self.engine._decode_blocks(blocks, (k,))  # (D, k)
         out = bits.t().reshape(-1)
         self._commit(b1)
         return out

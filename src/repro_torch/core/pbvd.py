@@ -39,7 +39,13 @@ from .quantize import (
 )
 from .trellis import CCSDS_27, ConvCode
 
-__all__ = ["PBVDConfig", "decode_stream", "frame_stream", "throughput_model"]
+__all__ = [
+    "PBVDConfig",
+    "decode_stream",
+    "decode_stream_sharded",
+    "frame_stream",
+    "throughput_model",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,6 +189,30 @@ def decode_stream(y, n_bits: int, cfg: PBVDConfig = PBVDConfig(), *, device=None
     from .engine import DecoderEngine  # the engine imports this module
 
     return DecoderEngine(cfg, device=device).decode(y, n_bits)
+
+
+def decode_stream_sharded(
+    y,
+    n_bits: int,
+    cfg: PBVDConfig,
+    mesh,
+    *,
+    block_axes: tuple[str, ...] | None = ("data",),
+    shard_dispatch: str = "constraint",
+) -> torch.Tensor:
+    """Sharded stream decode: thin wrapper over a mesh-bound engine.
+
+    ``mesh`` is a :class:`~repro_torch.launch.mesh.DecodeMesh`; the bits
+    come back on its first device. ``block_axes=None`` resolves the
+    ``"blocks"`` logical-axis rule against the mesh; ``shard_dispatch`` picks
+    the lane dispatch (see :class:`~repro_torch.core.engine.DecoderEngine`).
+    """
+    from .engine import DecoderEngine  # the engine imports this module
+
+    engine = DecoderEngine(
+        cfg, mesh=mesh, block_axes=block_axes, shard_dispatch=shard_dispatch
+    )
+    return engine.decode(y, n_bits)
 
 
 def throughput_model(

@@ -71,7 +71,52 @@ __all__ = [
     "backend_acs_impl",
     "backend_limits",
     "knob_error",
+    "SHARD_DISPATCH",
+    "check_mesh_launch",
 ]
+
+
+#: Lane-axis dispatch strategies for a mesh-bound engine. Both split the
+#: lanes into equal slices, one per lane shard (``sharding/smap.py``):
+#: ``"constraint"`` launches each shard with only its real lanes (the kernels
+#: mask a ragged edge; a shard with none is not launched), ``"shard_map"``
+#: decodes every lane of every slice, pad lanes included, and trims the pad
+#: lanes once, after the shards are joined, as the reference's ``shard_map``
+#: must (per-shard output shapes are uniform there).
+SHARD_DISPATCH = ("constraint", "shard_map")
+
+
+def check_mesh_launch(mesh, block_axes, backend: str, *, dispatch: str = "constraint") -> int:
+    """Eagerly validate a mesh × backend decode combination; return n_shards.
+
+    Every failure here is a clear ``ValueError`` (or ``KeyError`` for an
+    unknown backend) raised before anything is framed: unknown dispatch
+    mode, empty/duplicate ``block_axes``, axes the mesh does not have, and a
+    backend name the registry does not know. Called by ``DecoderEngine`` at
+    construction, so a bad mesh binding fails when the engine is built —
+    never inside a batched launch mid-stream.
+    """
+    get_backend(backend)  # KeyError names the unknown backend
+    if dispatch not in SHARD_DISPATCH:
+        raise ValueError(
+            f"unknown shard dispatch {dispatch!r}; supported: {SHARD_DISPATCH}"
+        )
+    axes = tuple(block_axes)
+    if not axes:
+        raise ValueError("block_axes must name at least one mesh axis")
+    if len(set(axes)) != len(axes):
+        raise ValueError(f"block_axes {axes} repeats a mesh axis")
+    missing = [a for a in axes if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(
+            f"block_axes {missing} not in mesh axes {tuple(mesh.axis_names)}"
+        )
+    n_shards = 1
+    for a in axes:
+        n_shards *= int(mesh.shape[a])
+    if n_shards < 1:
+        raise ValueError(f"mesh shards the lane axis {n_shards} ways: empty mesh?")
+    return n_shards
 
 
 def _start_states(pm: torch.Tensor, start_policy: str) -> torch.Tensor | int:

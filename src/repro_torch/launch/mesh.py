@@ -1,0 +1,198 @@
+"""Decode meshes over device lists: the port's stand-in for ``jax.sharding.Mesh``.
+
+The decoder shards nothing but its lane axis (the flattened frames ×
+parallel-blocks axis), and parallel blocks never interact, so a mesh here is
+only a placement: a named grid of ``torch.device`` objects over which
+:func:`repro_torch.sharding.smap.lane_split` cuts the lanes. The counterpart
+of ``repro.launch.mesh`` for the decode fleet; the LM's production mesh and
+the multi-process start stay out (one process drives every device it names).
+
+A device list may name one device more than once: ``["cpu"] * 8`` rehearses
+an 8-way split on the CPU, and ``[torch.device("cuda", 0)] * 4`` splits the
+lanes four ways on one card (four launches of each kernel, one after the
+other on that card's stream). ``devices=None`` means every CUDA device torch
+finds.
+
+    mesh = make_decode_mesh("data=4", devices=["cpu"] * 4)
+    engine = DecoderEngine(cfg, mesh=mesh)          # engine.device == cpu
+    bits = engine.decode(y, n_bits)                 # == the meshless decode
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+__all__ = [
+    "DecodeMesh",
+    "canonical_device",
+    "make_decode_mesh",
+    "make_local_mesh",
+    "parse_mesh_spec",
+    "shrink_mesh",
+]
+
+
+def canonical_device(device, user: str = "DecodeMesh") -> torch.device:
+    """``device`` through :func:`resolve_device` (a CUDA device torch cannot
+    find raises :class:`~repro_torch.device.DeviceUnavailableError`), with a
+    bare ``"cuda"`` pinned to the current CUDA device's index, so that
+    ``"cuda"`` and ``"cuda:0"`` compare equal where they are one card."""
+    dev = resolve_device(device, user=user)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class DecodeMesh:
+    """A named grid of devices: ``axis_names`` (a tuple), ``shape`` (an
+    ordered name → size mapping, as ``jax.sharding.Mesh.shape``),
+    ``devices`` (a numpy object array of ``torch.device`` shaped by the
+    sizes) and ``size``.
+
+    ``devices`` is a flat sequence of exactly ``prod(shape)`` devices laid
+    out row-major. Every device must be of one type: a mesh that mixes CPU
+    and CUDA devices is refused with ``ValueError``.
+    """
+
+    def __init__(self, devices: Sequence, shape: Sequence[int], axis_names: Sequence[str]):
+        shape = tuple(int(n) for n in shape)
+        axis_names = tuple(axis_names)
+        if len(shape) != len(axis_names):
+            raise ValueError(
+                f"mesh shape {shape} has {len(shape)} axes, axis_names has "
+                f"{len(axis_names)} ({axis_names})"
+            )
+        devs = [canonical_device(d) for d in devices]
+        if len(devs) != math.prod(shape):
+            raise ValueError(
+                f"mesh shape {shape} needs {math.prod(shape)} devices, got {len(devs)}"
+            )
+        types = sorted({d.type for d in devs})
+        if len(types) > 1:
+            raise ValueError(
+                f"mesh devices must be of one type, got {types} "
+                f"({', '.join(str(d) for d in devs)})"
+            )
+        grid = np.empty(len(devs), dtype=object)
+        grid[:] = devs
+        self.devices = grid.reshape(shape)
+        self.axis_names = axis_names
+        self.shape = collections.OrderedDict(zip(axis_names, shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+
+def _available_devices() -> list[torch.device]:
+    """Every CUDA device torch finds; none raises DeviceUnavailableError."""
+    resolve_device(None, user="make_decode_mesh")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def make_local_mesh(data: int | None = None, model: int = 1, *, devices=None) -> DecodeMesh:
+    """Small ``(data, model)`` mesh over the first devices of ``devices``
+    (tests and examples; ``None``: every CUDA device torch finds).
+
+    Every invalid shape fails HERE with a clear ``ValueError`` — notably
+    ``model`` not dividing the device count.
+    """
+    devs = _available_devices() if devices is None else list(devices)
+    n = len(devs)
+    if model < 1:
+        raise ValueError(f"model axis size must be >= 1, got {model}")
+    if data is None:
+        if n % model:
+            raise ValueError(
+                f"model={model} does not divide the {n} available device(s); "
+                f"pick a divisor of {n} or pass data= explicitly"
+            )
+        data = n // model
+    if data < 1:
+        raise ValueError(f"data axis size must be >= 1, got {data}")
+    if data * model > n:
+        raise ValueError(
+            f"mesh shape ({data}, {model}) needs {data * model} devices, "
+            f"only {n} available"
+        )
+    return DecodeMesh(devs[: data * model], (data, model), ("data", "model"))
+
+
+def parse_mesh_spec(spec: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """Parse ``"data=8"`` / ``"pod=2,data=4"`` → (axis names, axis sizes)."""
+    names, sizes = [], []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, eq, size = part.partition("=")
+        name = name.strip()
+        try:
+            n = int(size) if eq else -1
+        except ValueError:
+            n = -1
+        if not name or n < 1:
+            raise ValueError(
+                f"bad mesh spec {spec!r}: expected AXIS=N[,AXIS=N...] with "
+                f"positive integer sizes, got segment {part!r}"
+            )
+        if name in names:
+            raise ValueError(f"bad mesh spec {spec!r}: axis {name!r} repeated")
+        names.append(name)
+        sizes.append(n)
+    if not names:
+        raise ValueError(f"bad mesh spec {spec!r}: no axes")
+    return tuple(names), tuple(sizes)
+
+
+def make_decode_mesh(spec: str, *, devices=None) -> DecodeMesh:
+    """Build the decode-fleet mesh from a ``--mesh`` spec string.
+
+    ``spec`` is ``"data=N"`` (or multi-axis ``"pod=2,data=8"``); the mesh is
+    laid over the first ``prod(sizes)`` entries of ``devices`` (``None``:
+    every CUDA device torch finds), so a sub-mesh of the available fleet is
+    legal. A list may name one device more than once.
+    """
+    names, sizes = parse_mesh_spec(spec)
+    devs = _available_devices() if devices is None else list(devices)
+    need = math.prod(sizes)
+    if need > len(devs):
+        raise ValueError(
+            f"mesh spec {spec!r} needs {need} devices, only {len(devs)} available"
+        )
+    return DecodeMesh(devs[:need], sizes, names)
+
+
+def shrink_mesh(mesh: DecodeMesh, new_shape, *, devices=None) -> DecodeMesh:
+    """Rebuild ``mesh`` at ``new_shape`` (same axis names) over surviving
+    devices — the mesh-loss fallback of
+    :func:`repro_torch.launch.elastic.rescale_decode_engine`.
+
+    ``devices`` lists the survivors explicitly; by default the first
+    ``prod(new_shape)`` devices of the old mesh are kept. Device choice never
+    affects decoded bits: the decode mesh only places independent lanes.
+    """
+    new_shape = tuple(int(n) for n in new_shape)
+    if len(new_shape) != len(mesh.axis_names):
+        raise ValueError(
+            f"new_shape {new_shape} has {len(new_shape)} axes, mesh has "
+            f"{len(mesh.axis_names)} ({tuple(mesh.axis_names)})"
+        )
+    need = 1
+    for n in new_shape:
+        if n < 1:
+            raise ValueError(f"new_shape {new_shape} has a non-positive axis")
+        need *= n
+    devs = list(mesh.devices.flat) if devices is None else list(devices)
+    if need > len(devs):
+        raise ValueError(
+            f"new_shape {new_shape} needs {need} devices, only {len(devs)} survive"
+        )
+    return DecodeMesh(devs[:need], new_shape, tuple(mesh.axis_names))

@@ -46,9 +46,10 @@ Failure behaviour: per-stream causes quarantine ONLY that stream (its
 waiters get a typed :class:`~repro_torch.launch.faults.StreamError`,
 everyone else completes bit-exact); transient dispatch failures retry under
 a bounded :class:`~repro_torch.launch.faults.RetryPolicy`; device loss
-(:class:`~repro_torch.launch.faults.MeshLost`) is absorbed as a retried
-dispatch that replays the ready blocks from session state (the port's
-engines are single-device, so there is no mesh to rebuild); capacity
+(:class:`~repro_torch.launch.faults.MeshLost`) rebuilds every mesh-bound
+engine on a smaller mesh (or meshless) via
+:func:`~repro_torch.launch.elastic.rescale_decode_engine` and replays the
+ready blocks from session state (a meshless engine only replays); capacity
 exhaustion past ``shed_deadline_ms`` sheds the admission; and a dispatcher
 death propagates to every parked sender/finisher and resurfaces from
 :meth:`AsyncDecodeService.aclose` — nothing hangs.
@@ -480,7 +481,8 @@ class AsyncDecodeService:
         exponential-backoff retry; retries exhausted (or a typed
         :class:`StreamError`) escalate to the pool's bisection protocol,
         which quarantines culprit streams while the rest deliver bit-exact.
-        :class:`MeshLost` replays the ready blocks on the next poll. An
+        :class:`MeshLost` rebuilds the fleet's meshed engines on a smaller
+        mesh (or meshless) and replays the ready blocks on the next poll. An
         exception escaping even the isolation step is service-fatal and
         propagates (the background task turns it into ``_fail_service``).
         """
@@ -496,9 +498,10 @@ class AsyncDecodeService:
         try:
             self._pool.step()
         except MeshLost as exc:
-            # a single-device engine has no mesh to rebuild: the retried
+            # meshed engines are rebuilt on the survivors; the retried
             # dispatch replays the ready blocks from session state
             self._count_error(exc)
+            self._handle_mesh_loss(exc)
             self.retries += 1
             self._retry_at = self._clock()  # replay on the next poll
             return
@@ -633,6 +636,27 @@ class AsyncDecodeService:
                     "injected: poisoned stream symbols in the coalesced batch",
                     stream=ps,
                 )
+
+    def _handle_mesh_loss(self, exc: MeshLost) -> None:
+        """Rebuild every meshed engine in the fleet on a post-loss mesh.
+
+        Uses :func:`repro_torch.launch.elastic.rescale_decode_engine`: shrink
+        the engine's ``block_axes``, or drop to meshless dispatch when
+        nothing useful survives. Sessions are repointed in place; their
+        ready-but-undecoded blocks replay on the retried dispatch, bit-exact
+        to the uninterrupted run (the mesh only places independent lanes).
+        Meshless engines are left as they are.
+        """
+        from repro_torch.launch.elastic import rescale_decode_engine
+
+        engines, seen = [], set()
+        for st in self._streams:
+            eng = st._handle._session.engine
+            if eng.mesh is not None and id(eng) not in seen:
+                seen.add(id(eng))
+                engines.append(eng)
+        for eng in engines:
+            self._pool.repoint_engine(eng, rescale_decode_engine(eng, exc.lost_chips))
 
     def _fail_stream(self, stream: AsyncStream, err: StreamError) -> None:
         """Quarantine one stream: typed failure to its waiters, pages freed.
@@ -1052,8 +1076,9 @@ class AsyncDecodeService:
                 raise  # a flush never allocates; surface allocator bugs loudly
             except MeshLost as exc:
                 self._count_error(exc)
+                self._handle_mesh_loss(exc)
                 self.retries += 1
-                continue  # the flush replays from session state, bit-exact
+                continue  # the flush replays on the rebuilt engine, bit-exact
             except Exception as exc:  # noqa: BLE001 - transient flush failure
                 self._count_error(exc)
                 if attempt >= self.retry.max_retries:

@@ -18,13 +18,19 @@
     PYTHONPATH=src python -m repro_torch.launch.serve_decoder --serve-async \\
         --journal-dir /tmp/j --streams 4 --n-chunks 8 --recover
 
-The counterpart of ``repro.launch.serve_decoder`` on one card, without the
-mesh. A long-lived session object carries the decoder state (the inter-block overlap
-tail + puncture phase) across chunks, so an unbounded symbol stream decodes
-chunk by chunk — the serving shape of the paper's multi-stream pipelining
-(§IV-D). It runs on the card (``--device cuda``, the default, with
-``--backend cuda``); ``--device cpu`` is a rehearsal with the kernels' plain
-versions, whose times are the CPU's.
+    # the lane axis split over a mesh of every CUDA device torch finds:
+    PYTHONPATH=src python -m repro_torch.launch.serve_decoder --mesh data=1 \\
+        --shard-dispatch shard_map --streams 4
+
+The counterpart of ``repro.launch.serve_decoder``. A long-lived session
+object carries the decoder state (the inter-block overlap tail + puncture
+phase) across chunks, so an unbounded symbol stream decodes chunk by chunk —
+the serving shape of the paper's multi-stream pipelining (§IV-D). It runs on
+the card (``--device cuda``, the default, with ``--backend cuda``);
+``--device cpu`` is a rehearsal with the kernels' plain versions, whose
+times are the CPU's. ``--mesh`` builds its mesh over every CUDA device torch
+finds (over the CPU with ``--device cpu``), so on one card it takes
+``--mesh data=1``.
 
 The :class:`SessionPool` is the multi-tenant layer on top: many concurrent
 :class:`~repro_torch.core.engine.DecoderSession`\\ s register with the pool,
@@ -58,6 +64,7 @@ from repro_torch.kernels.ops import (
 )
 from repro_torch.kernels.registry import resolve_tb_mode
 from repro_torch.launch.faults import StreamError
+from repro_torch.launch.mesh import make_decode_mesh
 
 __all__ = ["SessionPool", "PooledSession", "main"]
 
@@ -132,22 +139,33 @@ class SessionPool:
     Sessions are grouped by *launch compatibility* — the key is
     ``(mother code, D, L, backend, start_policy, metric_mode, acs_impl,
     radix under butterfly, k under matrix, resolved tb_mode, tb_chunk where
-    it matters, window dtype, engine device)``: everything that shapes or
-    parameterizes the launch. Code specs that share a mother code but differ
-    in puncturing land in the same group (puncturing only affects ingest),
-    as do sessions with different payload lengths or chunk cadences; a CPU
-    engine and a CUDA engine never share a launch.
+    it matters, window dtype, engine device or mesh identity)``: everything
+    that shapes or parameterizes the launch. The mesh identity is
+    content-based — axis names, shape, devices as (type, index), the
+    engine's ``block_axes`` and shard dispatch — never ``id(mesh)``. Code
+    specs that share a mother code but differ in puncturing land in the
+    same group (puncturing only affects ingest), as do sessions with
+    different payload lengths or chunk cadences; a CPU engine and a CUDA
+    engine never share a launch.
 
     One :meth:`step` builds, per group, a single frames × blocks lane axis
     from each member's ready window (``frame_counts`` records the
-    per-session block counts), launches once with exactly those blocks (the
-    kernels mask the ragged lane edge, so nothing is padded), and hands the
+    per-session block counts), pads it to the lead engine's lane budget
+    (nothing without a mesh: the kernels mask the ragged lane edge; a
+    multiple of the shard count with one), launches once, and hands the
     per-frame bits back to each session, which then advances its own
     overlap tail exactly as a solo launch would have.
     """
 
     def __init__(self):
         self._members: list[PooledSession] = []
+        # strong refs to each pooled engine's mesh for the membership's
+        # lifetime: the group key describes the mesh by CONTENT, and pinning
+        # the object here guarantees no two live members' meshes can alias.
+        # Keyed by the PooledSession OBJECT (identity hash): an ``id(ps)``
+        # key could alias a closed-and-collected member's reused id onto a
+        # new member, dropping or double-releasing the wrong mesh pin
+        self._mesh_refs: dict[PooledSession, object] = {}
         self.launches = 0  # batched launches issued (for reporting/tests)
         # fault-tolerance hooks: ``fault_hook(entries, isolating)`` is
         # consulted before every launch (the injection point for a fault
@@ -159,16 +177,28 @@ class SessionPool:
     # ---- membership ----------------------------------------------------------------
     def open(self, engine: DecoderEngine, *, store=None) -> PooledSession:
         """Open a pooled streaming session on ``engine``; ``store`` is
-        forwarded to :meth:`DecoderEngine.session`."""
+        forwarded to :meth:`DecoderEngine.session`. Pool state is mutated
+        atomically: a partially failed open leaves neither a membership
+        entry nor a mesh pin behind."""
         ps = PooledSession(self, engine.session(store=store))
-        self._members.append(ps)
+        try:
+            self._members.append(ps)
+            if engine.mesh is not None:
+                self._mesh_refs[ps] = engine.mesh
+        except BaseException:
+            if ps in self._members:
+                self._members.remove(ps)
+            self._mesh_refs.pop(ps, None)
+            raise
         return ps
 
     def close(self, ps: PooledSession) -> None:
         """Remove a session from the pool (it keeps its buffered state).
-        Idempotent: closing a closed (or never-opened) member is a no-op."""
+        Idempotent: closing a closed (or never-opened) member is a no-op,
+        and the member's mesh pin is released exactly once."""
         if ps in self._members:
             self._members.remove(ps)
+        self._mesh_refs.pop(ps, None)
 
     def __len__(self) -> int:
         return len(self._members)
@@ -225,6 +255,21 @@ class SessionPool:
             dt = "int8" if q <= 8 else "int16"
         else:
             dt = "float32"
+        # the mesh enters the key by CONTENT plus the engine's lane-axis
+        # binding: two engines on the same mesh but different block_axes (or
+        # dispatch) split the lanes differently and must not coalesce, while
+        # equal meshes built twice must
+        eng = s.engine
+        if eng.mesh is None:
+            placement = eng.device
+        else:
+            placement = (
+                tuple(eng.mesh.axis_names),
+                tuple((a, int(n)) for a, n in eng.mesh.shape.items()),
+                tuple((d.type, d.index) for d in eng.mesh.devices.flat),
+                eng.block_axes,
+                eng.shard_dispatch,
+            )
         # key on the RESOLVED tb mode so an "auto" session coalesces with
         # one that spelled the backend's preferred mode out explicitly
         tb_mode = resolve_tb_mode(cfg.backend, cfg.tb_mode)
@@ -246,7 +291,7 @@ class SessionPool:
             if tb_mode == "prefix" and backend_tb_chunk_sensitive(cfg.backend)
             else None,
             dt,
-            s.engine.device,
+            placement,
         )
 
     def _launch(
@@ -271,6 +316,9 @@ class SessionPool:
             counts.append(b1 - s._blocks_done)
         packed = torch.cat(frames, dim=2) if len(frames) > 1 else frames[0]
         lead = entries[0][0]._session
+        # the lead engine's lane budget — identical for every member, since
+        # the group key includes the full mesh identity + block_axes
+        packed = lead.engine._pad_lanes(packed)
         bits = lead.engine._decode_blocks(packed, tuple(counts))  # (D, sum(counts))
         self.launches += 1
         outs, lo = [], 0
@@ -328,16 +376,21 @@ class SessionPool:
         return out
 
     def repoint_engine(self, old: DecoderEngine, new: DecoderEngine) -> int:
-        """Swap every member bound to engine ``old`` onto ``new``. Members'
-        ready-but-undecoded blocks replay on the new engine at the next
-        step, bit-exact to the uninterrupted run (block content is host-side
-        session state). Returns the number of members repointed.
+        """Swap every member bound to engine ``old`` onto ``new`` (mesh-loss
+        rescale), moving its mesh pin. Members' ready-but-undecoded blocks
+        replay on the new engine at the next step, bit-exact to the
+        uninterrupted run (block content is host-side session state and the
+        mesh only places lanes). Returns the number of members repointed.
         """
         n = 0
         for ps in self._members:
             s = ps._session
             if s.engine is old:
                 s.engine = new
+                if new.mesh is not None:
+                    self._mesh_refs[ps] = new.mesh
+                else:
+                    self._mesh_refs.pop(ps, None)
                 n += 1
         return n
 
@@ -688,6 +741,21 @@ def main(argv: list[str] | None = None) -> None:
         default=2,
         help="matrix-ACS fusion depth k (stages per (min,+) step)",
     )
+    ap.add_argument(
+        "--mesh",
+        default=None,
+        metavar="AXIS=N[,AXIS=N]",
+        help="split the lane (parallel-block) axis over a mesh of every CUDA "
+        "device torch finds (of the CPU with --device cpu), e.g. data=1 on "
+        "one card; see repro_torch.launch.mesh",
+    )
+    ap.add_argument(
+        "--shard-dispatch",
+        default="constraint",
+        choices=["constraint", "shard_map"],
+        help="mesh dispatch: each shard's real lanes only, or every lane of "
+        "equal slices with the pad lanes trimmed after the join (bit-identical)",
+    )
     ap.add_argument("--chunk-bits", type=int, default=4096, help="payload bits per chunk")
     ap.add_argument("--n-chunks", type=int, default=100)
     ap.add_argument(
@@ -779,7 +847,23 @@ def main(argv: list[str] | None = None) -> None:
         acs_impl=args.acs_impl,
         acs_k=args.acs_k,
     )
-    engine = DecoderEngine(cfg, device=device)
+    mesh = None
+    if args.mesh:
+        mesh = make_decode_mesh(args.mesh, devices=None if device.type == "cuda" else [device])
+    engine = DecoderEngine(
+        cfg,
+        device=device,
+        mesh=mesh,
+        block_axes=None if mesh is not None else ("data",),
+        shard_dispatch=args.shard_dispatch,
+    )
+    if mesh is not None:
+        print(
+            f"[serve_decoder] mesh {dict(mesh.shape)} over {mesh.size} device(s) "
+            f"[{', '.join(str(d) for d in mesh.devices.flat)}]; lane axis on "
+            f"{engine.block_axes} ({engine.n_shards} shards, "
+            f"dispatch={engine.shard_dispatch})"
+        )
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
     print(
         f"[serve_decoder] {spec.name} on {where}: K={spec.code.K}, rate={spec.rate:.3f}, "

@@ -157,8 +157,8 @@ def test_retry_backoff_on_a_fake_clock():
 
 
 def test_mesh_loss_without_a_mesh_is_a_replayed_dispatch():
-    """The port's engines are single-device: a MeshLost is absorbed as a
-    retried dispatch that replays the ready blocks, bit-exact."""
+    """On a meshless engine a MeshLost is absorbed as a retried dispatch
+    that replays the ready blocks, bit-exact."""
     y = stream("ccsds", 512, 26)
     clk = FakeClock()
 

@@ -198,8 +198,37 @@ card once per shard, or distinct cards where torch finds more than one):
     limit, and a ``torch.profiler`` window over five ``data=4`` decodes of
     each backend (device busy share, top kernels).
 
-The line before the last is the card's name and power limit; the last line
-is ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
+Then the paper's science, the examples and the rest of the dense and MoE
+LM cards:
+
+23. the BER harness (``core/ber.py``, Fig. 4) at 2^24 bits per point:
+    ``simulate_ber`` on ``"cuda"`` for CCSDS, D = 512, q = 8 at Eb/N0 2, 3
+    and 4 dB × L = 14, 28 and 42, ``hard_decision_ber`` at 4 dB, L = 42,
+    and ``ccsds-3/4`` at 5.5 dB, L = 42; a replay of the generator draws
+    each point's symbols again, which decode through ``"cuda"`` (the same
+    errors), ``"fused"`` and, at 4 dB / L = 42, ``"ref"``, bit for bit,
+    each decode's launches counted; the bands of
+    ``tests/test_ber_regression.py`` (soft ≤ 3e-4, hard in [1e-3, 1e-2],
+    soft < hard < uncoded), BER not rising with Eb/N0 at any L and L = 14
+    no better than L = 42 at 4 dB; then ``examples/torch_quickstart.py``
+    and ``examples/torch_ber_sweep.py --bits 1048576`` as subprocesses,
+    each exiting 0;
+24. Qwen2.5-32B, Minitron-8B, Command-R-35B and Mixtral-8x22B, one at a
+    time, at full width with the depth cut to 2 layers and random seeded
+    float32 weights: the flash kernel at the card's G (5, 4, 8, 6) against
+    its plain version, the parameter count against ``n_params_estimate``,
+    ``make_prefill_step`` on 2 × 4096 tokens (Mixtral 2 × 8192, past its
+    4096 window) with one flash launch per layer, all on the tensor-core
+    body (Mixtral: the entries dropped by capacity per layer), flash
+    against streaming prefill, float32 cached ``apply_decode`` against
+    ``apply_train`` (Mixtral at a capacity of S), ``greedy_generate`` for
+    4 requests × (prompt 16, 32 new), and the flash kernel at the
+    prefill's shapes against ``ref_mha`` (atol 2e-5, rtol 2^-8) with its
+    time beside its bound and SDPA's; each card's seconds are a lap.
+
+Each phase prints its seconds (``[seconds]`` lines). The line before the
+last is the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 torch finds no CUDA device or when the port's sources are missing.
 """
 
@@ -238,6 +267,16 @@ LM_BATCH, LM_SEQ = 2, 8192
 LM_PARAMS = 3_029_818_368  # count_params; n_params_estimate leaves out biases and norms
 PREFILL_LOGIT_ATOL = 0.25  # bf16 compute over 30 layers: flash (f32 p) vs streaming (bf16 p)
 DECODE_LOGIT_ATOL = 1e-3  # float32 compute: cached decode vs full forward, roundoff only
+
+# phase 23: the paper's Fig. 4 on the card; soft BER at 4 dB is about 1e-5,
+# so a point needs millions of bits to count errors at all
+BER_BITS = 1 << 24
+# phase 24: the remaining dense GQA cards and Mixtral at full width, depth cut
+CARDS = ("qwen2.5-32b", "minitron-8b", "command-r-35b", "mixtral-8x22b")
+CARD_LAYERS = 2
+CARD_SEQ = {"qwen2.5-32b": 4096, "minitron-8b": 4096, "command-r-35b": 4096,
+            "mixtral-8x22b": 8192}  # Mixtral: past its 4096 window
+CARD_DECODE = 32  # cached float32 steps held against apply_train
 
 
 def log(msg: str) -> None:
@@ -683,6 +722,19 @@ def lm_phases(torch, dev, gen, decoder_counters) -> dict:
                  replaces="src/repro/_unused/flash_attention.py:54", launches=f32_launches,
                  max_abs_err=flash_err[f32], ms=f32_ms, plain_ms=f32_plain_ms, bound_ms=f32_bound,
                  bound_by=f32_by, library_ms=f32_library_ms)]
+
+
+class PhaseClock:
+    """Seconds per phase: ``lap(label)`` prints the time since the last lap
+    (or the start) and since the start."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+
+    def lap(self, label: str) -> None:
+        now = time.perf_counter()
+        log(f"[seconds] {label}: {now - self.last:.1f} s (script {now - self.t0:.1f} s)")
+        self.last = now
 
 
 def percentiles(ms: list[float]) -> str:
@@ -1459,7 +1511,313 @@ def mesh_phases(torch, dev, counters, y, ref_bits, ys, batch, power: str) -> Non
             + "; ".join(f"{n} {t:.3f} ms × {c}" for n, t, c in kernels_p))
 
 
+def ber_phases(torch, dev, counters, power: str) -> None:
+    """Phase 23 (ber): the paper's Fig. 4 on the card. Each point draws
+    ``BER_BITS`` bits with ``simulate_ber`` / ``hard_decision_ber`` on
+    ``"cuda"``; a replay of the generator then draws the same payload and
+    symbols again (``draw_trial``), which decode through ``"cuda"`` (the same
+    error count), ``"fused"`` and, at the 4 dB / L = 42 soft point,
+    ``"ref"``, bit for bit. The bands of ``tests/test_ber_regression.py``
+    must hold, BER must not rise with Eb/N0 at any L, and L = 14 must be no
+    better than L = 42 at 4 dB. Each point prints the kernels' launches
+    in ``simulate_ber`` and in one decode per backend."""
+    import dataclasses
+
+    from repro_torch.core.ber import draw_trial, hard_decision_ber, simulate_ber, uncoded_ber
+    from repro_torch.core.codespec import get_code_spec
+    from repro_torch.core.engine import DecoderEngine
+    from repro_torch.core.pbvd import PBVDConfig
+
+    zero, read = counter_fns(torch, counters)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    points = [("soft", "ccsds", e, L) for e in (2.0, 3.0, 4.0) for L in (14, 28, 42)]
+    points += [("hard", "ccsds", 4.0, 42), ("soft", "ccsds-3/4", 5.5, 42)]
+    ber, errs = {}, {}
+    for point in points:
+        launches = {}
+        kind, spec_name, ebn0, L = point
+        spec = get_code_spec(spec_name)
+        cfg = PBVDConfig(spec=spec, D=512, L=L, q=8)
+        state = gen.get_state()
+        sim = hard_decision_ber if kind == "hard" else simulate_ber
+        zero()
+        ber[point] = sim(gen, ebn0, cfg, n_bits=BER_BITS, device=dev)
+        launches["simulate"] = read()
+        replay = torch.Generator(device=dev)
+        replay.set_state(state)
+        bits, y = draw_trial(replay, ebn0, spec, BER_BITS, dev)
+        if kind == "hard":
+            y, cfg = torch.sign(y), dataclasses.replace(cfg, q=None)
+        backends = ("cuda", "fused") + (("ref",) if point == ("soft", "ccsds", 4.0, 42) else ())
+        dec = {}
+        for be in backends:
+            eng = DecoderEngine(dataclasses.replace(cfg, backend=be), device=dev)
+            zero()
+            dec[be] = eng.decode(y, BER_BITS + spec.code.v)[:BER_BITS]
+            launches[be] = read()
+        errs[point] = int((dec["cuda"] != bits).sum())
+        if errs[point] != round(ber[point] * BER_BITS):
+            raise AssertionError(f"[23 ber] {point}: the replayed symbols give {errs[point]} "
+                                 f"errors, {sim.__name__} {ber[point] * BER_BITS}")
+        for be in backends[1:]:
+            if not torch.equal(dec[be], dec["cuda"]):
+                raise AssertionError(f"[23 ber] {point}: {be} differs from cuda in "
+                                     f"{int((dec[be] != dec['cuda']).sum())} bits")
+        log(f"[23 ber] {kind} {spec_name:9s} Eb/N0 {ebn0} dB, D=512, L={L:2d}, "
+            f"q={'None (sign)' if kind == 'hard' else 8}: {errs[point]} errors / {BER_BITS} bits "
+            f"= {ber[point]:.3e} (uncoded {uncoded_ber(ebn0):.3e}); cuda == "
+            f"{' == '.join(backends[1:])} bit for bit; launches per decode: simulate_ber "
+            f"{launches['simulate']}, " + ", ".join(f"{be} {launches[be]}" for be in backends))
+    soft, hard = ber["soft", "ccsds", 4.0, 42], ber["hard", "ccsds", 4.0, 42]
+    if not soft <= 3e-4:
+        raise AssertionError(f"[23 ber] soft-decision BER at 4 dB regressed: {soft:.3e}")
+    if not 1e-3 <= hard <= 1e-2:
+        raise AssertionError(f"[23 ber] hard-decision BER at 4 dB out of band: {hard:.3e}")
+    if not soft < hard < uncoded_ber(4.0):
+        raise AssertionError(f"[23 ber] soft {soft:.3e} < hard {hard:.3e} < uncoded fails")
+    for L in (14, 28, 42):
+        curve = [ber["soft", "ccsds", e, L] for e in (2.0, 3.0, 4.0)]
+        if not curve[0] >= curve[1] >= curve[2]:
+            raise AssertionError(f"[23 ber] L={L}: BER rises with Eb/N0: {curve}")
+    if not ber["soft", "ccsds", 4.0, 14] >= soft:
+        raise AssertionError(f"[23 ber] L=14 beats L=42 at 4 dB")
+    p34 = ber["soft", "ccsds-3/4", 5.5, 42]
+    if not p34 < uncoded_ber(5.5):
+        raise AssertionError(f"[23 ber] ccsds-3/4 at 5.5 dB: {p34:.3e} is not below uncoded")
+    log(f"[23 ber] {power}: Fig. 4 table, errors / {BER_BITS} bits per point (CCSDS, D=512, "
+        f"q=8): " + "; ".join(f"{e} dB: " + ", ".join(
+            f"L={L} {errs['soft', 'ccsds', e, L]}" for L in (14, 28, 42)) for e in (2.0, 3.0, 4.0))
+        + f"; hard 4 dB L=42 {errs['hard', 'ccsds', 4.0, 42]}; ccsds-3/4 5.5 dB L=42 "
+        f"{errs['soft', 'ccsds-3/4', 5.5, 42]}; bands of tests/test_ber_regression.py hold "
+        f"(soft {soft:.3e} <= 3e-4, hard {hard:.3e} in [1e-3, 1e-2], soft < hard < uncoded "
+        f"{uncoded_ber(4.0):.3e}); BER falls with Eb/N0 at every L; L=14 >= L=42 at 4 dB")
+
+
+def example_phases(power: str) -> None:
+    """Phase 23 (examples): ``examples/torch_quickstart.py`` and
+    ``examples/torch_ber_sweep.py --bits 1048576`` as subprocesses on the
+    card, sharing the kernels built in phase 1; each must exit 0."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    for argv in (["examples/torch_quickstart.py"],
+                 ["examples/torch_ber_sweep.py", "--bits", "1048576"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=root, env=env, capture_output=True,
+                              text=True, timeout=300)
+        for line in (proc.stdout + proc.stderr).splitlines():
+            log(f"[23 examples] {line}")
+        if proc.returncode:
+            raise AssertionError(f"[23 examples] {' '.join(argv)} exited {proc.returncode}")
+        log(f"[23 examples] {' '.join(argv)}: exit 0 in {time.perf_counter() - t0:.1f} s "
+            f"({power})")
+
+
+def card_phases(torch, dev, counters, power: str, clock: PhaseClock) -> None:
+    """Phase 24 (cards): the dense GQA cards Qwen2.5-32B, Minitron-8B and
+    Command-R-35B and the MoE card Mixtral-8x22B, one at a time, each at
+    full width with its depth cut to ``CARD_LAYERS`` layers and random
+    seeded weights in its own ``param_dtype``: the flash kernel at the
+    card's G against its plain version, the parameter count, the prefill
+    with its flash launches (all on the tensor-core body; Mixtral: the
+    entries dropped by capacity per layer), flash against the streaming
+    prefill, float32 cached decode against ``apply_train``, greedy
+    generation, and the flash kernel at the prefill's shapes against
+    ``ref_mha``, with its time beside its bound and SDPA's. Each card's
+    seconds are a lap of ``clock``."""
+    import dataclasses
+    import gc
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+    from repro_torch._unused import flash_attention as fa
+    from repro_torch._unused.models import attention, blocks, lm, moe
+    from repro_torch._unused.models.layers import round_vocab
+    from repro_torch._unused.serve.serve_step import greedy_generate, make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    zero, read = counter_fns(torch, counters)
+    for name in CARDS:
+        full = get_config(name)
+        cfg = dataclasses.replace(full, n_layers=CARD_LAYERS)
+        S = CARD_SEQ[name]
+        B, H, Hkv, dh = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        G, window = H // Hkv, cfg.sliding_window
+        gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+
+        # the flash kernel at this card's G (dh = 128, bf16, the tensor-core body)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                   for shape in ((1, 1024, 2, G, dh), (1, 1024, 2, dh), (1, 1024, 2, dh)))
+        fa.launches = fa.tc_launches = 0
+        out = fa.flash_attention(q, k, v, causal=True, window=300)
+        ref = fa.ref_mha(q, k, v, causal=True, window=300)
+        diff = (out.float() - ref).abs()
+        worst = float((diff / (2e-5 + 2.0 ** -8 * ref.abs())).max())
+        if (fa.launches, fa.tc_launches) != (1, 1) or not worst <= 1.0:
+            raise AssertionError(f"[24 cards] {name}: flash at G={G} launches "
+                                 f"{(fa.launches, fa.tc_launches)}, {worst:.3f} of the limit")
+        log(f"[24 cards] {name}: flash tensor-core body at G={G}, B=1 S=T=1024 Hkv=2 dh={dh} "
+            f"bf16 causal window 300 vs ref_mha: max abs err {float(diff.max()):.3e}, "
+            f"{worst:.3f} of the limit (atol 2e-5, rtol 2^-8)")
+        del q, k, v, out, ref, diff
+
+        params = lm.init_params(cfg, generator=gen, device=dev)
+        n_params = lm.count_params(params)
+        extra = lm.param_count(cfg) - cfg.n_params_estimate
+        if n_params != cfg.n_params_estimate + extra:
+            raise AssertionError(f"[24 cards] {name}: {n_params} parameters, n_params_estimate "
+                                 f"{cfg.n_params_estimate} + {extra} norms, biases and pad")
+        V = round_vocab(cfg.vocab)
+        log(f"[24 cards] {name} ({full.source}): full width (d_model {cfg.d_model}, "
+            f"{H}/{Hkv} heads, G={G}, d_ff {cfg.d_ff_expert or cfg.d_ff}"
+            f"{f', {cfg.n_experts} experts top-{cfg.top_k}' if cfg.n_experts else ''}, vocab "
+            f"{cfg.vocab}, window {window}), depth cut {full.n_layers} -> {cfg.n_layers} layers; "
+            f"{n_params:,} parameters ({cfg.param_dtype}) = n_params_estimate "
+            f"{cfg.n_params_estimate:,} + {extra:,} norms, biases and vocab pad; full depth "
+            f"{full.n_params_estimate:,} by the estimate")
+
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+        batch = {"tokens": tokens}
+        prefill = make_prefill_step(cfg)
+        prefill(params, {"tokens": tokens[:, :256]})  # warm up
+        moe_inputs = []  # each MoE layer's (params, input) in the prefill, for its drops
+
+        def recorded(p, x, cfg_):
+            moe_inputs.append((p, x))
+            return moe.moe_apply(p, x, cfg_)
+
+        zero()
+        fa.launches = fa.tc_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        blocks.moe_apply = recorded
+        try:
+            t0 = time.perf_counter()
+            next_tok = prefill(params, batch)
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            blocks.moe_apply = moe.moe_apply
+        others = read()
+        if (fa.launches, fa.tc_launches) != (cfg.n_layers, cfg.n_layers) or others:
+            raise AssertionError(f"[24 cards] {name}: prefill launched flash {fa.launches} "
+                                 f"times, {fa.tc_launches} on the tensor-core body (want "
+                                 f"{cfg.n_layers} of each), decoder kernels {others}")
+        pre_launches = fa.tc_launches
+        log(f"[24 cards] {name}: make_prefill_step, {B} x {S} tokens: flash launches "
+            f"{fa.launches}, all on the tensor-core body; {pre_ms:.1f} ms -> "
+            f"{B * S / pre_ms * 1e3:.0f} tokens/s; peak {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+            f" GB; the step builds every position's logits, {B} x {S} x {V} float32 = "
+            f"{B * S * V * 4 / 1e9:.2f} GB, and keeps the last; next tokens {next_tok.tolist()}")
+        if cfg.n_experts:
+            drops = [int(moe.dropped(p, x, cfg)) for p, x in moe_inputs]
+            if len(drops) != cfg.n_layers:
+                raise AssertionError(f"[24 cards] {name}: {len(drops)} MoE layers ran")
+            C = moe.moe_capacity(cfg, S)
+            log(f"[24 cards] {name}: entries dropped by capacity per layer {drops} of "
+                f"{B * S * cfg.top_k} (B x S x top_k), capacity C = {C} per expert and row")
+        del moe_inputs
+
+        last = lm.apply_train(params, batch, cfg)[:, -1]
+        with attention.flash_enabled("off"):
+            fa.launches = 0
+            last_plain = lm.apply_train(params, batch, cfg)[:, -1]
+            if fa.launches:
+                raise AssertionError("flash launched with flash_enabled('off')")
+        torch.cuda.synchronize()
+        diff = float((last - last_plain).abs().max())
+        if not (bool(torch.isfinite(last).all()) and torch.equal(last.argmax(-1).int(), next_tok)
+                and diff <= PREFILL_LOGIT_ATOL):
+            raise AssertionError(f"[24 cards] {name}: flash vs streaming prefill {diff}, or "
+                                 f"logits not finite or not the prefill step's tokens")
+        log(f"[24 cards] {name}: flash vs streaming prefill (flash_enabled('off')): "
+            f"last-position logits max abs diff {diff:.4f} (atol {PREFILL_LOGIT_ATOL}), argmax "
+            f"{last.argmax(-1).tolist()} vs {last_plain.argmax(-1).tolist()}")
+        del last, last_plain
+
+        # float32 compute; a capacity of S for the MoE (capacity_factor E/k), so that the
+        # full forward drops no token that the cached steps (S = 1, C = 1) keep
+        cf = {"capacity_factor": cfg.n_experts / cfg.top_k} if cfg.n_experts else {}
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32", **cf)
+        cap = f" (capacity_factor {cfg32.capacity_factor}: C = S)" if cf else ""
+        n_dec = CARD_DECODE
+        toks = tokens[:, :n_dec]
+        ref32 = lm.apply_train(params, {"tokens": toks}, cfg32)
+        cache = lm.init_cache(cfg32, B, n_dec, dtype=torch.float32, device=dev)
+        dec = []
+        for t in range(n_dec):
+            lg, cache = lm.apply_decode(params, toks[:, t:t + 1], cache, t, cfg32)
+            dec.append(lg[:, 0])
+        dec_err = float((torch.stack(dec, 1) - ref32).abs().max())
+        if not dec_err <= DECODE_LOGIT_ATOL:
+            raise AssertionError(f"[24 cards] {name}: cached decode vs apply_train {dec_err}")
+        log(f"[24 cards] {name}: float32 compute{cap}, cached apply_decode x {n_dec} vs "
+            f"apply_train: logits max abs diff {dec_err:.3e} "
+            f"(atol {DECODE_LOGIT_ATOL})")
+        del ref32, cache, dec
+
+        prompt = torch.randint(0, cfg.vocab, (4, 16), generator=gen, device=dev)
+        t0 = time.perf_counter()
+        gen_toks = greedy_generate(params, cfg, prompt, 32)
+        torch.cuda.synchronize()
+        g_ms = (time.perf_counter() - t0) * 1e3
+        if gen_toks.shape != (4, 32) or not bool(((gen_toks >= 0) & (gen_toks < cfg.vocab)).all()):
+            raise AssertionError(f"[24 cards] {name}: greedy_generate gave {gen_toks.shape}")
+        log(f"[24 cards] {name}: greedy_generate, 4 requests x (prompt 16, 32 new): "
+            f"{g_ms:.0f} ms for 48 steps ({g_ms / 48:.1f} ms/step); first tokens "
+            f"{gen_toks[:, :4].tolist()}")
+        del params, tokens, batch, prompt, gen_toks
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the flash kernel at the prefill's shapes against ref_mha, its time, bound and SDPA's
+        q = torch.randn((B, S, Hkv, G, dh), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((B, S, Hkv, dh), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        fa.launches = fa.tc_launches = 0
+        out = fa.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        body = (fa.launches, fa.tc_launches)
+        ref = fa.ref_mha(q, k, v, causal=True, window=window)
+        diff = (out.float() - ref).abs()
+        worst = float((diff / (2e-5 + 2.0 ** -8 * ref.abs())).max())
+        if body != (1, 1) or not bool(torch.isfinite(out).all()) or not worst <= 1.0:
+            raise AssertionError(f"[24 cards] {name}: flash at the prefill's shapes launches "
+                                 f"{body}, {worst:.3f} of the limit")
+        log(f"[24 cards] {name}: flash tensor-core body at the prefill's shapes B={B} S=T={S} "
+            f"Hkv={Hkv} G={G} dh={dh} bf16 causal window {window} vs ref_mha: max abs err "
+            f"{float(diff.max()):.3e}, {worst:.3f} of the limit (atol 2e-5, rtol 2^-8)")
+        del out, ref, diff
+        f_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True, window=window),
+                       reps=5)
+        nbytes, flops = flash_cost(B, S, S, Hkv, G, dh, True, window, 2)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        pos = torch.arange(S, device=dev)
+        band = pos[None, :] <= pos[:, None]
+        if window:
+            band &= pos[None, :] > pos[:, None] - window
+        qs, ks, vs = q.reshape(B, S, H, dh).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        try:
+            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=band, enable_gqa=True), reps=5)
+        except (TypeError, RuntimeError):  # timed only where this torch offers GQA
+            lib_ms = None
+        log(f"[24 cards] {power}: {name} flash tensor-core body at the prefill's shapes B={B} "
+            f"S=T={S} Hkv={Hkv} G={G} dh={dh} bf16 causal window {window}: {f_ms:.3f} ms (bound "
+            f"{b_ms:.4f} ms by {b_by}, {flops:.4e} FLOP; {flops / f_ms / 1e9:.1f} TFLOP/s; SDPA "
+            f"with the band mask, enable_gqa=True: "
+            f"{'not measured' if lib_ms is None else f'{lib_ms:.3f} ms'}); launches per prefill "
+            f"{pre_launches}")
+        del q, k, v, qs, ks, vs, band
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.lap(f"phase 24 {name}")
+
+
 def main() -> int:
+    clock = PhaseClock()
     import torch
 
     if not torch.cuda.is_available():
@@ -1493,6 +1851,7 @@ def main() -> int:
     log(f"[1 build] nvcc built {built} in {time.perf_counter() - t0:.2f} s "
         f"(flags {' '.join(_build.NVCC_FLAGS)})")
 
+    clock.lap("phase 1 build")
     # ---- 2. K1 against its plain version ---------------------------------------
     ccsds = get_code_spec("ccsds").code
     k5 = ConvCode(polys=((1, 0, 0, 1, 1), (1, 1, 1, 0, 1)))  # (2,1,5), N = 16
@@ -1583,6 +1942,7 @@ def main() -> int:
         log(f"[2 K1] {tag}: sp and pm equal (launches {acs.launches}, table body "
             f"{acs.table_launches}; {n_norm} normalizations)")
 
+    clock.lap("phase 2 K1")
     # ---- 3. K2 against its plain version ---------------------------------------
     L, D = PBVDConfig().L, PBVDConfig().D
     k2_err = 0.0
@@ -1638,6 +1998,7 @@ def main() -> int:
                 f"stages per slot) T={Tc} B={B} window [{ds}, {ds + nd}), {' and '.join(routes)}: "
                 f"bits equal for zero, argmin and random starts")
 
+    clock.lap("phase 3 K2")
     # ---- 4. main path ----------------------------------------------------------
     cfg = PBVDConfig()
     n_bits = N_MAIN_BLOCKS * cfg.D
@@ -1669,6 +2030,7 @@ def main() -> int:
         f"launches {main_launches}; BER at {EBN0_DB} dB = {ber:.3e} "
         f"({int((bits != payload).sum())} errors); noiseless errors = 0")
 
+    clock.lap("phase 4 main")
     # ---- 5. serving path -------------------------------------------------------
     pay = torch.randint(0, 2, (N_STREAMS, STREAM_BITS), generator=gen, device=dev,
                         dtype=torch.int32)
@@ -1691,6 +2053,7 @@ def main() -> int:
     log(f"[5 serve] decode_batch {N_STREAMS} x {STREAM_BITS} bits == per-stream decode "
         f"(launches {batch_launches}); ragged fleet of 4 == per-stream decode")
 
+    clock.lap("phase 5 serve")
     # ---- 6. times --------------------------------------------------------------
     blocks, n_blocks, _ = engine._frame_one(y, n_bits)
     sp, pm = acs.acs_forward(blocks, cfg.code)
@@ -1750,6 +2113,7 @@ def main() -> int:
         f"bytes per decoded bit: K1 {k1_bytes / n_bits:.3f} + K2 {k2_bytes / n_bits:.3f} = "
         f"{(k1_bytes + k2_bytes) / n_bits:.3f}")
 
+    clock.lap("phase 6 times")
     # ---- 7. narrow modes, radix 4 and the fused kernel against plain -----------
     # label, code, symbol dtype, B, T, decode_start, n_decode, mode, radix, start
     cases = [
@@ -1834,6 +2198,7 @@ def main() -> int:
         log(f"[7 fused] {tag}: words equal (G={G}, {smem} B shared)"
             + ("; K1 sp and pm equal" if mode != "f32" or radix == 4 else ""))
 
+    clock.lap("phase 7 fused and narrow modes")
     # ---- 8. the fused main path ----------------------------------------------
     fcfg = PBVDConfig(backend="fused")
     fengine = DecoderEngine(fcfg, device=dev)
@@ -1892,6 +2257,7 @@ def main() -> int:
     log(f"[8 fused] decode_batch {N_STREAMS} x {STREAM_BITS} bits == per-stream decode == cuda "
         f"(launches {fbatch_launches})")
 
+    clock.lap("phase 8 fused main")
     # ---- 9. times of the fused kernel, K1 radix 4 / i8 -------------------------
     i8_blocks = i8_engine._frame_one(y, n_bits)[0]
     fkw = dict(decode_start=cfg.L, n_decode=cfg.D)
@@ -1953,6 +2319,7 @@ def main() -> int:
             f"{1 - busy / wall:.1%}; top kernels: "
             + "; ".join(f"{n} {ms:.3f} ms × {c}" for n, ms, c in kernels_p))
 
+    clock.lap("phase 9 fused times")
     # ---- 10. K1-matrix against its plain version ------------------------------
     mcases = [  # label, code, symbol dtype, B, T, mode, k
         ("ccsds main", ccsds, i8, N_MAIN_BLOCKS, T, "f32", 2),
@@ -2024,6 +2391,7 @@ def main() -> int:
         f"reference lowers them: K1 launches {float_launches[0]}, K1-matrix {float_launches[1]}; "
         f"sp equal to the butterfly's plain version")
 
+    clock.lap("phase 10 K1-matrix")
     # ---- 11. K2-prefix against its plain version ------------------------------
     def check_prefix(sp, code, ds, nd, start, tb, tag) -> float:
         """One K2-prefix launch (counted) against the plain version and the
@@ -2102,6 +2470,7 @@ def main() -> int:
         else:
             raise AssertionError(f"{be} {impl} with tb_chunk=1 at K = 9 was not refused")
 
+    clock.lap("phase 11 K2-prefix")
     # ---- 12. the fused kernel in prefix, matrix and both ------------------------
     # label, code, dtype, B, T, decode_start, n_decode, mode, tb_mode, impl, radix/k,
     # tb_chunk, start
@@ -2204,6 +2573,7 @@ def main() -> int:
             f"(G={G}, {smem} B shared; launches all/matrix/"
             f"prefix/matrix on the table body/butterfly on the table body {body})")
 
+    clock.lap("phase 12 fused prefix/matrix")
     # ---- 13. the new main paths -------------------------------------------------
     variants = {"matrix+prefix": dict(acs_impl="matrix", acs_k=2, tb_mode="prefix"),
                 "matrix": dict(acs_impl="matrix", acs_k=2),
@@ -2243,6 +2613,7 @@ def main() -> int:
             log(f"[13 main] {n_bits} bits, {be} {vname} {knobs}: == ref (default config) bit "
                 f"for bit; launches {({k: v for k, v in counts.items() if v})}")
 
+    clock.lap("phase 13 new main paths")
     # ---- 14. times of the new kernels --------------------------------------------
     sym = blocks.element_size()
     log("[14 probe] the matrix warp body's one S per (code, k): " + "; ".join(
@@ -2358,15 +2729,25 @@ def main() -> int:
             f"{1 - busy / wall:.1%}; top kernels: "
             + "; ".join(f"{n} {ms:.3f} ms × {c}" for n, ms, c in kernels_p))
 
+    clock.lap("phase 14 times")
     flash_rows = lm_phases(torch, dev, gen, [(mod, attr) for _, mod, attr in counters])
+    clock.lap("phases 15-17 flash and StarCoder2-3B")
     streaming_phases(torch, dev, gen, counters, y, ref_bits)
+    clock.lap("phases 18-19 streaming")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
     power = smi.stdout.strip().splitlines()[0]
     serving_phases(torch, dev, gen, counters, power)
+    clock.lap("phases 20-21 serving fabric")
     mesh_phases(torch, dev, counters, y, ref_bits, ys, batch, power)
+    clock.lap("phase 22 mesh")
+    ber_phases(torch, dev, counters, power)
+    clock.lap("phase 23 ber")
+    example_phases(power)
+    clock.lap("phase 23 examples")
+    card_phases(torch, dev, counters, power, clock)
 
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith(("jax.", "jaxlib")) or mod == "repro" or mod.startswith("repro."):

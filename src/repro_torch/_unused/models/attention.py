@@ -9,7 +9,7 @@ otherwise. The port runs inference only: there is no backward, so the
 reference's ``_flash_with_xla_bwd`` is a plain call here. The cache write is
 in place (the reference returns a new buffer); the returned cache holds the
 same tensors. There is no context-parallel write and no cross-attention;
-MLA waits (ROADMAP A10).
+MLA waits (ROADMAP A.6.2).
 """
 
 from __future__ import annotations

@@ -2,10 +2,10 @@
 per-block decode cache.
 
 The counterpart of ``repro._unused.models.blocks`` for the GQA mixer and
-the dense FFN, sequential or parallel (Command-R style: one shared norm,
-attention and FFN side by side). The other mixers (MLA, Mamba, RWKV), the
-MoE FFN and cross-attention raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+the dense or MoE FFN, sequential or parallel (Command-R style: one shared
+norm, attention and FFN side by side). The other mixers (MLA, Mamba, RWKV)
+and cross-attention raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -15,28 +15,32 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.configs.base import LayerDesc, ModelConfig
+from repro_torch.configs.base import WAITING_SLICES, LayerDesc, ModelConfig
 from .attention import GQA, KVCache, gqa_apply, gqa_init
 from .layers import FFN, Norm, ffn_apply, ffn_init, norm_apply, norm_init
+from .moe import MoE, moe_apply, moe_init
 
 __all__ = ["Block", "block_init", "block_apply", "block_cache_init"]
 
-_WAITS = "waits for its slice of the LM port (ROADMAP A10)"
+def _waits(what: str, key: str) -> NotImplementedError:
+    slice_ = WAITING_SLICES.get(key, "ROADMAP A.6")
+    return NotImplementedError(f"{what} waits for its slice of the LM port ({slice_})")
 
 
 def _check(desc: LayerDesc, cross: bool = False) -> None:
     if desc.mixer != "gqa":
-        raise NotImplementedError(f"mixer {desc.mixer!r} {_WAITS}")
-    if desc.ffn != "dense":
-        raise NotImplementedError(f"ffn {desc.ffn!r} {_WAITS}")
+        raise _waits(f"mixer {desc.mixer!r}", desc.mixer)
+    if desc.ffn not in ("dense", "moe"):
+        raise _waits(f"ffn {desc.ffn!r}", desc.ffn)
     if cross:
-        raise NotImplementedError(f"cross-attention (enc-dec) {_WAITS}")
+        raise _waits("cross-attention (enc-dec)", "encdec")
 
 
 class Block(nn.Module):
-    """``norm1``, ``mixer``, ``norm2`` (absent in a parallel block) and ``ffn``."""
+    """``norm1``, ``mixer``, ``norm2`` (absent in a parallel block) and ``ffn``
+    (an :class:`FFN`, or a :class:`MoE` in a ``ffn="moe"`` layer)."""
 
-    def __init__(self, norm1: Norm, mixer: GQA, ffn: FFN, norm2: Norm | None = None):
+    def __init__(self, norm1: Norm, mixer: GQA, ffn: FFN | MoE, norm2: Norm | None = None):
         super().__init__()
         self.norm1, self.mixer, self.norm2, self.ffn = norm1, mixer, norm2, ffn
 
@@ -48,7 +52,8 @@ def block_init(cfg: ModelConfig, desc: LayerDesc, *, gen=None, device=None,
     return Block(
         norm_init(d, cfg, device=device),
         gqa_init(cfg, gen=gen, device=device),
-        ffn_init(cfg, cfg.d_ff_dense or cfg.d_ff, gen=gen, device=device),
+        (moe_init(cfg, gen=gen, device=device) if desc.ffn == "moe"
+         else ffn_init(cfg, cfg.d_ff_dense or cfg.d_ff, gen=gen, device=device)),
         None if cfg.parallel_block else norm_init(d, cfg, device=device),
     )
 
@@ -82,7 +87,8 @@ def block_apply(
     out, mc = gqa_apply(p.mixer, xn, cfg, positions=positions, causal=causal,
                         cache=mixer_cache, cache_len=cache_len)
     new_cache = None if mc is None else {"mixer": mc}
+    ffn = moe_apply if desc.ffn == "moe" else ffn_apply
     if cfg.parallel_block:
-        return x + out + ffn_apply(p.ffn, xn, cfg), new_cache
+        return x + out + ffn(p.ffn, xn, cfg), new_cache
     h = x + out
-    return h + ffn_apply(p.ffn, norm_apply(p.norm2, h, cfg), cfg), new_cache
+    return h + ffn(p.ffn, norm_apply(p.norm2, h, cfg), cfg), new_cache

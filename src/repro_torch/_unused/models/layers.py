@@ -10,7 +10,7 @@ in float32 and cast back to the input's dtype. Initializers draw from an
 explicit ``torch.Generator`` on the parameters' device, so their numbers
 differ from ``jax.random``'s: the tests carry the reference's weights across
 with :func:`repro_torch.interop.convert_lm_params`. The RWKV channel mix
-waits for the RWKV slice (ROADMAP A10).
+waits for the RWKV slice (ROADMAP A.6.4).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import WAITING_SLICES, ModelConfig
 
 __all__ = [
     "Dense", "dense_init", "dense_apply",
@@ -168,7 +168,8 @@ class FFN(nn.Module):
 def ffn_init(cfg: ModelConfig, d_ff: int, *, gen=None, device=None) -> FFN:
     d = cfg.d_model
     if cfg.ffn_act == "rwkv_cm":
-        raise NotImplementedError("the RWKV channel mix waits for the RWKV slice (ROADMAP A10)")
+        raise NotImplementedError(
+            f"the RWKV channel mix waits for the RWKV slice ({WAITING_SLICES['rwkv_cm']})")
     kw = dict(gen=gen, device=device)
     wi = dense_init(d, (d_ff,), cfg, **kw)
     wg = dense_init(d, (d_ff,), cfg, **kw) if cfg.ffn_act == "swiglu" else None
@@ -182,7 +183,8 @@ def ffn_apply(p: FFN, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.silu(dense_apply(p.wg, x, cfg)) * dense_apply(p.wi, x, cfg)
         return dense_apply(p.wo, h, cfg)
     if cfg.ffn_act == "rwkv_cm":
-        raise NotImplementedError("the RWKV channel mix waits for the RWKV slice (ROADMAP A10)")
+        raise NotImplementedError(
+            f"the RWKV channel mix waits for the RWKV slice ({WAITING_SLICES['rwkv_cm']})")
     h = dense_apply(p.wi, x, cfg)
     if cfg.ffn_act == "relu2":
         h = torch.square(F.relu(h))

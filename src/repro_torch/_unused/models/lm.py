@@ -2,7 +2,7 @@
 forward, decode caches and the cached single-token step.
 
 The counterpart of ``repro._unused.models.lm`` without the enc-dec and VLM
-variants (ROADMAP A10). The parameters are an :class:`LM` module whose
+variants (ROADMAP A.6.5). The parameters are an :class:`LM` module whose
 names follow the reference's pytree: ``embed.table``, ``final_norm.scale``,
 ``lm_head.w`` (untied models only) and ``groups[gi][r]["l{i}"]``, where the
 reference stacks a group's ``repeat`` layers on a leading scan axis and the
@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import WAITING_SLICES, ModelConfig
 from repro_torch.device import resolve_device
 from .blocks import block_apply, block_cache_init, block_init
 from .layers import Dense, Embed, Norm, cdtype, embed_init, norm_apply, norm_init, pdtype, round_vocab
@@ -32,6 +32,7 @@ __all__ = [
     "init_cache",
     "apply_decode",
     "count_params",
+    "param_count",
 ]
 
 
@@ -47,7 +48,8 @@ class LM(nn.Module):
 def _check(cfg: ModelConfig) -> None:
     if cfg.encdec or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: enc-dec and modality frontends wait for their slice (ROADMAP A10)"
+            f"{cfg.name}: enc-dec and modality frontends wait for their slice "
+            f"({WAITING_SLICES['encdec']})"
         )
 
 
@@ -82,6 +84,20 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
 
 def count_params(params: LM) -> int:
     return sum(p.numel() for p in params.parameters())
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """What ``count_params`` gives for ``init_params(cfg)``, from the shapes:
+    ``n_params_estimate`` plus the leaves the estimate leaves out, namely
+    the norms (two per block, one per parallel block, and the final one;
+    a LayerNorm holds a bias too), the QKV biases and the rows that pad the
+    vocab to ``round_vocab``."""
+    d = cfg.d_model
+    per_norm = 2 * d if cfg.norm_type == "layernorm" else d
+    norms = (cfg.n_layers * (1 if cfg.parallel_block else 2) + 1) * per_norm
+    biases = cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim if cfg.qkv_bias else 0
+    pad = (round_vocab(cfg.vocab) - cfg.vocab) * d * (1 if cfg.tie_embeddings else 2)
+    return cfg.n_params_estimate + norms + biases + pad
 
 
 def _embed_input(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Serving: batched greedy single-token decode steps and the prefill.
 
 The counterpart of ``repro._unused.serve.serve_step`` on one device: there
-is no mesh, so no context-parallel cache (ROADMAP A8). The decode step
+is no mesh, so no context-parallel cache (ROADMAP A.6.7). The decode step
 attends one new token against the KV cache (ring-buffered to the window for
 sliding-window models); the prefill is the full-sequence forward, where the
 flash kernel runs on the card.

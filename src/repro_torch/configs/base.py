@@ -5,8 +5,9 @@ package): the same ``LayerDesc`` and ``ModelConfig`` (every field, with
 ``layer_list``, ``n_params_estimate`` and ``reduced()``). What only the
 unported mixers read (their parameter counts, the Mamba derived widths) and
 the benchmark shapes come with the slices that need them. The registry
-holds only the cards whose layers the port has: :func:`get_config` of any
-other name says that it is not yet ported.
+holds only the cards whose layers the port has (the dense GQA cards and
+Mixtral's MoE): :func:`get_config` of any other name says that it is not
+yet ported.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import dataclasses
 import importlib
 from typing import Literal, Optional
 
-__all__ = ["ModelConfig", "LayerDesc", "register", "get_config", "list_archs"]
+__all__ = ["ModelConfig", "LayerDesc", "WAITING_SLICES", "register", "get_config", "list_archs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,21 +120,23 @@ class ModelConfig:
     def n_params_estimate(self) -> int:
         """Analytic parameter count (used for roofline 6ND and memory checks).
 
-        The reference's formula for the layers the port has (GQA mixer, dense
-        FFN); the other mixers, FFNs and enc-dec wait for their slices."""
+        The reference's formula for the layers the port has (GQA mixer,
+        dense and MoE FFN); the other mixers, the RWKV channel mix and
+        enc-dec wait for their slices."""
         if self.encdec:
-            raise NotImplementedError(f"{self.name}: enc-dec waits for its slice (ROADMAP A10)")
+            raise NotImplementedError(
+                f"{self.name}: enc-dec waits for its slice ({WAITING_SLICES['encdec']})")
         d = self.d_model
         total = self.vocab * d  # embed
         if not self.tie_embeddings:
             total += self.vocab * d
         for pattern, repeat in self.layer_list:
             for desc in pattern:
-                if desc.mixer not in ("gqa", "none") or desc.ffn not in ("dense", "none") or (
+                if desc.mixer not in ("gqa", "none") or (
                         desc.ffn == "dense" and self.ffn_act == "rwkv_cm"):
                     raise NotImplementedError(
                         f"{self.name}: {desc} with ffn_act={self.ffn_act!r} waits for its "
-                        f"slice (ROADMAP A10)")
+                        f"slice ({WAITING_SLICES.get(desc.mixer, WAITING_SLICES['rwkv_cm'])})")
                 p = 0
                 if desc.mixer == "gqa":
                     p += d * self.n_heads * self.head_dim  # q
@@ -142,6 +145,10 @@ class ModelConfig:
                 if desc.ffn == "dense":
                     ff = self.d_ff_dense or self.d_ff
                     p += (3 if self.ffn_act == "swiglu" else 2) * d * ff  # relu2 / gelu: 2
+                elif desc.ffn == "moe":
+                    p += d * self.n_experts  # router
+                    p += self.n_experts * 3 * d * self.d_ff_expert
+                    p += self.n_shared_experts * 3 * d * self.d_ff_expert
                 total += p * repeat
         return total
 
@@ -178,13 +185,29 @@ class ModelConfig:
         )
 
 
+#: the ROADMAP items that port what the port does not have yet: the
+#: mixers, the RWKV channel mix, enc-dec with its cross-attention, the VLM
+#: and audio frontends
+WAITING_SLICES = {
+    "mla": "ROADMAP A.6.2",
+    "mamba": "ROADMAP A.6.4",
+    "rwkv6": "ROADMAP A.6.4",
+    "rwkv_cm": "ROADMAP A.6.4",
+    "encdec": "ROADMAP A.6.5",
+}
+
 _REGISTRY: dict[str, ModelConfig] = {}
 
 # The cards whose path the port runs; each lives under _unused/ as in the
-# reference. The other cards of the reference wait for their mixers and
-# FFNs (ROADMAP A10).
+# reference. The other cards of the reference wait for their mixers:
+# DeepSeek-V2 for MLA (ROADMAP A.6.2), Jamba and RWKV6 for Mamba and RWKV
+# (A.6.4), Seamless and Pixtral for enc-dec and the VLM stub (A.6.5).
 _ARCH_MODULES = [
+    "_unused.qwen2_5_32b",
+    "_unused.minitron_8b",
+    "_unused.command_r_35b",
     "_unused.starcoder2_3b",
+    "_unused.mixtral_8x22b",
 ]
 
 
@@ -204,7 +227,7 @@ def get_config(name: str) -> ModelConfig:
     if name in _REGISTRY:
         return _REGISTRY[name]
     raise KeyError(
-        f"architecture {name!r} is unknown or not yet ported (ROADMAP A10); "
+        f"architecture {name!r} is unknown or not yet ported (ROADMAP A.6); "
         f"ported: {sorted(_REGISTRY)}"
     )
 

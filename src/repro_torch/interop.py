@@ -124,7 +124,9 @@ def convert_lm_params(params: dict, cfg, device=None):
 
     ``params["groups"][gi]`` leaves carry a leading ``repeat`` axis (the
     reference scans over it); layer r of the group becomes
-    ``groups[gi][r]``. A tied model has no ``lm_head``. Every parameter of
+    ``groups[gi][r]``. A tied model has no ``lm_head``. A MoE layer's
+    ``ffn`` leaves (``router.w``, ``wi``, ``wg``, ``wo`` and, with shared
+    experts, ``shared.{wi,wg,wo}.w``) keep their names. Every parameter of
     the port must be matched by one leaf, and no leaf may be left over.
     """
     from repro_torch._unused.models import lm

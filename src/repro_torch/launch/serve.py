@@ -4,9 +4,12 @@
         --batch 4 --new-tokens 64
 
 The counterpart of ``repro.launch.serve`` with the same flags, on one card
-and without a mesh (ROADMAP A8). The default ``--arch`` is
-``starcoder2-3b``, not the reference's ``rwkv6-3b``, until the RWKV slice
-ports that card (ROADMAP A10). Weights are random, drawn on the device from
+and without a mesh (ROADMAP A.6.7). ``--arch`` takes every card the port
+has (``configs.base.list_archs()``: ``starcoder2-3b``, ``qwen2.5-32b``,
+``minitron-8b``, ``command-r-35b`` and ``mixtral-8x22b``); at ``--preset
+full`` the card's float32 weights must fit the card's memory. The default
+``--arch`` is ``starcoder2-3b``, not the reference's ``rwkv6-3b``, until
+the RWKV slice ports that card (ROADMAP A.6.4). Weights are random, drawn on the device from
 a generator seeded with 0. The prompt is fed token by token through the
 decode step, then ``--new-tokens`` steps are timed on the card (host clock
 around work that ends in a synchronize). ``--device cpu`` runs a rehearsal

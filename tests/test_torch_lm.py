@@ -210,13 +210,30 @@ def test_block_matches_jax(parallel):
 
 @pytest.mark.parametrize("desc,cross,item", [
     (LayerDesc(mixer="mla"), False, "mla"), (LayerDesc(mixer="mamba"), False, "mamba"),
-    (LayerDesc(mixer="rwkv6"), False, "rwkv6"), (LayerDesc(ffn="moe"), False, "moe"),
-    (GQA, True, "cross"),
+    (LayerDesc(mixer="rwkv6"), False, "rwkv6"), (GQA, True, "cross"),
 ])
 def test_unported_block_parts_raise(desc, cross, item):
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match=rf"{item}.*ROADMAP A\.6\.[245]"):
         blocks.block_init(cfg, desc, device="cpu", cross=cross)
+
+
+@pytest.mark.parametrize("parallel", [False, True])
+def test_moe_block_matches_jax(parallel):
+    """The MoE FFN is ported: a ``ffn="moe"`` block builds, takes the
+    reference's weights and gives its output (float32 compute)."""
+    desc = LayerDesc(mixer="gqa", ffn="moe")
+    kw = dict(compute_dtype="float32", parallel_block=parallel, n_experts=4, top_k=2,
+              d_ff_expert=32)
+    jcfg, cfg = _cfgs(**kw)
+    p = _np(j_blocks.block_init(jax.random.PRNGKey(8), jcfg, desc))
+    x = np.random.default_rng(8).normal(size=(B, 32, 64)).astype(np.float32)
+    pos = np.arange(32)
+    want, _ = j_blocks.block_apply(p, jnp.asarray(x), jcfg, desc, positions=jnp.asarray(pos))
+    block = _load(blocks.block_init(cfg, desc, device="cpu"), p)
+    assert tuple(block.ffn.wi.shape) == (4, 64, 32) and (block.norm2 is None) == parallel
+    got, _ = blocks.block_apply(block, _t(x), cfg, desc, positions=torch.as_tensor(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
 # ---- the model ---------------------------------------------------------------------
@@ -316,14 +333,16 @@ def test_full_size_count_from_shapes():
 
 
 def test_configs_match_the_reference():
-    assert list_archs() == ["starcoder2-3b"]
-    want, got = j_get_config("starcoder2-3b"), get_config("starcoder2-3b")
-    for j, p in ((want, got), (want.reduced(), got.reduced())):
-        assert dataclasses.asdict(p) == dataclasses.asdict(j)
-        assert p.n_params_estimate == j.n_params_estimate
+    assert list_archs() == ["command-r-35b", "minitron-8b", "mixtral-8x22b", "qwen2.5-32b",
+                            "starcoder2-3b"]
+    for name in list_archs():
+        want, got = j_get_config(name), get_config(name)
+        for j, p in ((want, got), (want.reduced(), got.reduced())):
+            assert dataclasses.asdict(p) == dataclasses.asdict(j)
+            assert p.n_params_estimate == j.n_params_estimate
 
 
-@pytest.mark.parametrize("name", ["rwkv6-3b", "qwen2.5-32b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("name", ["rwkv6-3b", "jamba-v0.1-52b", "deepseek-v2-236b"])
 def test_unported_card_raises(name):
     j_get_config(name)  # the reference has it
     with pytest.raises(KeyError, match="not yet ported"):
@@ -331,14 +350,25 @@ def test_unported_card_raises(name):
 
 
 @pytest.mark.parametrize("kw", [{"pattern": (LayerDesc(mixer="mla"),)},
-                                {"pattern": (LayerDesc(ffn="moe"),)},
                                 {"ffn_act": "rwkv_cm"}, {"encdec": True}])
 def test_unported_param_counts_raise(kw):
-    """The count covers the GQA mixer and the dense FFN only; any other
-    layer names its slice instead of being counted as zero."""
+    """The count covers the GQA mixer and the dense and MoE FFNs only; any
+    other layer names its slice instead of being counted as zero."""
     cfg = dataclasses.replace(get_config("starcoder2-3b"), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6\.[245]"):
         cfg.n_params_estimate
+
+
+@pytest.mark.parametrize("shared", [0, 2])
+def test_moe_param_count_matches_jax(shared):
+    """The MoE FFN is counted by the reference's formula: router, routed and
+    shared experts."""
+    kw = dict(pattern=(LayerDesc(ffn="moe"),), n_experts=8, top_k=2, d_ff_expert=1024,
+              n_shared_experts=shared)
+    want = dataclasses.replace(j_get_config("starcoder2-3b"), **kw)
+    got = dataclasses.replace(get_config("starcoder2-3b"), **kw)
+    assert got.n_params_estimate == want.n_params_estimate
+    assert got.reduced().n_params_estimate == want.reduced().n_params_estimate
 
 
 def test_entry_points_default_to_the_card():

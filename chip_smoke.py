@@ -226,6 +226,30 @@ LM cards:
     prefill's shapes against ``ref_mha`` (atol 2e-5, rtol 2^-8) with its
     time beside its bound and SDPA's; each card's seconds are a lap.
 
+Then the LM's remaining decoder mixers, each card at full width with random
+seeded float32 weights, one at a time:
+
+25. RWKV6-3B at its full 32 layers, DeepSeek-V2 (MLA + MoE) with its depth
+    cut 60 -> 2 (the dense-FFN prefix layer and one MLA + MoE layer) and
+    Jamba-v0.1 (Mamba + GQA + MoE) cut 32 -> 8 (one period of its pattern,
+    the least depth that holds its attention layer): the parameter count
+    against ``lm.param_count``; ``make_prefill_step`` on 2 x 4096 tokens
+    with its flash launches (none for RWKV and DeepSeek, whose MLA runs the
+    streaming softmax; exactly one for Jamba, on the tensor-core body), its
+    time, tokens/s and peak memory, finite logits whose argmax is the
+    step's; the prefill's time split between the mixers' cores (the chunked
+    scans, MLA's streaming softmax) and the rest, each core bracketed by
+    synchronizes; the entries dropped by capacity per MoE layer; float32 cached
+    ``apply_decode`` over 66 tokens against ``apply_train`` (the MoE at a
+    capacity of S; RWKV6-3B at atol 0.1 over its 32 random layers, which
+    amplify float32 roundoff, and its first two layers alone at 1e-3), and
+    for Jamba each Mamba layer's state after the
+    prefill's chunked scan against its state after the 66 cached steps;
+    ``greedy_generate`` for 4 requests x (prompt 16, 32 new); for Jamba the
+    flash kernel at its prefill's shapes (G = 4, dh = 128, no window)
+    against ``ref_mha`` (atol 2e-5, rtol 2^-8), with its time beside its
+    bound and SDPA's; each card's seconds are a lap.
+
 Each phase prints its seconds (``[seconds]`` lines). The line before the
 last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -277,6 +301,17 @@ CARD_LAYERS = 2
 CARD_SEQ = {"qwen2.5-32b": 4096, "minitron-8b": 4096, "command-r-35b": 4096,
             "mixtral-8x22b": 8192}  # Mixtral: past its 4096 window
 CARD_DECODE = 32  # cached float32 steps held against apply_train
+# phase 25: the LM's other mixers (RWKV-6, MLA, Mamba) at full width; depth None = full
+MIXER_CARDS = (("rwkv6-3b", None), ("deepseek-v2-236b", 2), ("jamba-v0.1-52b", 8))
+MIXER_BATCH, MIXER_SEQ = 2, 4096
+MIXER_DECODE = 66  # cached float32 steps: past two RWKV chunks (32) and a Mamba chunk (64)
+MAMBA_STATE_RTOL = 1e-4  # float32 compute: prefill's scan state vs decoded state, roundoff only
+# RWKV6-3B's 32 random layers amplify float32 roundoff: its chunked WKV and its cached steps
+# agree to ~1e-6 of the mixer's output in every layer, yet at 32 layers cached decode and
+# apply_train differ by 3.4e-2 on the card and 3.8e-2 on the CPU, and apply_train on the card
+# and on the CPU by 5.7e-3 (2, 8, 16 layers: 1.9e-4, 3.4e-3, 7.9e-3). So the full depth is held
+# at 0.1 and the first two layers alone at DECODE_LOGIT_ATOL.
+RWKV_DEPTH_ATOL = 0.1
 
 
 def log(msg: str) -> None:
@@ -1614,6 +1649,60 @@ def example_phases(power: str) -> None:
             f"({power})")
 
 
+def flash_at_prefill(torch, dev, gen, tag: str, name: str, power: str, B: int, S: int, Hkv: int,
+                     G: int, dh: int, window, pre_launches: int) -> None:
+    """The flash kernel (bf16, the tensor-core body) at a card's prefill
+    shapes against ``ref_mha`` (atol 2e-5, rtol 2^-8), then its time beside
+    its bound and SDPA's on the same inputs and band mask."""
+    import gc
+
+    import torch.nn.functional as F
+
+    from repro_torch._unused import flash_attention as fa
+
+    H = Hkv * G
+    q = torch.randn((B, S, Hkv, G, dh), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, Hkv, dh), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    fa.launches = fa.tc_launches = 0
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    body = (fa.launches, fa.tc_launches)
+    ref = fa.ref_mha(q, k, v, causal=True, window=window)
+    diff = (out.float() - ref).abs()
+    worst = float((diff / (2e-5 + 2.0 ** -8 * ref.abs())).max())
+    if body != (1, 1) or not bool(torch.isfinite(out).all()) or not worst <= 1.0:
+        raise AssertionError(f"{tag} {name}: flash at the prefill's shapes launches "
+                             f"{body}, {worst:.3f} of the limit")
+    log(f"{tag} {name}: flash tensor-core body at the prefill's shapes B={B} S=T={S} "
+        f"Hkv={Hkv} G={G} dh={dh} bf16 causal window {window} vs ref_mha: max abs err "
+        f"{float(diff.max()):.3e}, {worst:.3f} of the limit (atol 2e-5, rtol 2^-8)")
+    del out, ref, diff
+    f_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True, window=window),
+                   reps=5)
+    nbytes, flops = flash_cost(B, S, S, Hkv, G, dh, True, window, 2)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    pos = torch.arange(S, device=dev)
+    band = pos[None, :] <= pos[:, None]
+    if window:
+        band &= pos[None, :] > pos[:, None] - window
+    qs, ks, vs = q.reshape(B, S, H, dh).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    try:
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=band, enable_gqa=True), reps=5)
+    except (TypeError, RuntimeError):  # timed only where this torch offers GQA
+        lib_ms = None
+    log(f"{tag} {power}: {name} flash tensor-core body at the prefill's shapes B={B} "
+        f"S=T={S} Hkv={Hkv} G={G} dh={dh} bf16 causal window {window}: {f_ms:.3f} ms (bound "
+        f"{b_ms:.4f} ms by {b_by}, {flops:.4e} FLOP; {flops / f_ms / 1e9:.1f} TFLOP/s; SDPA "
+        f"with the band mask, enable_gqa=True: "
+        f"{'not measured' if lib_ms is None else f'{lib_ms:.3f} ms'}); launches per prefill "
+        f"{pre_launches}")
+    del q, k, v, qs, ks, vs, band
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def card_phases(torch, dev, counters, power: str, clock: PhaseClock) -> None:
     """Phase 24 (cards): the dense GQA cards Qwen2.5-32B, Minitron-8B and
     Command-R-35B and the MoE card Mixtral-8x22B, one at a time, each at
@@ -1628,8 +1717,6 @@ def card_phases(torch, dev, counters, power: str, clock: PhaseClock) -> None:
     seconds are a lap of ``clock``."""
     import dataclasses
     import gc
-
-    import torch.nn.functional as F
 
     from repro_torch.configs.base import get_config
     from repro_torch._unused import flash_attention as fa
@@ -1773,47 +1860,233 @@ def card_phases(torch, dev, counters, power: str, clock: PhaseClock) -> None:
         torch.cuda.empty_cache()
 
         # the flash kernel at the prefill's shapes against ref_mha, its time, bound and SDPA's
-        q = torch.randn((B, S, Hkv, G, dh), generator=gen, device=dev).to(torch.bfloat16)
-        k, v = (torch.randn((B, S, Hkv, dh), generator=gen, device=dev).to(torch.bfloat16)
-                for _ in range(2))
+        flash_at_prefill(torch, dev, gen, "[24 cards]", name, power, B, S, Hkv, G, dh, window,
+                         pre_launches)
+        clock.lap(f"phase 24 {name}")
+
+
+def mixer_phases(torch, dev, counters, power: str, clock: PhaseClock) -> None:
+    """Phase 25 (mixers): RWKV6-3B at full depth, DeepSeek-V2 (MLA + MoE)
+    and Jamba-v0.1 (Mamba + GQA + MoE) with their depth cut, one at a time,
+    each at full width with random seeded weights in its own
+    ``param_dtype``: the parameter count, the prefill with its flash
+    launches (RWKV and DeepSeek none, Jamba one on the tensor-core body),
+    its time and peak memory, the entries dropped by capacity per MoE layer,
+    float32 cached decode against ``apply_train`` (and Jamba's Mamba states
+    against the prefill's), greedy generation, and for Jamba the flash
+    kernel at its prefill's shapes. Each card's seconds are a lap of
+    ``clock``."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch._unused import flash_attention as fa
+    from repro_torch._unused.models import attention, blocks, lm, moe, ssm
+    from repro_torch._unused.models.layers import round_vocab
+    from repro_torch._unused.serve.serve_step import greedy_generate, make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    zero, read = counter_fns(torch, counters)
+    B, S = MIXER_BATCH, MIXER_SEQ
+    cores = {"rwkv6": (ssm, "_rwkv_chunked"), "mamba": (ssm, "_mamba_scan_chunked"),
+             "mla": (attention, "_attend_chunked")}
+    for name, depth in MIXER_CARDS:
+        full = get_config(name)
+        cfg = full if depth is None else dataclasses.replace(full, n_layers=depth)
+        kinds = [f"{d.mixer}/{d.ffn}" for pattern, repeat in cfg.layer_list
+                 for d in pattern for _ in range(repeat)]
+        n_attn = sum(k.startswith("gqa") for k in kinds)
+        n_moe = sum(k.endswith("moe") for k in kinds)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+        torch.cuda.reset_peak_memory_stats()
+        params = lm.init_params(cfg, generator=gen, device=dev)
+        n_params = lm.count_params(params)
+        if n_params != lm.param_count(cfg):
+            raise AssertionError(f"[25 mixers] {name}: {n_params} parameters, param_count "
+                                 f"{lm.param_count(cfg)}")
+        V = round_vocab(cfg.vocab)
+        w_bytes = n_params * 4
+        log(f"[25 mixers] {name} ({full.source}): full width (d_model {cfg.d_model}, vocab "
+            f"{cfg.vocab}), depth {'full, ' if depth is None else f'cut {full.n_layers} -> '}"
+            f"{cfg.n_layers} layers {kinds}; {n_params:,} parameters ({cfg.param_dtype}, "
+            f"{w_bytes / 1e9:.2f} GB) = lm.param_count = n_params_estimate "
+            f"{cfg.n_params_estimate:,} {n_params - cfg.n_params_estimate:+,} (norms, biases, "
+            f"vocab pad and the mixers' vectors; RWKV: less the gate LoRA it does not build); "
+            f"full depth {full.n_params_estimate:,} by the estimate")
+
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+        prefill = make_prefill_step(cfg)
+        prefill(params, {"tokens": tokens[:, :256]})  # warm up
+        moe_inputs = []  # each MoE layer's (params, input) in the prefill, for its drops
+
+        def recorded(p, x, cfg_):
+            moe_inputs.append((p, x))
+            return moe.moe_apply(p, x, cfg_)
+
+        # the peak, reckoned: the weights, the step's float32 logits over every position and
+        # its bf16 product, and the largest layer's bf16 weight copies (cast at each use)
+        expert = 3 * cfg.d_model * cfg.d_ff_expert * cfg.n_experts if n_moe else 0
+        reckoned = w_bytes + B * S * V * 6 + 2 * max(expert, V * cfg.d_model)
+        zero()
         fa.launches = fa.tc_launches = 0
-        out = fa.flash_attention(q, k, v, causal=True, window=window)
-        torch.cuda.synchronize()
-        body = (fa.launches, fa.tc_launches)
-        ref = fa.ref_mha(q, k, v, causal=True, window=window)
-        diff = (out.float() - ref).abs()
-        worst = float((diff / (2e-5 + 2.0 ** -8 * ref.abs())).max())
-        if body != (1, 1) or not bool(torch.isfinite(out).all()) or not worst <= 1.0:
-            raise AssertionError(f"[24 cards] {name}: flash at the prefill's shapes launches "
-                                 f"{body}, {worst:.3f} of the limit")
-        log(f"[24 cards] {name}: flash tensor-core body at the prefill's shapes B={B} S=T={S} "
-            f"Hkv={Hkv} G={G} dh={dh} bf16 causal window {window} vs ref_mha: max abs err "
-            f"{float(diff.max()):.3e}, {worst:.3f} of the limit (atol 2e-5, rtol 2^-8)")
-        del out, ref, diff
-        f_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True, window=window),
-                       reps=5)
-        nbytes, flops = flash_cost(B, S, S, Hkv, G, dh, True, window, 2)
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        pos = torch.arange(S, device=dev)
-        band = pos[None, :] <= pos[:, None]
-        if window:
-            band &= pos[None, :] > pos[:, None] - window
-        qs, ks, vs = q.reshape(B, S, H, dh).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        torch.cuda.reset_peak_memory_stats()
+        blocks.moe_apply = recorded
         try:
-            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=band, enable_gqa=True), reps=5)
-        except (TypeError, RuntimeError):  # timed only where this torch offers GQA
-            lib_ms = None
-        log(f"[24 cards] {power}: {name} flash tensor-core body at the prefill's shapes B={B} "
-            f"S=T={S} Hkv={Hkv} G={G} dh={dh} bf16 causal window {window}: {f_ms:.3f} ms (bound "
-            f"{b_ms:.4f} ms by {b_by}, {flops:.4e} FLOP; {flops / f_ms / 1e9:.1f} TFLOP/s; SDPA "
-            f"with the band mask, enable_gqa=True: "
-            f"{'not measured' if lib_ms is None else f'{lib_ms:.3f} ms'}); launches per prefill "
-            f"{pre_launches}")
-        del q, k, v, qs, ks, vs, band
+            t0 = time.perf_counter()
+            next_tok = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            blocks.moe_apply = moe.moe_apply
+        peak = torch.cuda.max_memory_allocated()
+        others = read()
+        if (fa.launches, fa.tc_launches) != (n_attn, n_attn) or others:
+            raise AssertionError(f"[25 mixers] {name}: prefill launched flash {fa.launches} "
+                                 f"times, {fa.tc_launches} on the tensor-core body (want "
+                                 f"{n_attn} of each), decoder kernels {others}")
+        pre_launches = fa.tc_launches
+        log(f"[25 mixers] {power}: {name} make_prefill_step, {B} x {S} tokens: flash launches "
+            f"{fa.launches} ({fa.tc_launches} on the tensor-core body; {n_attn} attention "
+            f"layers); {pre_ms:.1f} ms -> {B * S / pre_ms * 1e3:.0f} tokens/s; peak "
+            f"{peak / 1e9:.2f} GB (reckoned {reckoned / 1e9:.2f} GB: weights, the "
+            f"{B} x {S} x {V} float32 logits and their bf16 product, the largest bf16 weight "
+            f"copy) of {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB; next "
+            f"tokens {next_tok.tolist()}")
+        if n_moe:
+            drops = [int(moe.dropped(p, x, cfg)) for p, x in moe_inputs]
+            if len(drops) != n_moe:
+                raise AssertionError(f"[25 mixers] {name}: {len(drops)} MoE layers ran")
+            log(f"[25 mixers] {name}: entries dropped by capacity per MoE layer {drops} of "
+                f"{B * S * cfg.top_k} (B x S x top_k), capacity C = {moe.moe_capacity(cfg, S)} "
+                f"per expert and row")
+        del moe_inputs
+        last = lm.apply_train(params, {"tokens": tokens}, cfg)[:, -1]
+        if not (bool(torch.isfinite(last).all()) and torch.equal(last.argmax(-1).int(), next_tok)):
+            raise AssertionError(f"[25 mixers] {name}: prefill logits not finite or not the "
+                                 f"step's tokens")
+        del last
+
+        # where the prefill's time goes: each mixer's core (the chunked scans, MLA's streaming
+        # softmax) bracketed by synchronizes in one more prefill, on the host clock
+        spent, patched = {}, []
+        for mod, attr in sorted({cores[d.mixer] for pattern, _ in cfg.layer_list
+                                 for d in pattern if d.mixer in cores}):
+            core = getattr(mod, attr)
+
+            def timed(*a, _core=core, _attr=attr, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _core(*a, **k)
+                torch.cuda.synchronize()
+                spent[_attr] = spent.get(_attr, 0.0) + (time.perf_counter() - t) * 1e3
+                return out
+
+            setattr(mod, attr, timed)
+            patched.append((mod, attr, core))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            split_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for mod, attr, core in patched:
+                setattr(mod, attr, core)
+        log(f"[25 mixers] {power}: {name} prefill split, the cores bracketed by synchronizes: "
+            + "; ".join(f"{k} {v:.1f} ms ({v / split_ms:.1%})" for k, v in spent.items())
+            + f"; the rest (projections, FFN/MoE, norms, logits) {split_ms - sum(spent.values()):.1f}"
+            f" ms; {split_ms:.1f} ms in all")
+
+        # float32 compute; a capacity of S for the MoE (capacity_factor E/k), so that the
+        # full forward drops no token that the cached steps (S = 1, C = 1) keep
+        cf = {"capacity_factor": cfg.n_experts / cfg.top_k} if cfg.n_experts else {}
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32", **cf)
+        n_dec = MIXER_DECODE
+        toks = tokens[:, :n_dec]
+        states = []  # the last state of each Mamba layer's chunked scan in apply_train
+
+        def scan(*a):
+            y, h = mamba_scan(*a)
+            states.append(h)
+            return y, h
+
+        mamba_scan = ssm._mamba_scan_chunked
+        ssm._mamba_scan_chunked = scan
+        try:
+            ref32 = lm.apply_train(params, {"tokens": toks}, cfg32)
+        finally:
+            ssm._mamba_scan_chunked = mamba_scan
+
+        def cached(model, cfg_):
+            cache_ = lm.init_cache(cfg_, B, n_dec, dtype=torch.float32, device=dev)
+            out = []
+            for t in range(n_dec):
+                lg, cache_ = lm.apply_decode(model, toks[:, t:t + 1], cache_, t, cfg_)
+                out.append(lg[:, 0])
+            return torch.stack(out, 1), cache_
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec, cache = cached(params, cfg32)
+        torch.cuda.synchronize()
+        dec32_ms = (time.perf_counter() - t0) * 1e3 / n_dec
+        dec_err = float((dec - ref32).abs().max())
+        atol = RWKV_DEPTH_ATOL if cfg.ffn_act == "rwkv_cm" else DECODE_LOGIT_ATOL
+        if not dec_err <= atol:
+            raise AssertionError(f"[25 mixers] {name}: cached decode vs apply_train {dec_err}")
+        cap = f" (capacity_factor {cfg32.capacity_factor:g}: C = S)" if cf else ""
+        log(f"[25 mixers] {name}: float32 compute{cap}, cached apply_decode x {n_dec} vs "
+            f"apply_train, {cfg.n_layers} layers: logits max abs diff {dec_err:.3e} (atol "
+            f"{atol}); {dec32_ms:.1f} ms per float32 step at batch {B}")
+        if cfg.ffn_act == "rwkv_cm":  # the first two layers alone, at the roundoff limit
+            cfg2 = dataclasses.replace(cfg32, n_layers=2)
+            first2 = lm.LM(params.embed, params.final_norm, torch.nn.ModuleList(
+                [torch.nn.ModuleList(list(params.groups[0])[:2])]), params.lm_head)
+            err2 = float((cached(first2, cfg2)[0]
+                          - lm.apply_train(first2, {"tokens": toks}, cfg2)).abs().max())
+            if not err2 <= DECODE_LOGIT_ATOL:
+                raise AssertionError(f"[25 mixers] {name}: first two layers, cached decode vs "
+                                     f"apply_train {err2}")
+            log(f"[25 mixers] {name}: the first two layers alone, cached apply_decode x {n_dec} "
+                f"vs apply_train: logits max abs diff {err2:.3e} (atol {DECODE_LOGIT_ATOL})")
+        decoded = [c["mixer"].h for g in cache["groups"] for layer in g for c in layer.values()
+                   if isinstance(c["mixer"], ssm.MambaCache)]
+        if len(decoded) != len(states) or len(states) != kinds.count("mamba/dense") + kinds.count(
+                "mamba/moe"):
+            raise AssertionError(f"[25 mixers] {name}: {len(states)} scanned and {len(decoded)} "
+                                 f"decoded Mamba states")
+        if states:
+            rel = max(float((h_d - h_p).abs().max() / h_p.abs().max())
+                      for h_d, h_p in zip(decoded, states))
+            if not rel <= MAMBA_STATE_RTOL:
+                raise AssertionError(f"[25 mixers] {name}: Mamba state after the prefill vs "
+                                     f"after {n_dec} cached steps: {rel:.3e} of the largest")
+            log(f"[25 mixers] {name}: Mamba state (B, {cfg.mamba_d_inner}, {cfg.mamba_d_state}) "
+                f"of each of {len(states)} Mamba layers after the prefill's chunked scan of "
+                f"{n_dec} tokens vs after {n_dec} cached steps: max abs diff {rel:.3e} of the "
+                f"largest state (limit {MAMBA_STATE_RTOL})")
+        del ref32, cache, dec, states, decoded
+
+        prompt = torch.randint(0, cfg.vocab, (4, 16), generator=gen, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen_toks = greedy_generate(params, cfg, prompt, 32)
+        torch.cuda.synchronize()
+        g_ms = (time.perf_counter() - t0) * 1e3
+        if gen_toks.shape != (4, 32) or not bool(((gen_toks >= 0) & (gen_toks < cfg.vocab)).all()):
+            raise AssertionError(f"[25 mixers] {name}: greedy_generate gave {gen_toks.shape}")
+        log(f"[25 mixers] {power}: {name} greedy_generate, 4 requests x (prompt 16, 32 new), "
+            f"bf16 compute and cache: {g_ms:.0f} ms for 48 steps ({g_ms / 48:.1f} ms/step); "
+            f"first tokens {gen_toks[:, :4].tolist()}")
+        del params, tokens, prompt, gen_toks
         gc.collect()
         torch.cuda.empty_cache()
-        clock.lap(f"phase 24 {name}")
+        if n_attn:
+            Hkv, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+            flash_at_prefill(torch, dev, gen, "[25 mixers]", name, power, B, S, Hkv, G,
+                             cfg.head_dim, cfg.sliding_window, pre_launches)
+        clock.lap(f"phase 25 {name}")
 
 
 def main() -> int:
@@ -2748,6 +3021,7 @@ def main() -> int:
     example_phases(power)
     clock.lap("phase 23 examples")
     card_phases(torch, dev, counters, power, clock)
+    mixer_phases(torch, dev, counters, power, clock)
 
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith(("jax.", "jaxlib")) or mod == "repro" or mod.startswith("repro."):

@@ -1,16 +1,14 @@
-"""Batched serving demo on the PyTorch/CUDA port: KV-cache decode through the
-port's serve step, including a sliding-window model (rolling cache) and a
-mixture-of-experts model.
+"""Batched serving demo on the PyTorch/CUDA port: cached decode through the
+port's serve step, including a sliding-window model (rolling cache), an RNN
+(state cache) and a mixture-of-experts model.
 
     PYTHONPATH=src python examples/torch_serve_lm.py [--device cuda] [--new-tokens 48]
 
-The counterpart of ``examples/serve_lm.py``: ``starcoder2-3b`` and
-``mixtral-8x22b`` at their ``reduced()`` size with random weights from a
-generator seeded with 0, the prompt fed token by token through
-``make_decode_step`` and ``--new-tokens`` greedy steps timed (a synchronize
-ends the timed work on the card). The reference's third model,
-``rwkv6-3b``, waits for the port's RWKV slice; the demo says so and does
-not run it.
+The counterpart of ``examples/serve_lm.py``: ``starcoder2-3b``,
+``rwkv6-3b`` and ``mixtral-8x22b`` at their ``reduced()`` size with random
+weights from a generator seeded with 0, the prompt fed token by token
+through ``make_decode_step`` and ``--new-tokens`` greedy steps timed (a
+synchronize ends the timed work on the card).
 """
 
 import argparse
@@ -19,14 +17,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.base import WAITING_SLICES, get_config
+from repro_torch.configs.base import get_config
 from repro_torch.device import resolve_device
 from repro_torch._unused.models import lm
 from repro_torch._unused.serve.serve_step import make_decode_step
 
 ARCHS = ("starcoder2-3b", "rwkv6-3b", "mixtral-8x22b")
-#: the reference's archs the port does not run yet, with the mixer they wait for
-WAITING = {"rwkv6-3b": "rwkv6"}
 
 
 def serve(arch: str, dev: torch.device, n_new: int = 48, batch: int = 4) -> torch.Tensor:
@@ -54,7 +50,7 @@ def serve(arch: str, dev: torch.device, n_new: int = 48, batch: int = 4) -> torc
     dt = time.perf_counter() - t0
     toks = torch.cat(out, dim=1)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
-    kind = "KV ring" if cfg.sliding_window else "KV"
+    kind = "KV ring" if cfg.sliding_window else "state" if cfg.family == "ssm" else "KV"
     ffn = f", MoE {cfg.n_experts} experts top-{cfg.top_k}" if cfg.n_experts else ""
     print(f"{arch:22s} generated {batch}×{n_new} tokens in {dt*1e3:.0f} ms "
           f"({batch*n_new/dt:.0f} tok/s on {where}) — cache kinds: {kind}{ffn}", flush=True)
@@ -68,10 +64,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     dev = resolve_device(args.device, user="torch_serve_lm")
     for arch in ARCHS:
-        if arch in WAITING:
-            print(f"{arch:22s} not run: it waits for the port's {WAITING[arch]} mixer "
-                  f"({WAITING_SLICES[WAITING[arch]]})", flush=True)
-            continue
         serve(arch, dev, n_new=args.new_tokens)
 
 

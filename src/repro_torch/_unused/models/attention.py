@@ -1,15 +1,19 @@
-"""GQA attention: the chunked streaming softmax, single-token decode against
-a KV cache (ring-buffered for sliding-window models), and the flash switch.
+"""Attention mixers: GQA and MLA (DeepSeek-V2 multi-head latent attention),
+the chunked streaming softmax, single-token decode against a KV cache
+(ring-buffered for sliding-window models), and the flash switch.
 
-The counterpart of the GQA half of ``repro._unused.models.attention``.
+The counterpart of ``repro._unused.models.attention``.
 Full-sequence attention runs the flash kernel when :func:`_use_flash` says
 so (``"auto"``: the tensors are on a CUDA device, as ``"auto"`` means a TPU
 in the reference) and the streaming softmax :func:`_attend_chunked`
 otherwise. The port runs inference only: there is no backward, so the
 reference's ``_flash_with_xla_bwd`` is a plain call here. The cache write is
 in place (the reference returns a new buffer); the returned cache holds the
-same tensors. There is no context-parallel write and no cross-attention;
-MLA waits (ROADMAP A.6.2).
+same tensors. There is no context-parallel write and no cross-attention.
+MLA caches the latent and the shared rope key and rebuilds each head's keys
+and values from the latent at every step; its prefill runs the streaming
+softmax, never the flash kernel, as in the reference (its key width
+dn + dr = 192 differs from its value width dv = 128).
 """
 
 from __future__ import annotations
@@ -24,9 +28,11 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch._unused.flash_attention import flash_attention
-from .layers import Dense, apply_rope, cdtype, dense_apply, dense_init, rope_sin_cos
+from .layers import (Dense, Norm, apply_rope, cdtype, dense_apply, dense_init, norm_apply,
+                     norm_init, rope_sin_cos)
 
-__all__ = ["GQA", "gqa_init", "gqa_apply", "KVCache", "flash_enabled"]
+__all__ = ["GQA", "gqa_init", "gqa_apply", "MLA", "mla_init", "mla_apply", "KVCache",
+           "flash_enabled"]
 
 NEG_INF = -1e30
 
@@ -53,8 +59,10 @@ def _use_flash(x: torch.Tensor) -> bool:
 
 
 class KVCache(NamedTuple):
-    """Decode-time cache: k/v (B, S_max, Hkv, dh); S_max = window (a ring
-    buffer) for sliding-window models decoding past the window."""
+    """Decode-time cache. For GQA: k/v (B, S_max, Hkv, dh); S_max = window
+    (a ring buffer) for sliding-window models decoding past the window. For
+    MLA: k = latent c_kv (B, S_max, kv_lora), v = shared rope key
+    (B, S_max, rope_dim)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -219,4 +227,94 @@ def gqa_apply(
             )
 
     out = out.reshape(B, S, H * dh).to(cdtype(cfg))
+    return dense_apply(p.wo, out, cfg), new_cache
+
+
+# =====================================================================================
+# MLA (DeepSeek-V2)
+# =====================================================================================
+class MLA(nn.Module):
+    """``wdq`` (d, q_lora), ``q_norm``, ``wuq`` (q_lora, H, dn + dr), ``wdkv``
+    (d, kv_lora), ``kv_norm``, ``wkr`` (d, dr; the shared rope key), ``wuk``
+    (kv_lora, H, dn), ``wuv`` (kv_lora, H, dv) and ``wo`` (H·dv, d)."""
+
+    def __init__(self, wdq: Dense, q_norm: Norm, wuq: Dense, wdkv: Dense, kv_norm: Norm,
+                 wkr: Dense, wuk: Dense, wuv: Dense, wo: Dense):
+        super().__init__()
+        self.wdq, self.q_norm, self.wuq = wdq, q_norm, wuq
+        self.wdkv, self.kv_norm, self.wkr = wdkv, kv_norm, wkr
+        self.wuk, self.wuv, self.wo = wuk, wuv, wo
+
+
+def mla_init(cfg: ModelConfig, *, gen=None, device=None) -> MLA:
+    d, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    kw = dict(gen=gen, device=device)
+    return MLA(
+        dense_init(d, (qr,), cfg, **kw),
+        norm_init(qr, cfg, device=device),
+        dense_init(qr, (H, dn + dr), cfg, **kw),
+        dense_init(d, (kr,), cfg, **kw),
+        norm_init(kr, cfg, device=device),
+        dense_init(d, (dr,), cfg, **kw),
+        dense_init(kr, (H, dn), cfg, **kw),
+        dense_init(kr, (H, dv), cfg, **kw),
+        dense_init(H * dv, (d,), cfg, **kw),
+    )
+
+
+def mla_apply(
+    p: MLA,
+    x: torch.Tensor,  # (B, S, d)
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    causal: bool = True,
+    cache: Optional[KVCache] = None,
+    cache_len: Optional[int] = None,
+):
+    """Returns (out (B,S,d), new_cache)."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    scale = 1.0 / math.sqrt(dn + dr)
+
+    cq = norm_apply(p.q_norm, dense_apply(p.wdq, x, cfg), cfg)
+    q = dense_apply(p.wuq, cq, cfg)  # (B,S,H,dn+dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    sin, cos = rope_sin_cos(positions, dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, sin[None], cos[None])
+
+    ckv = norm_apply(p.kv_norm, dense_apply(p.wdkv, x, cfg), cfg)  # (B,S,kr)
+    k_rope = dense_apply(p.wkr, x, cfg)[:, :, None, :]  # (B,S,1,dr)
+    k_rope = apply_rope(k_rope, sin[None], cos[None])[:, :, 0]  # (B,S,dr)
+
+    new_cache = None
+    if cache is not None:
+        cache_len = int(cache_len)
+        ck = _cache_write(cache.k, ckv, cache_len)
+        cr = _cache_write(cache.v, k_rope, cache_len)
+        new_cache = KVCache(ck, cr)
+        ckv_all, k_rope_all = ck, cr
+        T = ck.shape[1]
+        valid = (torch.arange(T, device=x.device) <= cache_len).expand(B, T)
+    else:
+        ckv_all, k_rope_all = ckv, k_rope
+        T = S
+
+    # rebuild each head's keys and values from the latent
+    k_nope = dense_apply(p.wuk, ckv_all, cfg)  # (B,T,H,dn)
+    vv = dense_apply(p.wuv, ckv_all, cfg)  # (B,T,H,dv)
+    k_full = torch.cat([k_nope, k_rope_all[:, :, None, :].to(k_nope.dtype).expand(B, T, H, dr)],
+                       dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1).reshape(B, S, H, 1, dn + dr)
+
+    if cache is not None:
+        out = _attend_decode(q_full, k_full, vv, scale=scale, valid=valid)
+    else:
+        out = _attend_chunked(q_full, k_full, vv, causal=causal, window=None, scale=scale,
+                              p_dtype=cdtype(cfg))
+
+    out = out.reshape(B, S, H * dv).to(cdtype(cfg))
     return dense_apply(p.wo, out, cfg), new_cache

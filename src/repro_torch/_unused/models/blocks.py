@@ -1,11 +1,15 @@
 """Block assembly: norm → mixer → residual → norm → FFN → residual, and the
 per-block decode cache.
 
-The counterpart of ``repro._unused.models.blocks`` for the GQA mixer and
-the dense or MoE FFN, sequential or parallel (Command-R style: one shared
-norm, attention and FFN side by side). The other mixers (MLA, Mamba, RWKV)
-and cross-attention raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+The counterpart of ``repro._unused.models.blocks`` for every mixer of the
+architecture pool (GQA, MLA, Mamba, RWKV-6) and the dense, MoE or RWKV
+channel-mix FFN, sequential or parallel (Command-R style: one shared norm,
+attention and FFN side by side). Cross-attention (enc-dec) raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+
+RWKV's token shifts: in prefill the channel mix's ``x_prev`` is the padded
+shift of its normed input; in decode it is the cache's ``x_cm``, which then
+becomes this step's normed input (the time mix writes ``x_tm`` itself).
 """
 
 from __future__ import annotations
@@ -13,34 +17,38 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import WAITING_SLICES, LayerDesc, ModelConfig
-from .attention import GQA, KVCache, gqa_apply, gqa_init
-from .layers import FFN, Norm, ffn_apply, ffn_init, norm_apply, norm_init
+from .attention import GQA, MLA, KVCache, gqa_apply, gqa_init, mla_apply, mla_init
+from .layers import FFN, ChannelMix, Norm, ffn_apply, ffn_init, norm_apply, norm_init
 from .moe import MoE, moe_apply, moe_init
+from .ssm import (RWKV, Mamba, MambaCache, RwkvCache, mamba_apply, mamba_init, rwkv_apply,
+                  rwkv_init)
 
 __all__ = ["Block", "block_init", "block_apply", "block_cache_init"]
 
-def _waits(what: str, key: str) -> NotImplementedError:
-    slice_ = WAITING_SLICES.get(key, "ROADMAP A.6")
-    return NotImplementedError(f"{what} waits for its slice of the LM port ({slice_})")
+_MIXER_INIT = {"gqa": gqa_init, "mla": mla_init, "mamba": mamba_init, "rwkv6": rwkv_init}
 
 
-def _check(desc: LayerDesc, cross: bool = False) -> None:
-    if desc.mixer != "gqa":
-        raise _waits(f"mixer {desc.mixer!r}", desc.mixer)
-    if desc.ffn not in ("dense", "moe"):
-        raise _waits(f"ffn {desc.ffn!r}", desc.ffn)
+def _check(desc: LayerDesc, cross: bool) -> None:
+    if "none" in (desc.mixer, desc.ffn):
+        raise ValueError(f"{desc}: no card has a layer without a mixer or an FFN")
     if cross:
-        raise _waits("cross-attention (enc-dec)", "encdec")
+        raise NotImplementedError(
+            f"cross-attention (enc-dec) waits for its slice of the LM port "
+            f"({WAITING_SLICES['encdec']})")
 
 
 class Block(nn.Module):
-    """``norm1``, ``mixer``, ``norm2`` (absent in a parallel block) and ``ffn``
-    (an :class:`FFN`, or a :class:`MoE` in a ``ffn="moe"`` layer)."""
+    """``norm1``, ``mixer`` (a :class:`GQA`, :class:`MLA`, :class:`Mamba` or
+    :class:`RWKV`), ``norm2`` (absent in a parallel block) and ``ffn`` (an
+    :class:`FFN`, a :class:`ChannelMix`, or a :class:`MoE` in a
+    ``ffn="moe"`` layer)."""
 
-    def __init__(self, norm1: Norm, mixer: GQA, ffn: FFN | MoE, norm2: Norm | None = None):
+    def __init__(self, norm1: Norm, mixer: GQA | MLA | Mamba | RWKV,
+                 ffn: FFN | ChannelMix | MoE, norm2: Norm | None = None):
         super().__init__()
         self.norm1, self.mixer, self.norm2, self.ffn = norm1, mixer, norm2, ffn
 
@@ -51,7 +59,7 @@ def block_init(cfg: ModelConfig, desc: LayerDesc, *, gen=None, device=None,
     d = cfg.d_model
     return Block(
         norm_init(d, cfg, device=device),
-        gqa_init(cfg, gen=gen, device=device),
+        _MIXER_INIT[desc.mixer](cfg, gen=gen, device=device),
         (moe_init(cfg, gen=gen, device=device) if desc.ffn == "moe"
          else ffn_init(cfg, cfg.d_ff_dense or cfg.d_ff, gen=gen, device=device)),
         None if cfg.parallel_block else norm_init(d, cfg, device=device),
@@ -60,13 +68,41 @@ def block_init(cfg: ModelConfig, desc: LayerDesc, *, gen=None, device=None,
 
 def block_cache_init(cfg: ModelConfig, desc: LayerDesc, batch: int, s_max: int, dtype,
                      *, device=None) -> dict:
-    """The block's cache: ``{"mixer": KVCache}``, ``window`` slots when
-    ``s_max >= window`` (a ring buffer), else ``s_max``."""
-    _check(desc)
-    s = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
-    kv = (batch, s, cfg.n_kv_heads, cfg.head_dim)
-    return {"mixer": KVCache(torch.zeros(kv, dtype=dtype, device=device),
-                             torch.zeros(kv, dtype=dtype, device=device))}
+    """The block's cache ``{"mixer": ...}``: GQA a :class:`KVCache` of
+    ``window`` slots when ``s_max >= window`` (a ring buffer), else
+    ``s_max``; MLA the latent and rope-key :class:`KVCache`; Mamba and RWKV
+    their states, float32 where the reference keeps float32."""
+    d = cfg.d_model
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if desc.mixer == "gqa":
+        s = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
+        kv = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+        return {"mixer": KVCache(zeros(*kv), zeros(*kv))}
+    if desc.mixer == "mla":
+        return {"mixer": KVCache(zeros(batch, s_max, cfg.kv_lora_rank),
+                                 zeros(batch, s_max, cfg.qk_rope_head_dim))}
+    if desc.mixer == "mamba":
+        return {"mixer": MambaCache(
+            zeros(batch, cfg.mamba_d_conv - 1, cfg.mamba_d_inner),
+            zeros(batch, cfg.mamba_d_inner, cfg.mamba_d_state, dt=torch.float32))}
+    H, dh = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    return {"mixer": RwkvCache(zeros(batch, 1, d), zeros(batch, 1, d),
+                               zeros(batch, H, dh, dh, dt=torch.float32))}
+
+
+def _apply_mixer(p, x, cfg, desc, *, positions, cache, cache_len, causal):
+    if desc.mixer == "gqa":
+        return gqa_apply(p, x, cfg, positions=positions, causal=causal, cache=cache,
+                         cache_len=cache_len)
+    if desc.mixer == "mla":
+        return mla_apply(p, x, cfg, positions=positions, causal=causal, cache=cache,
+                         cache_len=cache_len)
+    if desc.mixer == "mamba":
+        return mamba_apply(p, x, cfg, cache=cache)
+    return rwkv_apply(p, x, cfg, cache=cache)
 
 
 def block_apply(
@@ -81,14 +117,24 @@ def block_apply(
     causal: bool = True,
 ):
     """Returns (x', new_cache)."""
-    _check(desc)
     mixer_cache = (cache or {}).get("mixer")
     xn = norm_apply(p.norm1, x, cfg)
-    out, mc = gqa_apply(p.mixer, xn, cfg, positions=positions, causal=causal,
-                        cache=mixer_cache, cache_len=cache_len)
-    new_cache = None if mc is None else {"mixer": mc}
-    ffn = moe_apply if desc.ffn == "moe" else ffn_apply
+    out, mc = _apply_mixer(p.mixer, xn, cfg, desc, positions=positions, cache=mixer_cache,
+                           cache_len=cache_len, causal=causal)
     if cfg.parallel_block:
-        return x + out + ffn(p.ffn, xn, cfg), new_cache
+        ffn = moe_apply if desc.ffn == "moe" else ffn_apply
+        return x + out + ffn(p.ffn, xn, cfg), (None if mc is None else {"mixer": mc})
     h = x + out
-    return h + ffn(p.ffn, norm_apply(p.norm2, h, cfg), cfg), new_cache
+    xn = norm_apply(p.norm2, h, cfg)
+    if desc.ffn == "moe":
+        f = moe_apply(p.ffn, xn, cfg)
+    elif cfg.ffn_act == "rwkv_cm":
+        if mixer_cache is not None:  # decode: the previous step's normed input
+            x_prev = mixer_cache.x_cm.to(xn.dtype)
+            mc = mc._replace(x_cm=xn.to(mc.x_cm.dtype))
+        else:
+            x_prev = F.pad(xn, (0, 0, 1, 0))[:, : xn.shape[1]]
+        f = ffn_apply(p.ffn, xn, cfg, x_prev=x_prev)
+    else:
+        f = ffn_apply(p.ffn, xn, cfg)
+    return h + f, (None if mc is None else {"mixer": mc})

@@ -10,7 +10,8 @@ in float32 and cast back to the input's dtype. Initializers draw from an
 explicit ``torch.Generator`` on the parameters' device, so their numbers
 differ from ``jax.random``'s: the tests carry the reference's weights across
 with :func:`repro_torch.interop.convert_lm_params`. The RWKV channel mix
-waits for the RWKV slice (ROADMAP A.6.4).
+(``ffn_act="rwkv_cm"``) is a :class:`ChannelMix` with ``mu``, ``wk``, ``wv``
+and ``wr``.
 """
 
 from __future__ import annotations
@@ -23,14 +24,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import WAITING_SLICES, ModelConfig
+from repro_torch.configs.base import ModelConfig
 
 __all__ = [
     "Dense", "dense_init", "dense_apply",
     "Norm", "norm_init", "norm_apply",
     "Embed", "round_vocab", "embed_init",
     "rope_sin_cos", "apply_rope",
-    "FFN", "ffn_init", "ffn_apply",
+    "FFN", "ChannelMix", "ffn_init", "ffn_apply",
     "cdtype", "pdtype",
 ]
 
@@ -75,8 +76,13 @@ def dense_init(in_dim: int, out_dims: Sequence[int], cfg, *, gen=None, device=No
 
 def dense_apply(p: Dense, x: torch.Tensor, cfg) -> torch.Tensor:
     """x (..., in_dim) → (..., *out_dims) in the compute dtype: the
-    reference's ``"...d,dh->...h"`` and ``"bsd,dhe->bshe"`` contractions."""
+    reference's ``"...d,dh->...h"`` and ``"bsd,dhe->bshe"`` contractions.
+    An x of another dtype (a cached MLA latent) promotes as JAX's einsum
+    does: both operands go to the wider dtype after ``w``'s cast."""
     w = p.w.to(cdtype(cfg))
+    if x.dtype != w.dtype:
+        dtype = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dtype), w.to(dtype)
     out_dims = w.shape[1:]
     y = (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *out_dims)
     if p.b is not None:
@@ -165,26 +171,42 @@ class FFN(nn.Module):
         self.wo = wo
 
 
-def ffn_init(cfg: ModelConfig, d_ff: int, *, gen=None, device=None) -> FFN:
+class ChannelMix(nn.Module):
+    """The RWKV channel mix: ``mu`` (2, d), the token-shift mixes of the key
+    and the receptance, ``wk`` (d, d_ff), ``wv`` (d_ff, d) and ``wr`` (d, d)."""
+
+    def __init__(self, mu: nn.Parameter, wk: Dense, wv: Dense, wr: Dense):
+        super().__init__()
+        self.mu, self.wk, self.wv, self.wr = mu, wk, wv, wr
+
+
+def ffn_init(cfg: ModelConfig, d_ff: int, *, gen=None, device=None) -> FFN | ChannelMix:
     d = cfg.d_model
-    if cfg.ffn_act == "rwkv_cm":
-        raise NotImplementedError(
-            f"the RWKV channel mix waits for the RWKV slice ({WAITING_SLICES['rwkv_cm']})")
     kw = dict(gen=gen, device=device)
+    if cfg.ffn_act == "rwkv_cm":
+        return ChannelMix(_const((2, d), cfg, device, 0.5), dense_init(d, (d_ff,), cfg, **kw),
+                          dense_init(d_ff, (d,), cfg, **kw), dense_init(d, (d,), cfg, **kw))
     wi = dense_init(d, (d_ff,), cfg, **kw)
     wg = dense_init(d, (d_ff,), cfg, **kw) if cfg.ffn_act == "swiglu" else None
     return FFN(wi, dense_init(d_ff, (d,), cfg, **kw), wg)
 
 
-def ffn_apply(p: FFN, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ffn_apply(p: FFN | ChannelMix, x: torch.Tensor, cfg: ModelConfig, *,
+              x_prev: torch.Tensor | None = None) -> torch.Tensor:
     """x (B, S, d) → (B, S, d). GELU is the tanh approximation, as
-    ``jax.nn.gelu``'s default."""
+    ``jax.nn.gelu``'s default. ``x_prev`` is the token-shifted input of the
+    RWKV channel mix (``None``: x itself); the other variants ignore it."""
     if cfg.ffn_act == "swiglu":
         h = F.silu(dense_apply(p.wg, x, cfg)) * dense_apply(p.wi, x, cfg)
         return dense_apply(p.wo, h, cfg)
     if cfg.ffn_act == "rwkv_cm":
-        raise NotImplementedError(
-            f"the RWKV channel mix waits for the RWKV slice ({WAITING_SLICES['rwkv_cm']})")
+        xp = x if x_prev is None else x_prev
+        mu = p.mu.to(x.dtype)
+        xk = x * mu[0] + xp * (1 - mu[0])
+        xr = x * mu[1] + xp * (1 - mu[1])
+        k = torch.square(F.relu(dense_apply(p.wk, xk, cfg)))
+        r = torch.sigmoid(dense_apply(p.wr, xr, cfg))
+        return r * dense_apply(p.wv, k, cfg)
     h = dense_apply(p.wi, x, cfg)
     if cfg.ffn_act == "relu2":
         h = torch.square(F.relu(h))

@@ -56,7 +56,9 @@ def _check(cfg: ModelConfig) -> None:
 def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
                 device=None) -> LM:
     """Random parameters: dense ``w`` ~ N(0, 1/in_dim), the embedding
-    N(0, 0.02²), biases 0 and norms 1, in ``param_dtype`` on ``device``.
+    N(0, 0.02²), biases 0 and norms 1, and the Mamba and RWKV leaves by the
+    reference's recipes (``ssm.mamba_init``, ``ssm.rwkv_init``), in
+    ``param_dtype`` on ``device``.
     ``generator`` (on that device; else one seeded with 0) draws them; on
     the ``meta`` device only the shapes are made."""
     _check(cfg)
@@ -90,14 +92,28 @@ def param_count(cfg: ModelConfig) -> int:
     """What ``count_params`` gives for ``init_params(cfg)``, from the shapes:
     ``n_params_estimate`` plus the leaves the estimate leaves out, namely
     the norms (two per block, one per parallel block, and the final one;
-    a LayerNorm holds a bias too), the QKV biases and the rows that pad the
-    vocab to ``round_vocab``."""
+    a LayerNorm holds a bias too; MLA's ``q_norm`` and ``kv_norm``), the QKV
+    biases, the rows that pad the vocab to ``round_vocab``, Mamba's
+    ``conv_b``, RWKV's ``mu``, ``w0``, ``u``, ``ln_scale`` and ``ln_bias``
+    and the channel mix's ``mu``; less the gate LoRA (``rwkv_gate_lora ·
+    2d``) that the estimate counts and ``rwkv_init`` does not build."""
     d = cfg.d_model
-    per_norm = 2 * d if cfg.norm_type == "layernorm" else d
-    norms = (cfg.n_layers * (1 if cfg.parallel_block else 2) + 1) * per_norm
+    per_norm = 2 if cfg.norm_type == "layernorm" else 1
+    norms = (cfg.n_layers * (1 if cfg.parallel_block else 2) + 1) * per_norm * d
     biases = cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim if cfg.qkv_bias else 0
     pad = (round_vocab(cfg.vocab) - cfg.vocab) * d * (1 if cfg.tie_embeddings else 2)
-    return cfg.n_params_estimate + norms + biases + pad
+    extra = 0
+    for pattern, repeat in cfg.layer_list:
+        for desc in pattern:
+            if desc.mixer == "mla":
+                extra += repeat * per_norm * (cfg.q_lora_rank + cfg.kv_lora_rank)
+            elif desc.mixer == "mamba":
+                extra += repeat * cfg.mamba_d_inner
+            elif desc.mixer == "rwkv6":  # mu (5, d), w0, u, ln_scale, ln_bias; no gate LoRA
+                extra += repeat * (9 * d - 2 * cfg.rwkv_gate_lora * d)
+            if desc.ffn == "dense" and cfg.ffn_act == "rwkv_cm":
+                extra += repeat * 2 * d  # the channel mix's mu (2, d)
+    return cfg.n_params_estimate + norms + biases + pad + extra
 
 
 def _embed_input(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -148,8 +164,9 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16, *
 
 @torch.no_grad()
 def apply_decode(params: LM, tokens: torch.Tensor, cache: dict, cache_len, cfg: ModelConfig):
-    """One decode step. tokens (B, 1) → (logits (B, 1, V), cache). The
-    cache is updated in place and returned."""
+    """One decode step. tokens (B, 1) → (logits (B, 1, V), cache). The KV
+    and MLA caches are written in place; the Mamba and RWKV states are
+    replaced in the returned cache."""
     _check(cfg)
     cache_len = int(cache_len)
     x = _embed_input(params, {"tokens": tokens}, cfg)

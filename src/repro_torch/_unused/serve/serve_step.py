@@ -2,9 +2,11 @@
 
 The counterpart of ``repro._unused.serve.serve_step`` on one device: there
 is no mesh, so no context-parallel cache (ROADMAP A.6.7). The decode step
-attends one new token against the KV cache (ring-buffered to the window for
-sliding-window models); the prefill is the full-sequence forward, where the
-flash kernel runs on the card.
+runs one new token against the cache: a KV cache (ring-buffered to the
+window for sliding-window models), MLA's latent cache, or the O(1) state
+of Mamba and RWKV. The prefill is the full-sequence forward, where the
+flash kernel runs on the card in GQA layers; MLA runs the streaming
+softmax and Mamba and RWKV their chunked scans.
 """
 
 from __future__ import annotations

@@ -2,12 +2,12 @@
 
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
 package): the same ``LayerDesc`` and ``ModelConfig`` (every field, with
-``layer_list``, ``n_params_estimate`` and ``reduced()``). What only the
-unported mixers read (their parameter counts, the Mamba derived widths) and
-the benchmark shapes come with the slices that need them. The registry
-holds only the cards whose layers the port has (the dense GQA cards and
-Mixtral's MoE): :func:`get_config` of any other name says that it is not
-yet ported.
+``dt_rank``, ``mamba_d_inner``, ``layer_list``, ``n_params_estimate``,
+``n_active_params_estimate`` and ``reduced()``). The benchmark shapes come
+with the slice that needs them. The registry holds the cards whose layers
+the port has (the dense GQA cards, Mixtral's MoE, DeepSeek-V2's MLA,
+Jamba's Mamba and RWKV-6): :func:`get_config` of any other name (the
+enc-dec and VLM cards) says that it is not yet ported.
 """
 
 from __future__ import annotations
@@ -103,6 +103,14 @@ class ModelConfig:
 
     # ---- derived ---------------------------------------------------------------
     @property
+    def dt_rank(self) -> int:
+        return self.mamba_dt_rank or -(-self.d_model // 16)
+
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
     def layer_list(self) -> tuple[tuple[tuple[LayerDesc, ...], int], ...]:
         """((pattern, repeat), ...) groups covering n_layers."""
         groups = []
@@ -120,9 +128,7 @@ class ModelConfig:
     def n_params_estimate(self) -> int:
         """Analytic parameter count (used for roofline 6ND and memory checks).
 
-        The reference's formula for the layers the port has (GQA mixer,
-        dense and MoE FFN); the other mixers, the RWKV channel mix and
-        enc-dec wait for their slices."""
+        The reference's formula; enc-dec waits for its slice."""
         if self.encdec:
             raise NotImplementedError(
                 f"{self.name}: enc-dec waits for its slice ({WAITING_SLICES['encdec']})")
@@ -132,25 +138,52 @@ class ModelConfig:
             total += self.vocab * d
         for pattern, repeat in self.layer_list:
             for desc in pattern:
-                if desc.mixer not in ("gqa", "none") or (
-                        desc.ffn == "dense" and self.ffn_act == "rwkv_cm"):
-                    raise NotImplementedError(
-                        f"{self.name}: {desc} with ffn_act={self.ffn_act!r} waits for its "
-                        f"slice ({WAITING_SLICES.get(desc.mixer, WAITING_SLICES['rwkv_cm'])})")
                 p = 0
                 if desc.mixer == "gqa":
                     p += d * self.n_heads * self.head_dim  # q
                     p += 2 * d * self.n_kv_heads * self.head_dim  # k, v
                     p += self.n_heads * self.head_dim * d  # o
+                elif desc.mixer == "mla":
+                    qr = self.q_lora_rank or d
+                    p += d * self.q_lora_rank if self.q_lora_rank else 0
+                    p += qr * self.n_heads * (self.qk_nope_head_dim + self.qk_rope_head_dim)
+                    p += d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                    p += self.kv_lora_rank * self.n_heads * (self.qk_nope_head_dim + self.v_head_dim)
+                    p += self.n_heads * self.v_head_dim * d
+                elif desc.mixer == "mamba":
+                    di, ds, dr = self.mamba_d_inner, self.mamba_d_state, self.dt_rank
+                    p += d * 2 * di + di * self.mamba_d_conv + di * (dr + 2 * ds) + dr * di
+                    p += di * ds + 2 * di + di * d
+                elif desc.mixer == "rwkv6":
+                    p += 4 * d * d + d * d  # r,k,v,o + gate
+                    p += self.rwkv_decay_lora * 2 * d + self.rwkv_gate_lora * 2 * d
                 if desc.ffn == "dense":
                     ff = self.d_ff_dense or self.d_ff
-                    p += (3 if self.ffn_act == "swiglu" else 2) * d * ff  # relu2 / gelu: 2
+                    if self.ffn_act == "swiglu":
+                        p += 3 * d * ff
+                    elif self.ffn_act == "rwkv_cm":
+                        p += 2 * d * ff + d * d
+                    else:  # relu2 / gelu
+                        p += 2 * d * ff
                 elif desc.ffn == "moe":
                     p += d * self.n_experts  # router
                     p += self.n_experts * 3 * d * self.d_ff_expert
                     p += self.n_shared_experts * 3 * d * self.d_ff_expert
                 total += p * repeat
         return total
+
+    @property
+    def n_active_params_estimate(self) -> int:
+        """Active params per token (MoE: only top-k + shared experts)."""
+        if self.n_experts == 0:
+            return self.n_params_estimate
+        total = self.n_params_estimate
+        # subtract inactive routed experts in every MoE layer
+        n_moe_layers = 0
+        for pattern, repeat in self.layer_list:
+            n_moe_layers += sum(1 for dsc in pattern if dsc.ffn == "moe") * repeat
+        inactive = (self.n_experts - self.top_k) * 3 * self.d_model * self.d_ff_expert
+        return total - n_moe_layers * inactive
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU smoke tests."""
@@ -185,29 +218,26 @@ class ModelConfig:
         )
 
 
-#: the ROADMAP items that port what the port does not have yet: the
-#: mixers, the RWKV channel mix, enc-dec with its cross-attention, the VLM
-#: and audio frontends
+#: the ROADMAP items that port what the port does not have yet: enc-dec
+#: with its cross-attention, the VLM and audio frontends
 WAITING_SLICES = {
-    "mla": "ROADMAP A.6.2",
-    "mamba": "ROADMAP A.6.4",
-    "rwkv6": "ROADMAP A.6.4",
-    "rwkv_cm": "ROADMAP A.6.4",
     "encdec": "ROADMAP A.6.5",
 }
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
 # The cards whose path the port runs; each lives under _unused/ as in the
-# reference. The other cards of the reference wait for their mixers:
-# DeepSeek-V2 for MLA (ROADMAP A.6.2), Jamba and RWKV6 for Mamba and RWKV
-# (A.6.4), Seamless and Pixtral for enc-dec and the VLM stub (A.6.5).
+# reference. Seamless and Pixtral wait for enc-dec and the VLM stub
+# (ROADMAP A.6.5).
 _ARCH_MODULES = [
     "_unused.qwen2_5_32b",
     "_unused.minitron_8b",
     "_unused.command_r_35b",
     "_unused.starcoder2_3b",
     "_unused.mixtral_8x22b",
+    "_unused.deepseek_v2_236b",
+    "_unused.jamba_v0_1_52b",
+    "_unused.rwkv6_3b",
 ]
 
 

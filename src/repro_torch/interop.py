@@ -126,8 +126,11 @@ def convert_lm_params(params: dict, cfg, device=None):
     reference scans over it); layer r of the group becomes
     ``groups[gi][r]``. A tied model has no ``lm_head``. A MoE layer's
     ``ffn`` leaves (``router.w``, ``wi``, ``wg``, ``wo`` and, with shared
-    experts, ``shared.{wi,wg,wo}.w``) keep their names. Every parameter of
-    the port must be matched by one leaf, and no leaf may be left over.
+    experts, ``shared.{wi,wg,wo}.w``) keep their names, as do the leaves of
+    the MLA, Mamba and RWKV mixers and the RWKV channel mix that are not a
+    ``Dense``'s ``w`` (``q_norm.scale``, ``conv_w``, ``A_log``, ``mu``,
+    ``u``, ...). Every parameter of the port must be matched by one leaf,
+    and no leaf may be left over.
     """
     from repro_torch._unused.models import lm
 

@@ -1,19 +1,19 @@
 """Serving driver: batched greedy decoding through the port's LM path.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --preset full \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --preset full \\
         --batch 4 --new-tokens 64
 
-The counterpart of ``repro.launch.serve`` with the same flags, on one card
-and without a mesh (ROADMAP A.6.7). ``--arch`` takes every card the port
-has (``configs.base.list_archs()``: ``starcoder2-3b``, ``qwen2.5-32b``,
-``minitron-8b``, ``command-r-35b`` and ``mixtral-8x22b``); at ``--preset
-full`` the card's float32 weights must fit the card's memory. The default
-``--arch`` is ``starcoder2-3b``, not the reference's ``rwkv6-3b``, until
-the RWKV slice ports that card (ROADMAP A.6.4). Weights are random, drawn on the device from
-a generator seeded with 0. The prompt is fed token by token through the
-decode step, then ``--new-tokens`` steps are timed on the card (host clock
-around work that ends in a synchronize). ``--device cpu`` runs a rehearsal
-on the CPU, whose time is the CPU's.
+The counterpart of ``repro.launch.serve`` with the same flags and the same
+default ``--arch`` (``rwkv6-3b``), on one card and without a mesh (ROADMAP
+A.6.7). ``--arch`` takes every card the port has
+(``configs.base.list_archs()``: ``starcoder2-3b``, ``qwen2.5-32b``,
+``minitron-8b``, ``command-r-35b``, ``mixtral-8x22b``,
+``deepseek-v2-236b``, ``jamba-v0.1-52b`` and ``rwkv6-3b``); at ``--preset
+full`` the card's float32 weights must fit the card's memory. Weights are
+random, drawn on the device from a generator seeded with 0. The prompt is
+fed token by token through the decode step, then ``--new-tokens`` steps are
+timed on the card (host clock around work that ends in a synchronize).
+``--device cpu`` runs a rehearsal on the CPU, whose time is the CPU's.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from repro_torch._unused.serve.serve_step import make_decode_step
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="starcoder2-3b")
+    ap.add_argument("--arch", default="rwkv6-3b")
     ap.add_argument("--preset", default="tiny", choices=["tiny", "full"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

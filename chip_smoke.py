@@ -83,7 +83,7 @@ Then the prefix traceback and the matrix ACS:
     at each S variant the serial warp path builds and the matrix warp
     body's at its one S per (code, k); the serial matrix variant on the
     matrix warp body for every mother code at every built k, f32/i16/i8,
-    ragged B and odd T; (2,1,5) on the runtime-table bodies; each launch
+    ragged B and odd T, at half the decode depth (D = 256); (2,1,5) on the runtime-table bodies; each launch
     counted on its body (the table-body counters stay at 0 for the mother
     codes);
 13. the new main paths: the 4,194,304-bit stream through ``"cuda"`` and
@@ -133,7 +133,7 @@ Then the LM serving path, StarCoder2-3B at full width and depth:
     inputs and band mask (timed only; the port never calls it); the same
     for the CUDA-core body on the float32 copies of those inputs; end to end
     prefill tokens/s and decode ms per step, and a ``torch.profiler`` window
-    over one prefill and 16 decode steps (device busy share, top kernels).
+    over one prefill and 4 decode steps (device busy share, top kernels).
 
 Then streaming, the sessions and the session pool:
 
@@ -156,8 +156,8 @@ Then streaming, the sessions and the session pool:
     65,536-bit chunks on ``"cuda"`` and ``"fused"``, the pool's step
     latency and aggregate Mb/s (64 streams, 4096-bit chunks), the host
     phases of a session step (ingest, window copy and framing, launch,
-    commit) and a ``torch.profiler`` window over 16 pool steps (device busy
-    share, top kernels).
+    commit) and a ``torch.profiler`` window over the first 4 pool steps
+    (device busy share, top kernels).
 
 Then the serving fabric, the async service over paged slabs:
 
@@ -250,6 +250,39 @@ seeded float32 weights, one at a time:
     against ``ref_mha`` (atol 2e-5, rtol 2^-8), with its time beside its
     bound and SDPA's; each card's seconds are a lap.
 
+Then the enc-dec card, the VLM stub and the training path:
+
+26. SeamlessM4T-medium at full width and depth (12 encoder and 12 decoder
+    layers) and Pixtral-12B at full width with its depth cut 40 -> 2, random
+    seeded float32 weights: the parameter count against ``lm.param_count``;
+    ``make_prefill_step`` on 2 x 4096 tokens (Seamless with 2 x 2048 frames
+    of 1024 from the seeded generator, the audio stub; Pixtral with 256
+    patch embeddings in the first positions) with its flash launches (36
+    for Seamless: encoder, decoder self- and cross-attention; 2 for
+    Pixtral; all on the tensor-core body), time, tokens/s and peak memory;
+    flash against the streaming prefill; for Seamless ``lm.encode`` +
+    ``lm.prefill_cross`` and float32 cached ``apply_decode`` over 32 tokens
+    against teacher-forced ``apply_train`` (atol 1e-3) and greedy ms per
+    step against the cross cache; for Pixtral the first positions' logits
+    bit-equal when the replaced tokens change and moved when the patches
+    do; the flash kernel at each attention's shapes (Seamless: encoder S =
+    T = 2048 non-causal, decoder causal S = 4096, cross S = 4096 against
+    T = 2048; Pixtral G = 4, dh = 128) against ``ref_mha`` with its time
+    beside its bound and SDPA's;
+27. the training path on StarCoder2-3B: the flash ``autograd.Function`` at
+    the step's attention shapes (B = 2, S = T = 2048, G = 12, dh = 128,
+    bf16), its q, k, v gradients bit-equal to autograd through
+    ``_attend_chunked``; a 2-layer step at full width and float32 compute,
+    gradients with flash on against flash off within 3e-2 of each leaf's
+    largest entry; ``make_train_step`` at the full 30 layers (bf16
+    compute, per-layer remat, AdamW) for 6 steps of ``SyntheticLMStream``
+    batches of 2 x 2048 tokens: finite loss that falls, step ms, tokens/s,
+    peak memory, 60 flash launches per step on the tensor-core body, and a
+    profiler window over one step; then ``python -m
+    repro_torch.launch.train --preset 100m --steps 20`` with a failure
+    injected at step 12 and checkpoints every 10 steps: restored and
+    finished.
+
 Each phase prints its seconds (``[seconds]`` lines). The line before the
 last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -312,6 +345,17 @@ MAMBA_STATE_RTOL = 1e-4  # float32 compute: prefill's scan state vs decoded stat
 # and on the CPU by 5.7e-3 (2, 8, 16 layers: 1.9e-4, 3.4e-3, 7.9e-3). So the full depth is held
 # at 0.1 and the first two layers alone at DECODE_LOGIT_ATOL.
 RWKV_DEPTH_ATOL = 0.1
+# phase 26: the enc-dec card at full width and depth, the VLM stub at full width, depth cut
+ENCDEC_BATCH, ENCDEC_SEQ, ENCDEC_FRAMES = 2, 4096, 2048  # frames: the audio stub's input
+ENCDEC_DECODE = 32  # cached float32 steps held against teacher-forced apply_train
+ENCDEC_GREEDY = 32  # timed greedy steps against the cross cache (bf16)
+VLM_LAYERS = 2
+# phase 27: the training step on StarCoder2-3B at full width (and full depth)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
+# float32 compute, flash on vs off: the flash path's backward stores the probabilities in bf16
+# (the reference's _attend_chunked default), the streaming path's in float32, so the gradients
+# differ at bf16 level: each leaf within 3e-2 of its largest entry
+TRAIN_GRAD_RTOL = 3e-2
 
 
 def log(msg: str) -> None:
@@ -730,8 +774,8 @@ def lm_phases(torch, dev, gen, decoder_counters) -> dict:
         nxt, cache = step(params, prompt[:, t:t + 1], cache, t)
     state = {"tok": nxt[:, None], "t": n_prompt}
 
-    def decode_steps():  # the cache is written in place
-        for _ in range(n_steps // 2):
+    def decode_steps(n=n_steps // 2):  # the cache is written in place
+        for _ in range(n):
             nxt, _ = step(params, state["tok"], cache, state["t"])
             state["tok"], state["t"] = nxt[:, None], state["t"] + 1
 
@@ -739,8 +783,10 @@ def lm_phases(torch, dev, gen, decoder_counters) -> dict:
     log(f"[17 times] decode end to end, batch {n_req}, cache of "
         f"{n_prompt + 2 * n_steps} slots: ms per step {dec_ms} → "
         f"{n_req / statistics.median(dec_ms) * 1e3:.1f} tokens/s")
+    # a quarter of the timed window under the profiler: gathering the trace of 16 decode
+    # steps took about 20 s of host time
     for what, fn in (("prefill", lambda: prefill(params, batch)),
-                     (f"{n_steps // 2} decode steps", decode_steps)):
+                     (f"{n_steps // 8} decode steps", lambda: decode_steps(n_steps // 8))):
         wall, kernels, busy = device_profile(torch, fn)
         if busy <= 0:
             log(f"[17 profile] {what}: the profiler saw no device time (not measured)")
@@ -1084,19 +1130,19 @@ def streaming_phases(torch, dev, gen, counters, y, ref_bits) -> None:
             f"{len(phases['ingest'])} chunks: " + ", ".join(
                 f"{k} {statistics.median(v):.4f} ms" for k, v in phases.items()))
 
-    def sixteen_steps():
+    def four_steps():  # the first 4 of the 16: the trace of 16 took about 15 s to gather
         pool = SessionPool()
         handles = [pool.open(eng_c) for _ in range(N_STREAMS)]
-        for lo, hi in zip(bounds[:-1], bounds[1:]):
+        for lo, hi in zip(bounds[:4], bounds[1:5]):
             for i, h in enumerate(handles):
                 h.feed(ys_host[i, lo:hi])
             pool.step()
 
-    wall, kernels_p, busy = device_profile(torch, sixteen_steps)
+    wall, kernels_p, busy = device_profile(torch, four_steps)
     if busy <= 0:
         log("[19 profile] the profiler saw no device time (not measured)")
     else:
-        log(f"[19 profile] 16 pool steps of {N_STREAMS} streams: wall {wall:.3f} ms under the "
+        log(f"[19 profile] 4 pool steps of {N_STREAMS} streams: wall {wall:.3f} ms under the "
             f"profiler, device busy {busy:.3f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; "
             f"top kernels: " + "; ".join(f"{n} {ms:.3f} ms × {c}" for n, ms, c in kernels_p))
 
@@ -1250,8 +1296,12 @@ def serving_phases(torch, dev, gen, counters, power: str) -> None:
 
     # ---- 20. chaos: the reference's schedule plus a silent corruption ---------------
     chaos_bits, poisoned = 4096, {3, 17}
+    # decode_corrupt is consulted once per stream that receives bits inside a dispatch (a
+    # stream's tail flushed by finish() is screened, not consulted), so how many visits a
+    # trace makes depends on the host's timing: the corruption strikes the first delivery,
+    # which every trace makes (the 41st visit once never came on the card)
     schedule = {"stream_poison": poisoned, "dispatch": {1, 4}, "slab": {5, 30}, "mesh": {2},
-                "admission": {100}, "decode_corrupt": {40}}
+                "admission": {100}, "decode_corrupt": {0}}
     # 14 dB: the clean re-encode agrees on every symbol, so a bound of 0.9995
     # catches one flipped bit (10 re-encoded symbols) in spans to 20,000 symbols
     ys_c, ys_c_host = streams(N_STREAMS, chaos_bits, 14.0)
@@ -1277,12 +1327,15 @@ def serving_phases(torch, dev, gen, counters, power: str) -> None:
                 or report["quarantined_streams"] != len(failed)
                 or report["integrity_flagged"] != 1):
             raise AssertionError(f"[20 chaos] {be}: failed {failed}, fired "
-                                 f"{dict(injector.fired)}, errors {errs}, report {report}")
+                                 f"{dict(injector.fired)}, visits {dict(injector.counts)}, "
+                                 f"errors {errs}, report {report}")
         check_bits(f"[20 chaos] {be}", results, refs, skip=failed)
         log(f"[20 chaos] {be}, {N_STREAMS} streams x {chaos_bits} bits, schedule "
             f"{ {k: sorted(v) for k, v in schedule.items()} }, integrity_rate 1.0: the "
             f"{N_STREAMS - len(failed)} healthy streams == one-shot bit for bit; failed {failed}; "
-            f"fired {dict(injector.fired)}; errors_by_class {errs}; retries {report['retries']}; "
+            f"fired {dict(injector.fired)}; decode_corrupt visits "
+            f"{injector.counts['decode_corrupt']}; errors_by_class {errs}; "
+            f"retries {report['retries']}; "
             f"integrity {report['integrity_flagged']}/{report['integrity_checked']} flagged; "
             f"launches {counts}; {host}")
 
@@ -1650,57 +1703,68 @@ def example_phases(power: str) -> None:
 
 
 def flash_at_prefill(torch, dev, gen, tag: str, name: str, power: str, B: int, S: int, Hkv: int,
-                     G: int, dh: int, window, pre_launches: int) -> None:
+                     G: int, dh: int, window, pre_launches: int, *, T: int | None = None,
+                     causal: bool = True) -> dict:
     """The flash kernel (bf16, the tensor-core body) at a card's prefill
-    shapes against ``ref_mha`` (atol 2e-5, rtol 2^-8), then its time beside
-    its bound and SDPA's on the same inputs and band mask."""
+    shapes (S queries against T = S keys unless given, causal unless not)
+    against ``ref_mha`` (atol 2e-5, rtol 2^-8), then its time beside its
+    bound and SDPA's on the same inputs and band mask. Returns the numbers
+    (ms, bound_ms, bound_by, library_ms, max_abs_err)."""
     import gc
 
     import torch.nn.functional as F
 
     from repro_torch._unused import flash_attention as fa
 
+    T = S if T is None else T
     H = Hkv * G
     q = torch.randn((B, S, Hkv, G, dh), generator=gen, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn((B, S, Hkv, dh), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((B, T, Hkv, dh), generator=gen, device=dev).to(torch.bfloat16)
             for _ in range(2))
     fa.launches = fa.tc_launches = 0
-    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     body = (fa.launches, fa.tc_launches)
-    ref = fa.ref_mha(q, k, v, causal=True, window=window)
+    ref = fa.ref_mha(q, k, v, causal=causal, window=window)
     diff = (out.float() - ref).abs()
+    err = float(diff.max())
     worst = float((diff / (2e-5 + 2.0 ** -8 * ref.abs())).max())
+    shapes = (f"B={B} {f'S=T={S}' if T == S else f'S={S} T={T}'} Hkv={Hkv} G={G} dh={dh} bf16 "
+              f"{'causal' if causal else 'non-causal'} window {window}")
     if body != (1, 1) or not bool(torch.isfinite(out).all()) or not worst <= 1.0:
         raise AssertionError(f"{tag} {name}: flash at the prefill's shapes launches "
                              f"{body}, {worst:.3f} of the limit")
-    log(f"{tag} {name}: flash tensor-core body at the prefill's shapes B={B} S=T={S} "
-        f"Hkv={Hkv} G={G} dh={dh} bf16 causal window {window} vs ref_mha: max abs err "
-        f"{float(diff.max()):.3e}, {worst:.3f} of the limit (atol 2e-5, rtol 2^-8)")
+    log(f"{tag} {name}: flash tensor-core body at the prefill's shapes {shapes} vs ref_mha: max "
+        f"abs err {err:.3e}, {worst:.3f} of the limit (atol 2e-5, rtol 2^-8)")
     del out, ref, diff
-    f_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True, window=window),
+    f_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
                    reps=5)
-    nbytes, flops = flash_cost(B, S, S, Hkv, G, dh, True, window, 2)
+    nbytes, flops = flash_cost(B, S, T, Hkv, G, dh, causal, window, 2)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-    pos = torch.arange(S, device=dev)
-    band = pos[None, :] <= pos[:, None]
-    if window:
-        band &= pos[None, :] > pos[:, None] - window
+    qpos, kpos = torch.arange(S, device=dev), torch.arange(T, device=dev)
+    band = None
+    if causal or window:
+        band = torch.ones((S, T), dtype=torch.bool, device=dev)
+        if causal:
+            band &= kpos[None, :] <= qpos[:, None]
+        if window:
+            band &= kpos[None, :] > qpos[:, None] - window
     qs, ks, vs = q.reshape(B, S, H, dh).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     try:
         lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=band, enable_gqa=True), reps=5)
     except (TypeError, RuntimeError):  # timed only where this torch offers GQA
         lib_ms = None
-    log(f"{tag} {power}: {name} flash tensor-core body at the prefill's shapes B={B} "
-        f"S=T={S} Hkv={Hkv} G={G} dh={dh} bf16 causal window {window}: {f_ms:.3f} ms (bound "
-        f"{b_ms:.4f} ms by {b_by}, {flops:.4e} FLOP; {flops / f_ms / 1e9:.1f} TFLOP/s; SDPA "
-        f"with the band mask, enable_gqa=True: "
+    log(f"{tag} {power}: {name} flash tensor-core body at the prefill's shapes {shapes}: "
+        f"{f_ms:.3f} ms (bound {b_ms:.4f} ms by {b_by}, {flops:.4e} FLOP; "
+        f"{flops / f_ms / 1e9:.1f} TFLOP/s; SDPA with "
+        f"{'the band mask' if band is not None else 'no mask'}, enable_gqa=True: "
         f"{'not measured' if lib_ms is None else f'{lib_ms:.3f} ms'}); launches per prefill "
         f"{pre_launches}")
     del q, k, v, qs, ks, vs, band
     gc.collect()
     torch.cuda.empty_cache()
+    return dict(ms=f_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, max_abs_err=err)
 
 
 def card_phases(torch, dev, counters, power: str, clock: PhaseClock) -> None:
@@ -2087,6 +2151,366 @@ def mixer_phases(torch, dev, counters, power: str, clock: PhaseClock) -> None:
             flash_at_prefill(torch, dev, gen, "[25 mixers]", name, power, B, S, Hkv, G,
                              cfg.head_dim, cfg.sliding_window, pre_launches)
         clock.lap(f"phase 25 {name}")
+
+
+def encdec_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
+    """Phase 26 (encdec): SeamlessM4T-medium at full width and depth and
+    Pixtral-12B at full width with its depth cut to ``VLM_LAYERS``, random
+    seeded float32 weights: the parameter count, the prefill through
+    ``make_prefill_step`` with its flash launches (Seamless: encoder,
+    decoder self- and cross-attention; all on the tensor-core body), its
+    time, tokens/s and peak memory, flash against the streaming prefill,
+    Seamless's ``prefill_cross`` plus float32 cached ``apply_decode``
+    against teacher-forced ``apply_train`` and its greedy steps against the
+    cross cache, Pixtral's patch positions, and the flash kernel at each
+    attention's shapes. Returns the flash launches per prefill and the
+    kernel's numbers at each Seamless shape."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch._unused import flash_attention as fa
+    from repro_torch._unused.models import attention, lm
+    from repro_torch._unused.models.layers import round_vocab
+    from repro_torch._unused.serve.serve_step import make_decode_step, make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    zero, read = counter_fns(torch, counters)
+    B, S, SX = ENCDEC_BATCH, ENCDEC_SEQ, ENCDEC_FRAMES
+    tag = "[26 encdec]"
+    result = {"launches": {}, "seamless": {}}
+
+    def prefill_run(name, cfg, params, batch, want):
+        prefill = make_prefill_step(cfg)
+        prefill(params, {k: v[:, :256] for k, v in batch.items()})  # warm up
+        zero()
+        fa.launches = fa.tc_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        next_tok = prefill(params, batch)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        others = read()
+        if (fa.launches, fa.tc_launches) != (want, want) or others:
+            raise AssertionError(f"{tag} {name}: prefill launched flash {fa.launches} times, "
+                                 f"{fa.tc_launches} on the tensor-core body (want {want} of "
+                                 f"each), decoder kernels {others}")
+        result["launches"][name] = fa.tc_launches
+        again = [wall_ms(torch, lambda: prefill(params, batch), reps=1) for _ in range(2)]
+        V = round_vocab(cfg.vocab)
+        log(f"{tag} {power}: {name} make_prefill_step, {B} x {S} tokens: flash launches "
+            f"{want}, all on the tensor-core body; {pre_ms:.1f} ms, then {again} ms -> "
+            f"{B * S / statistics.median([pre_ms, *again]) * 1e3:.0f} tokens/s (median of 3); "
+            f"peak {peak / 1e9:.2f} GB, of which the {B} x {S} x {V} float32 logits "
+            f"{B * S * V * 4 / 1e9:.2f} GB and their bf16 product {B * S * V * 2 / 1e9:.2f} GB; "
+            f"next tokens {next_tok.tolist()}")
+        with torch.no_grad():
+            last = lm.apply_train(params, batch, cfg)[:, -1]
+            with attention.flash_enabled("off"):
+                fa.launches = 0
+                last_plain = lm.apply_train(params, batch, cfg)[:, -1]
+                if fa.launches:
+                    raise AssertionError("flash launched with flash_enabled('off')")
+        diff = float((last - last_plain).abs().max())
+        if not (bool(torch.isfinite(last).all()) and torch.equal(last.argmax(-1).int(), next_tok)
+                and diff <= PREFILL_LOGIT_ATOL):
+            raise AssertionError(f"{tag} {name}: flash vs streaming prefill {diff}, or logits "
+                                 f"not finite or not the prefill step's tokens")
+        log(f"{tag} {name}: flash vs streaming prefill (flash_enabled('off')): last-position "
+            f"logits max abs diff {diff:.4f} (atol {PREFILL_LOGIT_ATOL}), argmax "
+            f"{last.argmax(-1).tolist()} vs {last_plain.argmax(-1).tolist()}")
+
+    # ---- SeamlessM4T-medium: encoder, cross-attention, the cross cache ------------------
+    cfg = get_config("seamless-m4t-medium")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    params = lm.init_params(cfg, generator=gen, device=dev).requires_grad_(True)
+    n_params = lm.count_params(params)
+    if n_params != lm.param_count(cfg):
+        raise AssertionError(f"{tag} seamless: {n_params} parameters, param_count "
+                             f"{lm.param_count(cfg)}")
+    log(f"{tag} {cfg.name} ({cfg.source}): full width and depth ({cfg.n_encoder_layers} "
+        f"encoder + {cfg.n_layers} decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab}); {n_params:,} parameters ({cfg.param_dtype}, "
+        f"{n_params * 4 / 1e9:.2f} GB) = lm.param_count = n_params_estimate "
+        f"{cfg.n_params_estimate:,} + {n_params - cfg.n_params_estimate:,} norms, biases and "
+        f"vocab pad; frames {B} x {SX} x {cfg.d_model} from the seeded generator (the audio "
+        f"frontend is a stub)")
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    frames = torch.randn((B, SX, cfg.d_model), generator=gen, device=dev)
+    prefill_run("seamless", cfg, params, {"tokens": tokens, "frames": frames},
+                cfg.n_encoder_layers + 2 * cfg.n_layers)
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    n_dec = ENCDEC_DECODE
+    toks = tokens[:, :n_dec]
+    with torch.no_grad():
+        ref32 = lm.apply_train(params, {"tokens": toks, "frames": frames}, cfg32)
+        enc = lm.encode(params, frames, cfg32)
+    cache = lm.init_cache(cfg32, B, n_dec, dtype=torch.float32, cross_len=SX, device=dev)
+    cache = lm.prefill_cross(params, enc, cfg32, cache)
+    cross_k = cache["groups"][0][0]["l0"]["cross"].k.clone()
+    dec = []
+    for t in range(n_dec):
+        lg, cache = lm.apply_decode(params, toks[:, t:t + 1], cache, t, cfg32)
+        dec.append(lg[:, 0])
+    dec_err = float((torch.stack(dec, 1) - ref32).abs().max())
+    if not dec_err <= DECODE_LOGIT_ATOL or not torch.equal(
+            cache["groups"][0][0]["l0"]["cross"].k, cross_k):
+        raise AssertionError(f"{tag} seamless: cached decode vs teacher forcing {dec_err}, or "
+                             f"the cross K/V moved")
+    log(f"{tag} seamless: float32 compute, lm.encode + lm.prefill_cross ({SX} frames) then "
+        f"cached apply_decode x {n_dec} vs teacher-forced apply_train: logits max abs diff "
+        f"{dec_err:.3e} (atol {DECODE_LOGIT_ATOL}); the cross K/V unchanged by the steps")
+    del ref32, enc, cache, dec, cross_k
+
+    n_prompt, n_new = 16, ENCDEC_GREEDY
+    with torch.no_grad():
+        enc = lm.encode(params, frames, cfg)
+    cache = lm.prefill_cross(params, enc, cfg, lm.init_cache(
+        cfg, B, n_prompt + n_new, cross_len=SX, device=dev))
+    step = make_decode_step(cfg, n_prompt + n_new)
+    for t in range(n_prompt):
+        nxt, cache = step(params, tokens[:, t:t + 1], cache, t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok = nxt[:, None]
+    for t in range(n_new):
+        nxt, cache = step(params, tok, cache, n_prompt + t)
+        tok = nxt[:, None]
+    torch.cuda.synchronize()
+    g_ms = (time.perf_counter() - t0) * 1e3 / n_new
+    log(f"{tag} {power}: seamless greedy decode against the cross cache ({SX} frames), batch "
+        f"{B}, bf16 compute and cache: {g_ms:.1f} ms per step ({B / g_ms * 1e3:.1f} tokens/s)")
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    del params, tokens, frames, enc, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, S_, T_, causal in (("encoder", SX, SX, False), ("decoder self", S, S, True),
+                                  ("cross", S, SX, False)):
+        result["seamless"][label] = flash_at_prefill(
+            torch, dev, gen, tag, f"seamless {label}", power, B, S_, Hkv, H // Hkv, dh, None,
+            result["launches"]["seamless"], T=T_, causal=causal)
+    clock.lap("phase 26 seamless")
+
+    # ---- Pixtral-12B: patch embeddings in the first positions -----------------------------
+    full = get_config("pixtral-12b")
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    params = lm.init_params(cfg, generator=gen, device=dev).requires_grad_(True)
+    n_params = lm.count_params(params)
+    if n_params != lm.param_count(cfg):
+        raise AssertionError(f"{tag} pixtral: {n_params} parameters")
+    P = cfg.n_patches
+    log(f"{tag} {full.name} ({full.source}): full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}), depth cut "
+        f"{full.n_layers} -> {cfg.n_layers} layers; {n_params:,} parameters "
+        f"({n_params * 4 / 1e9:.2f} GB); {P} patch embeddings of {cfg.d_model} in the first "
+        f"positions of each prompt (the vision frontend is a stub)")
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    patches = torch.randn((B, P, cfg.d_model), generator=gen, device=dev)
+    prefill_run("pixtral", cfg, params, {"tokens": tokens, "patch_embeds": patches},
+                cfg.n_layers)
+    other = tokens.clone()
+    other[:, :P] = (other[:, :P] + 1) % cfg.vocab
+    keep = P + 16
+    with torch.no_grad():
+        base = lm.apply_train(params, {"tokens": tokens, "patch_embeds": patches}, cfg)[:, :keep]
+        same = lm.apply_train(params, {"tokens": other, "patch_embeds": patches}, cfg)[:, :keep]
+        moved = lm.apply_train(params, {"tokens": tokens, "patch_embeds": patches.flip(1)},
+                               cfg)[:, :keep]
+    moved_min = float((moved[:, :P] - base[:, :P]).abs().amax(-1).min())
+    if not torch.equal(base, same) or not moved_min > 0:
+        raise AssertionError(f"{tag} pixtral: the patch positions' logits follow the tokens they "
+                             f"replace, or not the patches ({moved_min})")
+    log(f"{tag} pixtral: the logits of the first {keep} positions are bit-equal with the "
+        f"{P} replaced tokens changed; with the patches reordered every patch position's logits "
+        f"move (least max abs change {moved_min:.3e})")
+    del params, tokens, patches, other, base, same, moved
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_at_prefill(torch, dev, gen, tag, "pixtral", power, B, S, cfg.n_kv_heads,
+                     cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, cfg.sliding_window,
+                     result["launches"]["pixtral"])
+    clock.lap("phase 26 pixtral")
+    return result
+
+
+def train_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
+    """Phase 27 (train): the training path on StarCoder2-3B at full width.
+    The flash ``autograd.Function`` at the step's attention shapes (its q,
+    k, v gradients bit-equal to autograd through ``_attend_chunked``); a
+    2-layer step at float32 compute with flash on against flash off
+    (gradients within ``TRAIN_GRAD_RTOL`` of each leaf's largest); the
+    full-depth ``make_train_step`` (bf16 compute, per-layer remat, AdamW)
+    for ``TRAIN_STEPS`` steps of ``SyntheticLMStream`` batches: finite,
+    falling loss, step time, tokens/s, peak memory and flash launches per
+    step, and a profiler window over one step; then the train CLI at
+    ``--preset 100m`` with an injected failure, restored from its last
+    checkpoint. Returns the flash launches per step."""
+    import dataclasses
+    import gc
+    import math
+    import os
+    import shutil
+
+    from repro_torch.configs.base import get_config
+    from repro_torch._unused import flash_attention as fa
+    from repro_torch._unused.models import attention, lm
+    from repro_torch._unused.train.data import SyntheticLMStream
+    from repro_torch._unused.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch._unused.train.train_step import loss_fn, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    zero, read = counter_fns(torch, counters)
+    tag = "[27 train]"
+    cfg = get_config("starcoder2-3b")
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    Hkv, G, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+
+    # ---- the flash Function at the step's attention shapes ------------------------------
+    kw = dict(causal=True, window=cfg.sliding_window, scale=1.0 / math.sqrt(dh))
+    q = torch.randn((B, S, Hkv, G, dh), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, Hkv, dh), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    g = torch.randn((B, S, Hkv, G, dh), generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    fa.launches = fa.tc_launches = 0
+    out = attention._flash_with_plain_bwd(q, k, v, **kw)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    body = (fa.launches, fa.tc_launches)
+    plain = attention._attend_chunked(q, k, v, **kw)
+    pgrads = torch.autograd.grad(plain, (q, k, v), g.float())
+    equal = [torch.equal(a, b) for a, b in zip(grads, pgrads)]
+    if body != (1, 1) or not all(equal) or not all(bool(torch.isfinite(a).all()) for a in grads):
+        raise AssertionError(f"{tag} flash Function: launches {body}, q/k/v grads bit-equal to "
+                             f"_attend_chunked's {equal}")
+    fwd_ms = cuda_ms(torch, lambda: attention._flash_with_plain_bwd(q, k, v, **kw), reps=5)
+    bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        attention._flash_with_plain_bwd(q, k, v, **kw), (q, k, v), g), reps=3) - fwd_ms
+    log(f"{tag} {power}: flash autograd.Function at the step's shapes B={B} S=T={S} Hkv={Hkv} "
+        f"G={G} dh={dh} bf16 causal window {cfg.sliding_window}: forward one tensor-core launch, "
+        f"{fwd_ms:.3f} ms; backward (the _attend_chunked recompute and its vjp, plain PyTorch) "
+        f"{bwd_ms:.3f} ms; q, k, v gradients bit-equal to autograd through _attend_chunked "
+        f"alone: {equal}")
+    del q, k, v, g, out, grads, plain, pgrads
+
+    # ---- 2 layers at full width, float32 compute: flash on vs off --------------------------
+    stream = SyntheticLMStream(cfg.vocab, S, B, seed=SEED)
+
+    def on_device(batch):
+        return {key: torch.as_tensor(val, dtype=torch.int64, device=dev)
+                for key, val in batch.items()}
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    params = lm.init_params(cfg2, generator=gen, device=dev).requires_grad_(True)
+    leaves = dict(params.named_parameters())
+    batch = on_device(stream.batch(0))
+    runs = {}
+    for mode in ("on", "off"):
+        fa.launches = fa.tc_launches = 0
+        with attention.flash_enabled(mode):
+            loss = loss_fn(params, batch, cfg2)
+            runs[mode] = (float(loss.detach()), torch.autograd.grad(loss, list(leaves.values())),
+                          (fa.launches, fa.tc_launches))
+    if runs["on"][2] != (2 * cfg2.n_layers, 0) or runs["off"][2] != (0, 0):
+        raise AssertionError(f"{tag} 2 layers: flash launches on {runs['on'][2]}, off "
+                             f"{runs['off'][2]}")
+    worst, worst_key = 0.0, None
+    for key, a, b in zip(leaves, runs["on"][1], runs["off"][1]):
+        ratio = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        if ratio > worst:
+            worst, worst_key = ratio, key
+    if not worst <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"{tag} 2 layers: flash on vs off gradient of {worst_key} differs "
+                             f"by {worst:.3e} of its largest entry")
+    log(f"{tag} 2-layer StarCoder2-3B at full width, float32 compute, {B} x {S} tokens: loss "
+        f"flash on {runs['on'][0]:.6f} vs off {runs['off'][0]:.6f}; flash launches with "
+        f"the gradient {runs['on'][2][0]} (forward + remat recompute, CUDA-core body); "
+        f"gradients of {len(leaves)} leaves, largest difference {worst:.3e} of its leaf's largest "
+        f"entry ({worst_key}; limit {TRAIN_GRAD_RTOL})")
+    del params, leaves, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the full-depth step -----------------------------------------------------------------
+    params = lm.init_params(cfg, generator=gen, device=dev).requires_grad_(True)
+    n_params = lm.count_params(params)
+    # the reference's AdamW defaults: lr 3e-4 after 100 warmup steps, so these steps take
+    # 3e-6 to 1.8e-5 (one step at 3e-4 on these random 30 layers sends the loss from 11.3 to 21.9)
+    opt_cfg = AdamWConfig()
+    opt = adamw_init(dict(params.named_parameters()), opt_cfg)
+    step = make_train_step(cfg, opt_cfg)
+    state_gb = 4 * n_params * 4 / 1e9
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, {n_params:,} parameters; float32 parameters, "
+        f"gradients and AdamW m and v {state_gb:.1f} GB, the bf16 casts "
+        f"{n_params * 2 / 1e9:.1f} GB, layer inputs kept by remat "
+        f"{cfg.n_layers * B * S * cfg.d_model * 2 / 1e9:.2f} GB")
+    losses, times, launches = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        batch = on_device(stream.batch(i))
+        zero()
+        fa.launches = fa.tc_launches = 0
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append((fa.launches, fa.tc_launches))
+        others = read()
+        if others:
+            raise AssertionError(f"{tag} the train step launched decoder kernels {others}")
+    peak = torch.cuda.max_memory_allocated()
+    want = (2 * cfg.n_layers, 2 * cfg.n_layers)
+    if (not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]
+            or any(n != want for n in launches)):
+        raise AssertionError(f"{tag} full depth: losses {losses}, flash launches per step "
+                             f"{launches} (want {want}), step ms {times}")
+    med = statistics.median(times[1:])
+    log(f"{tag} {power}: make_train_step, {cfg.name} full depth, {B} x {S} tokens per step, "
+        f"bf16 compute, per-layer remat, AdamW: losses {[round(x, 4) for x in losses]}; step ms "
+        f"{[round(x, 1) for x in times]} (the first allocates), median of the rest {med:.1f} ms "
+        f"-> {B * S / med * 1e3:.0f} tokens/s; peak {peak / 1e9:.2f} GB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB; flash launches per "
+        f"step {launches[0][0]} ({cfg.n_layers} forward + {cfg.n_layers} remat recompute), all "
+        f"on the tensor-core body")
+    batch = on_device(stream.batch(TRAIN_STEPS))
+    wall, kernels, busy = device_profile(torch, lambda: step(params, opt, batch), top=8)
+    if busy > 0:
+        log(f"{tag} {power}: one step under the profiler: wall {wall:.1f} ms, device busy "
+            f"{busy:.1f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; top kernels: "
+            + "; ".join(f"{n} {ms:.1f} ms x {c}" for n, ms, c in kernels))
+    else:
+        log(f"{tag} one step under the profiler: no device time seen (not measured)")
+    del params, opt, step, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock.lap("phase 27 train step")
+
+    # ---- the train CLI: an injected failure restored from the last checkpoint -------------
+    root = Path(__file__).resolve().parent
+    ckpt = root / "build" / "train-ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["-m", "repro_torch.launch.train", "--preset", "100m", "--steps", "20",
+            "--ckpt-every", "10", "--inject-failure-at", "12", "--ckpt-dir", str(ckpt)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=root, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(root / "src")}, timeout=300)
+    for line in (proc.stdout + proc.stderr).splitlines():
+        log(f"{tag} cli: {line}")
+    text = proc.stdout
+    if (proc.returncode or "[train] failure at step 12: injected node failure" not in text
+            or "[train] done on " not in text):
+        raise AssertionError(f"{tag} the train CLI exited {proc.returncode} without recovering")
+    log(f"{tag} {power}: python -m repro_torch.launch.train {' '.join(argv[2:])}: restored "
+        f"and finished, exit 0 in {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    clock.lap("phase 27 train cli")
+    return {"train step": launches[-1][1]}
 
 
 def main() -> int:
@@ -2769,7 +3193,10 @@ def main() -> int:
     ]
     # the serial matrix variant on the matrix warp body: every mother code
     # at every built k, f32 (int symbols), i16 and i8 over int8/int16
-    # symbols, ragged B and odd T
+    # symbols, ragged B and odd T; at half the decode depth (D / 2 = 256,
+    # T = 340), since the plain version's host time grows with T
+    D12 = D // 2
+    T12 = T - D12
     for label, code in mothers:
         for k in range(1, 5):
             try:
@@ -2777,10 +3204,11 @@ def main() -> int:
             except ValueError:
                 continue
             fcases += [
-                (label, code, i8, bs[k % 4], T + 1, L, D, "f32", "serial", "matrix", k, 64, "zero"),
-                (label, code, i16, bs[(k + 1) % 4], T + 3, L, D, "i16", "serial", "matrix", k, 64,
-                 "random"),
-                (label, code, i8, bs[(k + 2) % 4], T, L, D, "i8", "serial", "matrix", k, 64,
+                (label, code, i8, bs[k % 4], T12 + 1, L, D12, "f32", "serial", "matrix", k, 64,
+                 "zero"),
+                (label, code, i16, bs[(k + 1) % 4], T12 + 3, L, D12, "i16", "serial", "matrix", k,
+                 64, "random"),
+                (label, code, i8, bs[(k + 2) % 4], T12, L, D12, "i8", "serial", "matrix", k, 64,
                  "random")]
     # every prefix case of a mother code's butterfly at each S variant the
     # serial warp path builds (the matrix warp body has one S per (code, k))
@@ -3022,6 +3450,15 @@ def main() -> int:
     clock.lap("phase 23 examples")
     card_phases(torch, dev, counters, power, clock)
     mixer_phases(torch, dev, counters, power, clock)
+    encdec = encdec_phases(torch, dev, counters, power, clock)
+    trained = train_phases(torch, dev, counters, power, clock)
+    # the tensor-core body's launches on every LM path: StarCoder2-3B's prefill (its main path,
+    # ``launches``), the enc-dec and VLM prefills and one training step
+    flash_rows[0]["launches_by_path"] = {"starcoder2-3b prefill": flash_rows[0]["launches"],
+                                         "seamless prefill": encdec["launches"]["seamless"],
+                                         "pixtral prefill": encdec["launches"]["pixtral"],
+                                         "starcoder2-3b train step": trained["train step"]}
+    flash_rows[0]["seamless_shapes"] = encdec["seamless"]
 
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith(("jax.", "jaxlib")) or mod == "repro" or mod.startswith("repro."):

@@ -1,2 +1,2 @@
-"""The port's LM layers, GQA attention, blocks and model assembly
-(``repro._unused.models`` counterpart, decoder-only GQA path)."""
+"""The port's LM layers, attention and SSM mixers, MoE, blocks and model
+assembly (``repro._unused.models`` counterpart)."""

@@ -1,15 +1,20 @@
-"""Attention mixers: GQA and MLA (DeepSeek-V2 multi-head latent attention),
-the chunked streaming softmax, single-token decode against a KV cache
-(ring-buffered for sliding-window models), and the flash switch.
+"""Attention mixers: GQA (self- or cross-attention) and MLA (DeepSeek-V2
+multi-head latent attention), the chunked streaming softmax, single-token
+decode against a KV cache (ring-buffered for sliding-window models), and
+the flash switch.
 
 The counterpart of ``repro._unused.models.attention``.
 Full-sequence attention runs the flash kernel when :func:`_use_flash` says
 so (``"auto"``: the tensors are on a CUDA device, as ``"auto"`` means a TPU
 in the reference) and the streaming softmax :func:`_attend_chunked`
-otherwise. The port runs inference only: there is no backward, so the
-reference's ``_flash_with_xla_bwd`` is a plain call here. The cache write is
-in place (the reference returns a new buffer); the returned cache holds the
-same tensors. There is no context-parallel write and no cross-attention.
+otherwise. The flash call goes through :func:`_flash_with_plain_bwd`, the
+counterpart of the reference's ``_flash_with_xla_bwd``: the kernel forward
+and, under a gradient, a backward that recomputes :func:`_attend_chunked`
+under autograd. Cross-attention (``gqa_apply(..., xa=...)``) takes K and V
+from the encoder's output, with no rotary positions, no causal mask and no
+window. The cache write is in place (the reference returns a new buffer);
+the returned cache holds the same tensors. There is no context-parallel
+write (ROADMAP A.6.7).
 MLA caches the latent and the shared rope key and rebuilds each head's keys
 and values from the latent at every step; its prefill runs the streaming
 softmax, never the flash kernel, as in the reference (its key width
@@ -56,6 +61,33 @@ def _use_flash(x: torch.Tensor) -> bool:
     if mode in ("on", "1", "force"):
         return True
     return x.device.type == "cuda"  # auto
+
+
+class _FlashPlainBwd(torch.autograd.Function):
+    """Flash forward; the backward is the vjp of :func:`_attend_chunked`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, scale)
+        return flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, scale = ctx.opts
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = _attend_chunked(*qkv, causal=causal, window=window, scale=scale)
+        return (*torch.autograd.grad(out, qkv, g.float()), None, None, None)
+
+
+def _flash_with_plain_bwd(q, k, v, *, causal: bool, window: Optional[int], scale: float):
+    """The flash kernel (:func:`flash_attention`: the CUDA kernel on CUDA
+    tensors, its plain version on CPU tensors) with the reference's
+    backward: recompute :func:`_attend_chunked` (its default bf16
+    probabilities, whatever the compute dtype) and return its vjp of the
+    incoming gradient cast to float32. No kernel runs in the backward."""
+    return _FlashPlainBwd.apply(q, k, v, causal, window, scale)
 
 
 class KVCache(NamedTuple):
@@ -182,6 +214,7 @@ def gqa_apply(
     causal: bool = True,
     cache: Optional[KVCache] = None,
     cache_len: Optional[int] = None,  # tokens already in cache
+    xa: Optional[torch.Tensor] = None,  # cross-attention context (B, Sx, d)
 ):
     """Returns (out (B,S,d), new_cache)."""
     B, S, d = x.shape
@@ -190,11 +223,13 @@ def gqa_apply(
     scale = 1.0 / math.sqrt(dh)
 
     q = dense_apply(p.wq, x, cfg)  # (B,S,H,dh)
-    k = dense_apply(p.wk, x, cfg)
-    v = dense_apply(p.wv, x, cfg)
-    sin, cos = rope_sin_cos(positions, dh, cfg.rope_theta)
-    q = apply_rope(q, sin[None], cos[None])
-    k = apply_rope(k, sin[None], cos[None])  # the same positions as q
+    kv_src = x if xa is None else xa
+    k = dense_apply(p.wk, kv_src, cfg)
+    v = dense_apply(p.wv, kv_src, cfg)
+    if xa is None:  # self-attention: rotary positions, the same for q and k
+        sin, cos = rope_sin_cos(positions, dh, cfg.rope_theta)
+        q = apply_rope(q, sin[None], cos[None])
+        k = apply_rope(k, sin[None], cos[None])
     qg = q.reshape(B, S, Hkv, G, dh)
     new_cache = None
 
@@ -217,12 +252,13 @@ def gqa_apply(
         out = _attend_decode(qg, ck, cv, scale=scale, valid=valid.expand(B, S_max),
                              softcap=cfg.attn_logit_softcap)
     else:
-        win = cfg.sliding_window
+        is_causal = causal and xa is None
+        win = cfg.sliding_window if xa is None else None
         if _use_flash(x) and cfg.attn_logit_softcap is None:
-            out = flash_attention(qg, k, v, causal=causal, window=win, scale=scale)
+            out = _flash_with_plain_bwd(qg, k, v, causal=is_causal, window=win, scale=scale)
         else:
             out = _attend_chunked(
-                qg, k, v, causal=causal, window=win, scale=scale,
+                qg, k, v, causal=is_causal, window=win, scale=scale,
                 softcap=cfg.attn_logit_softcap, p_dtype=cdtype(cfg),
             )
 

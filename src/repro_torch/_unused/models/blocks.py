@@ -4,8 +4,11 @@ per-block decode cache.
 The counterpart of ``repro._unused.models.blocks`` for every mixer of the
 architecture pool (GQA, MLA, Mamba, RWKV-6) and the dense, MoE or RWKV
 channel-mix FFN, sequential or parallel (Command-R style: one shared norm,
-attention and FFN side by side). Cross-attention (enc-dec) raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+attention and FFN side by side). An enc-dec decoder block
+(``cross=True``) adds ``norm_x`` and a cross-attention :class:`GQA`
+between the mixer and the FFN: against the encoder's output ``xa`` in a
+full forward, against the encoder K/V that ``lm.prefill_cross`` put in the
+block's cache (``"cross"``, every key valid) in decode.
 
 RWKV's token shifts: in prefill the channel mix's ``x_prev`` is the padded
 shift of its normed input; in decode it is the cache's ``x_cm``, which then
@@ -14,15 +17,18 @@ becomes this step's normed input (the time mix writes ``x_tm`` itself).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import WAITING_SLICES, LayerDesc, ModelConfig
-from .attention import GQA, MLA, KVCache, gqa_apply, gqa_init, mla_apply, mla_init
-from .layers import FFN, ChannelMix, Norm, ffn_apply, ffn_init, norm_apply, norm_init
+from repro_torch.configs.base import LayerDesc, ModelConfig
+from .attention import (GQA, MLA, KVCache, _attend_decode, gqa_apply, gqa_init, mla_apply,
+                        mla_init)
+from .layers import (FFN, ChannelMix, Norm, dense_apply, ffn_apply, ffn_init, norm_apply,
+                     norm_init)
 from .moe import MoE, moe_apply, moe_init
 from .ssm import (RWKV, Mamba, MambaCache, RwkvCache, mamba_apply, mamba_init, rwkv_apply,
                   rwkv_init)
@@ -32,30 +38,25 @@ __all__ = ["Block", "block_init", "block_apply", "block_cache_init"]
 _MIXER_INIT = {"gqa": gqa_init, "mla": mla_init, "mamba": mamba_init, "rwkv6": rwkv_init}
 
 
-def _check(desc: LayerDesc, cross: bool) -> None:
-    if "none" in (desc.mixer, desc.ffn):
-        raise ValueError(f"{desc}: no card has a layer without a mixer or an FFN")
-    if cross:
-        raise NotImplementedError(
-            f"cross-attention (enc-dec) waits for its slice of the LM port "
-            f"({WAITING_SLICES['encdec']})")
-
-
 class Block(nn.Module):
     """``norm1``, ``mixer`` (a :class:`GQA`, :class:`MLA`, :class:`Mamba` or
-    :class:`RWKV`), ``norm2`` (absent in a parallel block) and ``ffn`` (an
+    :class:`RWKV`), ``norm2`` (absent in a parallel block), ``ffn`` (an
     :class:`FFN`, a :class:`ChannelMix`, or a :class:`MoE` in a
-    ``ffn="moe"`` layer)."""
+    ``ffn="moe"`` layer) and, in an enc-dec decoder block, ``norm_x`` and
+    ``cross`` (a :class:`GQA`)."""
 
     def __init__(self, norm1: Norm, mixer: GQA | MLA | Mamba | RWKV,
-                 ffn: FFN | ChannelMix | MoE, norm2: Norm | None = None):
+                 ffn: FFN | ChannelMix | MoE, norm2: Norm | None = None,
+                 norm_x: Norm | None = None, cross: GQA | None = None):
         super().__init__()
         self.norm1, self.mixer, self.norm2, self.ffn = norm1, mixer, norm2, ffn
+        self.norm_x, self.cross = norm_x, cross
 
 
 def block_init(cfg: ModelConfig, desc: LayerDesc, *, gen=None, device=None,
                cross: bool = False) -> Block:
-    _check(desc, cross)
+    if "none" in (desc.mixer, desc.ffn):
+        raise ValueError(f"{desc}: no card has a layer without a mixer or an FFN")
     d = cfg.d_model
     return Block(
         norm_init(d, cfg, device=device),
@@ -63,15 +64,19 @@ def block_init(cfg: ModelConfig, desc: LayerDesc, *, gen=None, device=None,
         (moe_init(cfg, gen=gen, device=device) if desc.ffn == "moe"
          else ffn_init(cfg, cfg.d_ff_dense or cfg.d_ff, gen=gen, device=device)),
         None if cfg.parallel_block else norm_init(d, cfg, device=device),
+        norm_init(d, cfg, device=device) if cross else None,
+        gqa_init(cfg, gen=gen, device=device) if cross else None,
     )
 
 
 def block_cache_init(cfg: ModelConfig, desc: LayerDesc, batch: int, s_max: int, dtype,
-                     *, device=None) -> dict:
+                     *, cross_len: int = 0, device=None) -> dict:
     """The block's cache ``{"mixer": ...}``: GQA a :class:`KVCache` of
     ``window`` slots when ``s_max >= window`` (a ring buffer), else
     ``s_max``; MLA the latent and rope-key :class:`KVCache`; Mamba and RWKV
-    their states, float32 where the reference keeps float32."""
+    their states, float32 where the reference keeps float32. With
+    ``cross_len`` also ``"cross"``, a :class:`KVCache` of ``cross_len``
+    encoder positions."""
     d = cfg.d_model
 
     def zeros(*shape, dt=dtype):
@@ -80,17 +85,22 @@ def block_cache_init(cfg: ModelConfig, desc: LayerDesc, batch: int, s_max: int, 
     if desc.mixer == "gqa":
         s = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
         kv = (batch, s, cfg.n_kv_heads, cfg.head_dim)
-        return {"mixer": KVCache(zeros(*kv), zeros(*kv))}
-    if desc.mixer == "mla":
-        return {"mixer": KVCache(zeros(batch, s_max, cfg.kv_lora_rank),
-                                 zeros(batch, s_max, cfg.qk_rope_head_dim))}
-    if desc.mixer == "mamba":
-        return {"mixer": MambaCache(
+        caches = {"mixer": KVCache(zeros(*kv), zeros(*kv))}
+    elif desc.mixer == "mla":
+        caches = {"mixer": KVCache(zeros(batch, s_max, cfg.kv_lora_rank),
+                                   zeros(batch, s_max, cfg.qk_rope_head_dim))}
+    elif desc.mixer == "mamba":
+        caches = {"mixer": MambaCache(
             zeros(batch, cfg.mamba_d_conv - 1, cfg.mamba_d_inner),
             zeros(batch, cfg.mamba_d_inner, cfg.mamba_d_state, dt=torch.float32))}
-    H, dh = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
-    return {"mixer": RwkvCache(zeros(batch, 1, d), zeros(batch, 1, d),
-                               zeros(batch, H, dh, dh, dt=torch.float32))}
+    else:
+        H, dh = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        caches = {"mixer": RwkvCache(zeros(batch, 1, d), zeros(batch, 1, d),
+                                     zeros(batch, H, dh, dh, dt=torch.float32))}
+    if cross_len:
+        kv = (batch, cross_len, cfg.n_kv_heads, cfg.head_dim)
+        caches["cross"] = KVCache(zeros(*kv), zeros(*kv))
+    return caches
 
 
 def _apply_mixer(p, x, cfg, desc, *, positions, cache, cache_len, causal):
@@ -114,6 +124,7 @@ def block_apply(
     positions: torch.Tensor,
     cache: Optional[dict] = None,
     cache_len=None,
+    xa: Optional[torch.Tensor] = None,  # encoder context (cross-attention blocks)
     causal: bool = True,
 ):
     """Returns (x', new_cache)."""
@@ -125,6 +136,23 @@ def block_apply(
         ffn = moe_apply if desc.ffn == "moe" else ffn_apply
         return x + out + ffn(p.ffn, xn, cfg), (None if mc is None else {"mixer": mc})
     h = x + out
+    new_cache = {}
+    if p.cross is not None:
+        xn = norm_apply(p.norm_x, h, cfg)
+        cross_cache = (cache or {}).get("cross")
+        if cross_cache is not None and xa is None:  # decode: the prefilled encoder K/V
+            B, S, _ = xn.shape
+            H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            q = dense_apply(p.cross.wq, xn, cfg).reshape(B, S, Hkv, H // Hkv, dh)
+            T = cross_cache.k.shape[1]
+            valid = torch.ones((B, T), dtype=torch.bool, device=x.device)
+            out = _attend_decode(q, cross_cache.k, cross_cache.v, scale=1.0 / math.sqrt(dh),
+                                 valid=valid)
+            out = dense_apply(p.cross.wo, out.reshape(B, S, H * dh).to(x.dtype), cfg)
+            new_cache["cross"] = cross_cache
+        else:
+            out, _ = gqa_apply(p.cross, xn, cfg, positions=positions, causal=False, xa=xa)
+        h = h + out
     xn = norm_apply(p.norm2, h, cfg)
     if desc.ffn == "moe":
         f = moe_apply(p.ffn, xn, cfg)
@@ -137,4 +165,6 @@ def block_apply(
         f = ffn_apply(p.ffn, xn, cfg, x_prev=x_prev)
     else:
         f = ffn_apply(p.ffn, xn, cfg)
-    return h + f, (None if mc is None else {"mixer": mc})
+    if mc is not None:
+        new_cache["mixer"] = mc
+    return h + f, (new_cache or None)

@@ -4,9 +4,11 @@ The counterpart of ``repro._unused.models.layers``. A JAX pytree of
 parameters becomes an ``nn.Module`` whose parameter names are the pytree's
 keys (``w``, ``b``, ``scale``, ``bias``, ``table``; an FFN holds ``wi``,
 ``wo`` and for SwiGLU ``wg``); the ``*_apply`` functions take the module and
-tensors as the reference's take the pytree and arrays. Parameters stay in
-``param_dtype`` and are cast to ``compute_dtype`` at each use; norms compute
-in float32 and cast back to the input's dtype. Initializers draw from an
+tensors as the reference's take the pytree and arrays. Parameters are made
+with ``requires_grad=False`` for serving (here and in ``moe.py`` and
+``ssm.py``); a trainer switches them on with ``module.requires_grad_(True)``.
+They stay in ``param_dtype`` and are cast to ``compute_dtype`` at each use;
+norms compute in float32 and cast back to the input's dtype. Initializers draw from an
 explicit ``torch.Generator`` on the parameters' device, so their numbers
 differ from ``jax.random``'s: the tests carry the reference's weights across
 with :func:`repro_torch.interop.convert_lm_params`. The RWKV channel mix

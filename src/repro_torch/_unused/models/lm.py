@@ -1,56 +1,70 @@
-"""Model assembly for decoder-only LMs: parameters, the full-sequence
-forward, decode caches and the cached single-token step.
+"""Model assembly: decoder-only LMs, the enc-dec (Seamless) variant, the VLM
+embedding stub, per-layer remat, and decode caches.
 
-The counterpart of ``repro._unused.models.lm`` without the enc-dec and VLM
-variants (ROADMAP A.6.5). The parameters are an :class:`LM` module whose
-names follow the reference's pytree: ``embed.table``, ``final_norm.scale``,
-``lm_head.w`` (untied models only) and ``groups[gi][r]["l{i}"]``, where the
-reference stacks a group's ``repeat`` layers on a leading scan axis and the
-port keeps one ``ModuleList`` entry per layer. Logits are the compute-dtype
-product cast to float32, over the vocab padded by ``round_vocab``.
+The counterpart of ``repro._unused.models.lm``. The parameters are an
+:class:`LM` module whose names follow the reference's pytree:
+``embed.table``, ``final_norm.scale``, ``lm_head.w`` (untied models only),
+``groups[gi][r]["l{i}"]`` and, for enc-dec, ``encoder[r]["l0"]`` and
+``enc_norm``, where the reference stacks a group's ``repeat`` layers on a
+leading scan axis and the port keeps one ``ModuleList`` entry per layer.
+Logits are the compute-dtype product cast to float32, over the vocab padded
+by ``round_vocab``. The audio frontend is a stub, as in the reference: the
+encoder takes precomputed frame embeddings (``batch["frames"]``); the
+vision stub puts ``batch["patch_embeds"]`` in the first ``n_patches``
+positions.
 
 The entry points run on the card unless the caller passes a CPU device:
 ``device=None`` means ``"cuda"``, and without a GPU they raise
-``DeviceUnavailableError``. The port runs inference only, under
-``torch.no_grad`` (parameters have ``requires_grad=False``).
+``DeviceUnavailableError``. Parameters are made with
+``requires_grad=False``; a trainer switches them on
+(``params.requires_grad_(True)``). :func:`apply_train` and :func:`encode`
+carry a gradient: with grad enabled and a parameter or input that
+requires one, each layer runs under ``torch.utils.checkpoint``
+(non-reentrant), the counterpart of the
+reference's default full remat (``REPRO_REMAT=dots`` is not ported).
+:func:`apply_decode` and :func:`prefill_cross` serve, under
+``torch.no_grad``.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import WAITING_SLICES, ModelConfig
+from repro_torch.configs.base import LayerDesc, ModelConfig
 from repro_torch.device import resolve_device
+from .attention import KVCache
 from .blocks import block_apply, block_cache_init, block_init
-from .layers import Dense, Embed, Norm, cdtype, embed_init, norm_apply, norm_init, pdtype, round_vocab
+from .layers import (Dense, Embed, Norm, cdtype, dense_apply, embed_init, norm_apply, norm_init,
+                     pdtype, round_vocab)
 
 __all__ = [
     "LM",
     "init_params",
     "apply_train",
+    "encode",
     "init_cache",
+    "prefill_cross",
     "apply_decode",
     "count_params",
     "param_count",
 ]
 
+#: the encoder's one layer kind
+ENC_PATTERN = (LayerDesc(mixer="gqa", ffn="dense"),)
+
 
 class LM(nn.Module):
-    """``embed``, ``final_norm``, ``lm_head`` (untied only) and ``groups``."""
+    """``embed``, ``final_norm``, ``lm_head`` (untied only), ``groups`` and,
+    for enc-dec, ``encoder`` and ``enc_norm``."""
 
     def __init__(self, embed: Embed, final_norm: Norm, groups: nn.ModuleList,
-                 lm_head: Dense | None = None):
+                 lm_head: Dense | None = None, encoder: nn.ModuleList | None = None,
+                 enc_norm: Norm | None = None):
         super().__init__()
         self.embed, self.final_norm, self.lm_head, self.groups = embed, final_norm, lm_head, groups
-
-
-def _check(cfg: ModelConfig) -> None:
-    if cfg.encdec or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: enc-dec and modality frontends wait for their slice "
-            f"({WAITING_SLICES['encdec']})"
-        )
+        self.encoder, self.enc_norm = encoder, enc_norm
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
@@ -61,7 +75,6 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
     ``param_dtype`` on ``device``.
     ``generator`` (on that device; else one seeded with 0) draws them; on
     the ``meta`` device only the shapes are made."""
-    _check(cfg)
     dev = resolve_device(device, user="the LM")
     gen = generator
     if gen is None and dev.type != "meta":
@@ -76,12 +89,18 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
         lm_head = Dense(nn.Parameter(w, requires_grad=False))
     groups = nn.ModuleList(
         nn.ModuleList(
-            nn.ModuleDict({f"l{i}": block_init(cfg, desc, **kw) for i, desc in enumerate(pattern)})
+            nn.ModuleDict({f"l{i}": block_init(cfg, desc, cross=cfg.encdec, **kw)
+                           for i, desc in enumerate(pattern)})
             for _ in range(repeat)
         )
         for pattern, repeat in cfg.layer_list
     )
-    return LM(embed, norm_init(cfg.d_model, cfg, device=dev), groups, lm_head)
+    encoder = enc_norm = None
+    if cfg.encdec:
+        encoder = nn.ModuleList(nn.ModuleDict({"l0": block_init(cfg, ENC_PATTERN[0], **kw)})
+                                for _ in range(cfg.n_encoder_layers))
+        enc_norm = norm_init(cfg.d_model, cfg, device=dev)
+    return LM(embed, norm_init(cfg.d_model, cfg, device=dev), groups, lm_head, encoder, enc_norm)
 
 
 def count_params(params: LM) -> int:
@@ -92,15 +111,22 @@ def param_count(cfg: ModelConfig) -> int:
     """What ``count_params`` gives for ``init_params(cfg)``, from the shapes:
     ``n_params_estimate`` plus the leaves the estimate leaves out, namely
     the norms (two per block, one per parallel block, and the final one;
-    a LayerNorm holds a bias too; MLA's ``q_norm`` and ``kv_norm``), the QKV
-    biases, the rows that pad the vocab to ``round_vocab``, Mamba's
+    enc-dec: two per encoder block, ``enc_norm`` and each decoder block's
+    ``norm_x``; a LayerNorm holds a bias too; MLA's ``q_norm`` and
+    ``kv_norm``), the QKV biases (enc-dec: the encoder's and the
+    cross-attention's too), the rows that pad the vocab to ``round_vocab``, Mamba's
     ``conv_b``, RWKV's ``mu``, ``w0``, ``u``, ``ln_scale`` and ``ln_bias``
     and the channel mix's ``mu``; less the gate LoRA (``rwkv_gate_lora ·
     2d``) that the estimate counts and ``rwkv_init`` does not build."""
     d = cfg.d_model
     per_norm = 2 if cfg.norm_type == "layernorm" else 1
-    norms = (cfg.n_layers * (1 if cfg.parallel_block else 2) + 1) * per_norm * d
-    biases = cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim if cfg.qkv_bias else 0
+    n_norms = cfg.n_layers * (1 if cfg.parallel_block else 2) + 1
+    n_attn = cfg.n_layers
+    if cfg.encdec:
+        n_norms += 2 * cfg.n_encoder_layers + 1 + cfg.n_layers
+        n_attn += cfg.n_encoder_layers + cfg.n_layers
+    norms = n_norms * per_norm * d
+    biases = n_attn * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim if cfg.qkv_bias else 0
     pad = (round_vocab(cfg.vocab) - cfg.vocab) * d * (1 if cfg.tie_embeddings else 2)
     extra = 0
     for pattern, repeat in cfg.layer_list:
@@ -117,17 +143,42 @@ def param_count(cfg: ModelConfig) -> int:
 
 
 def _embed_input(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Token embedding → (B, S, d) in the compute dtype (rows are gathered
-    before the cast; the cast is elementwise, so the values are the
-    reference's)."""
-    return params.embed.table[batch["tokens"]].to(cdtype(cfg))
+    """Token / frontend-stub embedding → (B, S, d) in the compute dtype (rows
+    are gathered before the cast; the cast is elementwise, so the values are
+    the reference's). The vision stub's ``patch_embeds`` (B, P, d) replace
+    the first P = ``n_patches`` positions."""
+    emb = params.embed.table[batch["tokens"]].to(cdtype(cfg))
+    if cfg.frontend == "vision_patches":
+        P = cfg.n_patches
+        emb = torch.cat([batch["patch_embeds"].to(emb.dtype), emb[:, P:]], dim=1)
+    return emb
 
 
-def _run_groups(groups: nn.ModuleList, x, cfg: ModelConfig, *, positions, causal=True):
+def _layers(layer: nn.ModuleDict, pattern, x, cfg, positions, causal, xa):
+    for i, desc in enumerate(pattern):
+        x, _ = block_apply(layer[f"l{i}"], x, cfg, desc, positions=positions, causal=causal,
+                           xa=xa)
+    return x
+
+
+def _remat(layer: nn.ModuleDict, pattern, x, cfg, positions, causal=True, xa=None):
+    """One scan step of the reference (the layers of one repeat of a
+    pattern), recomputed in the backward when a gradient is being taken:
+    grad mode is on and the input, the context or a parameter of the layer
+    requires one (serving, whose parameters do not, never checkpoints).
+    The forward draws no random numbers, so no RNG state is kept."""
+    args = (layer, pattern, x, cfg, positions, causal, xa)
+    if torch.is_grad_enabled() and (
+            x.requires_grad or (xa is not None and xa.requires_grad)
+            or any(p.requires_grad for p in layer.parameters())):
+        return checkpoint(_layers, *args, use_reentrant=False, preserve_rng_state=False)
+    return _layers(*args)
+
+
+def _run_groups(groups: nn.ModuleList, x, cfg: ModelConfig, *, positions, causal=True, xa=None):
     for (pattern, _repeat), layers in zip(cfg.layer_list, groups):
         for layer in layers:
-            for i, desc in enumerate(pattern):
-                x, _ = block_apply(layer[f"l{i}"], x, cfg, desc, positions=positions, causal=causal)
+            x = _remat(layer, pattern, x, cfg, positions, causal, xa)
     return x
 
 
@@ -140,36 +191,68 @@ def _logits(params: LM, x, cfg: ModelConfig) -> torch.Tensor:
     return (x @ w).float()
 
 
-@torch.no_grad()
+def encode(params: LM, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Encoder stack over precomputed frame embeddings (the audio stub):
+    (B, Sx, d) → (B, Sx, d) in the compute dtype; non-causal self-attention."""
+    x = frames.to(cdtype(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)
+    for layer in params.encoder:
+        x = _remat(layer, ENC_PATTERN, x, cfg, positions, causal=False)
+    return norm_apply(params.enc_norm, x, cfg)
+
+
 def apply_train(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence forward → logits (B, S, vocab_padded) f32."""
-    _check(cfg)
+    """Full-sequence forward → logits (B, S, vocab_padded) f32. Enc-dec
+    cards take ``batch["frames"]``, the VLM stub ``batch["patch_embeds"]``."""
+    xa = encode(params, batch["frames"], cfg) if cfg.encdec else None
     x = _embed_input(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_groups(params.groups, x, cfg, positions=positions, causal=True)
+    x = _run_groups(params.groups, x, cfg, positions=positions, causal=True, xa=xa)
     return _logits(params, x, cfg)
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16, *,
-               device=None) -> dict:
-    """``{"groups": [[{"l{i}": block cache} per layer] per group]}``."""
-    _check(cfg)
+               cross_len: int = 0, device=None) -> dict:
+    """``{"groups": [[{"l{i}": block cache} per layer] per group]}``; an
+    enc-dec card with ``cross_len`` also gets each decoder block's
+    ``"cross"`` K/V, which :func:`prefill_cross` fills."""
     dev = resolve_device(device, user="the LM")
+    cross_len = cross_len if cfg.encdec else 0
     return {"groups": [
-        [{f"l{i}": block_cache_init(cfg, desc, batch, s_max, dtype, device=dev)
+        [{f"l{i}": block_cache_init(cfg, desc, batch, s_max, dtype, cross_len=cross_len,
+                                    device=dev)
           for i, desc in enumerate(pattern)} for _ in range(repeat)]
         for pattern, repeat in cfg.layer_list
     ]}
 
 
 @torch.no_grad()
+def prefill_cross(params: LM, enc_out: torch.Tensor, cfg: ModelConfig, cache: dict) -> dict:
+    """Each decoder block's cross-attention K/V of the encoder output, in
+    the cache's dtype → a new cache with the ``"cross"`` entries replaced."""
+    groups = []
+    for layers, c_g in zip(params.groups, cache["groups"]):
+        new_g = []
+        for layer, c_layer in zip(layers, c_g):
+            new_c = {}
+            for key, c in c_layer.items():
+                cross, cc = layer[key].cross, c["cross"]
+                k = dense_apply(cross.wk, enc_out, cfg).to(cc.k.dtype)
+                v = dense_apply(cross.wv, enc_out, cfg).to(cc.v.dtype)
+                new_c[key] = {**c, "cross": KVCache(k, v)}
+            new_g.append(new_c)
+        groups.append(new_g)
+    return {"groups": groups}
+
+
+@torch.no_grad()
 def apply_decode(params: LM, tokens: torch.Tensor, cache: dict, cache_len, cfg: ModelConfig):
     """One decode step. tokens (B, 1) → (logits (B, 1, V), cache). The KV
     and MLA caches are written in place; the Mamba and RWKV states are
-    replaced in the returned cache."""
-    _check(cfg)
+    replaced in the returned cache; the cross K/V entries are kept as they
+    are."""
     cache_len = int(cache_len)
-    x = _embed_input(params, {"tokens": tokens}, cfg)
+    x = params.embed.table[tokens].to(cdtype(cfg))
     positions = torch.full((1,), cache_len, device=x.device)
     new_groups = []
     for (pattern, _repeat), layers, c_g in zip(cfg.layer_list, params.groups, cache["groups"]):

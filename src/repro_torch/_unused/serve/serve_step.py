@@ -4,9 +4,13 @@ The counterpart of ``repro._unused.serve.serve_step`` on one device: there
 is no mesh, so no context-parallel cache (ROADMAP A.6.7). The decode step
 runs one new token against the cache: a KV cache (ring-buffered to the
 window for sliding-window models), MLA's latent cache, or the O(1) state
-of Mamba and RWKV. The prefill is the full-sequence forward, where the
-flash kernel runs on the card in GQA layers; MLA runs the streaming
-softmax and Mamba and RWKV their chunked scans.
+of Mamba and RWKV; an enc-dec card's cache also holds the cross K/V that
+``lm.prefill_cross`` filled. The prefill is the full-sequence forward under
+``torch.no_grad``, where the flash kernel runs on the card in GQA layers
+(and in an enc-dec card's encoder and cross-attention); MLA runs the
+streaming softmax and Mamba and RWKV their chunked scans. Its batch holds
+``tokens`` and, as the card needs, ``frames`` (enc-dec) or
+``patch_embeds`` (the VLM stub).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ def make_decode_step(cfg: ModelConfig, s_max: int):
 def make_prefill_step(cfg: ModelConfig):
     """Full-sequence forward producing the last position's greedy token."""
 
+    @torch.no_grad()
     def step(params, batch: dict):
         logits = lm.apply_train(params, batch, cfg)
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)

@@ -4,10 +4,9 @@ A copy of ``repro.configs.base`` (the port imports nothing of the JAX
 package): the same ``LayerDesc`` and ``ModelConfig`` (every field, with
 ``dt_rank``, ``mamba_d_inner``, ``layer_list``, ``n_params_estimate``,
 ``n_active_params_estimate`` and ``reduced()``). The benchmark shapes come
-with the slice that needs them. The registry holds the cards whose layers
-the port has (the dense GQA cards, Mixtral's MoE, DeepSeek-V2's MLA,
-Jamba's Mamba and RWKV-6): :func:`get_config` of any other name (the
-enc-dec and VLM cards) says that it is not yet ported.
+with the slice that needs them. The registry holds every card of the
+reference: the dense GQA cards, Mixtral's MoE, DeepSeek-V2's MLA, Jamba's
+Mamba, RWKV-6, the enc-dec SeamlessM4T-medium and the VLM stub Pixtral-12B.
 """
 
 from __future__ import annotations
@@ -126,12 +125,7 @@ class ModelConfig:
 
     @property
     def n_params_estimate(self) -> int:
-        """Analytic parameter count (used for roofline 6ND and memory checks).
-
-        The reference's formula; enc-dec waits for its slice."""
-        if self.encdec:
-            raise NotImplementedError(
-                f"{self.name}: enc-dec waits for its slice ({WAITING_SLICES['encdec']})")
+        """Analytic parameter count (used for roofline 6ND and memory checks)."""
         d = self.d_model
         total = self.vocab * d  # embed
         if not self.tie_embeddings:
@@ -170,6 +164,18 @@ class ModelConfig:
                     p += self.n_experts * 3 * d * self.d_ff_expert
                     p += self.n_shared_experts * 3 * d * self.d_ff_expert
                 total += p * repeat
+        if self.encdec:
+            # encoder layers: self-attn + dense ffn; decoder adds cross-attn
+            n_ffn_mats = 3 if self.ffn_act == "swiglu" else 2
+            enc = self.n_encoder_layers * (
+                d * self.n_heads * self.head_dim * 2
+                + 2 * d * self.n_kv_heads * self.head_dim
+                + n_ffn_mats * d * self.d_ff
+            )
+            cross = self.n_layers * (
+                d * self.n_heads * self.head_dim * 2 + 2 * d * self.n_kv_heads * self.head_dim
+            )
+            total += enc + cross
         return total
 
     @property
@@ -218,22 +224,23 @@ class ModelConfig:
         )
 
 
-#: the ROADMAP items that port what the port does not have yet: enc-dec
-#: with its cross-attention, the VLM and audio frontends
+#: the ROADMAP items that port what the port does not have yet: the LM's
+#: mesh (a sharded parameter tree, a multi-device trainer, MoE's expert
+#: parallelism, the context-parallel cache)
 WAITING_SLICES = {
-    "encdec": "ROADMAP A.6.5",
+    "mesh": "ROADMAP A.6.7",
 }
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
-# The cards whose path the port runs; each lives under _unused/ as in the
-# reference. Seamless and Pixtral wait for enc-dec and the VLM stub
-# (ROADMAP A.6.5).
+# The cards, each under _unused/ as in the reference.
 _ARCH_MODULES = [
+    "_unused.seamless_m4t_medium",
     "_unused.qwen2_5_32b",
     "_unused.minitron_8b",
     "_unused.command_r_35b",
     "_unused.starcoder2_3b",
+    "_unused.pixtral_12b",
     "_unused.mixtral_8x22b",
     "_unused.deepseek_v2_236b",
     "_unused.jamba_v0_1_52b",
@@ -256,10 +263,7 @@ def get_config(name: str) -> ModelConfig:
         _load_all()
     if name in _REGISTRY:
         return _REGISTRY[name]
-    raise KeyError(
-        f"architecture {name!r} is unknown or not yet ported (ROADMAP A.6); "
-        f"ported: {sorted(_REGISTRY)}"
-    )
+    raise KeyError(f"architecture {name!r} is unknown; known: {sorted(_REGISTRY)}")
 
 
 def list_archs() -> list[str]:

@@ -18,6 +18,9 @@ the JAX package can describe it without the port importing that package:
 
 The LM path has weights: :func:`convert_lm_params` carries the reference's
 parameter pytree, with every leaf a numpy array, into the port's modules.
+:func:`lm_named` and :func:`lm_tree` map between that pytree and the port's
+parameter names both ways (a training checkpoint is written in the
+reference's layout).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from repro_torch.core.pbvd import PBVDConfig
 from repro_torch.core.trellis import ConvCode
 from repro_torch.device import resolve_device
 
-__all__ = ["convert_config", "config_fields", "convert_lm_params"]
+__all__ = ["convert_config", "config_fields", "convert_lm_params", "lm_named", "lm_tree"]
 
 _KEYS = ("polys", "puncture", "D", "L", "q", "start_policy", "metric_mode")
 #: the reference's backend names → the port's
@@ -117,6 +120,68 @@ def _leaves(tree: dict, prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
+#: the reference's stacked subtrees (a leading scan axis over layers)
+def _stacks(tree: dict):
+    yield from ((f"groups.{gi}.", group) for gi, group in enumerate(tree["groups"]))
+    if "encoder" in tree:
+        yield "encoder.", tree["encoder"]
+
+
+def lm_named(tree: dict) -> dict[str, torch.Tensor]:
+    """The reference's LM pytree (numpy or tensor leaves) → the port's
+    parameter names: ``embed``, ``final_norm``, ``lm_head``, ``enc_norm``
+    (and any other top-level subtree) keep their paths; the leaves of ``groups[gi]`` and
+    ``encoder``, stacked on a leading layer axis, become
+    ``groups.{gi}.{r}.…`` and ``encoder.{r}.…``."""
+    state = {}
+    for key, sub in tree.items():
+        if key not in ("groups", "encoder"):
+            for name, leaf in _leaves(sub, f"{key}."):
+                state[name] = torch.as_tensor(np.array(leaf))
+    for prefix, group in _stacks(tree):
+        for name, leaf in _leaves(group):
+            leaf = torch.as_tensor(np.array(leaf))
+            for r in range(leaf.shape[0]):
+                state[f"{prefix}{r}.{name}"] = leaf[r].clone()
+    return state
+
+
+def lm_tree(named) -> dict:
+    """The inverse of :func:`lm_named`: tensors keyed by the port's
+    parameter names (``named_parameters()``, or an optimizer moment keyed
+    the same) → the reference's pytree, each group's and the encoder's
+    layers stacked on axis 0 (``torch.stack``, on the tensors' device)."""
+    tree: dict = {}
+    stacked: dict = {}
+    for name, t in dict(named).items():
+        parts = name.split(".")
+        if parts[0] == "groups":
+            gi, r, parts = int(parts[1]), int(parts[2]), parts[3:]
+            node = stacked.setdefault(("groups", gi), {})
+        elif parts[0] == "encoder":
+            r, parts = int(parts[1]), parts[2:]
+            node = stacked.setdefault(("encoder",), {})
+        else:
+            node, r = tree, None
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        if r is None:
+            node[parts[-1]] = t
+        else:
+            node.setdefault(parts[-1], {})[r] = t
+
+    def stack(node):
+        if all(isinstance(k, int) for k in node):
+            return torch.stack([node[r] for r in range(len(node))])
+        return {k: stack(v) for k, v in node.items()}
+
+    groups = sorted(k[1] for k in stacked if k[0] == "groups")
+    tree["groups"] = [stack(stacked["groups", gi]) for gi in groups]
+    if ("encoder",) in stacked:
+        tree["encoder"] = stack(stacked["encoder",])
+    return tree
+
+
 def convert_lm_params(params: dict, cfg, device=None):
     """The reference's LM parameter pytree (numpy leaves) → the port's
     :class:`~repro_torch._unused.models.lm.LM` on ``device`` (``None``:
@@ -124,27 +189,19 @@ def convert_lm_params(params: dict, cfg, device=None):
 
     ``params["groups"][gi]`` leaves carry a leading ``repeat`` axis (the
     reference scans over it); layer r of the group becomes
-    ``groups[gi][r]``. A tied model has no ``lm_head``. A MoE layer's
-    ``ffn`` leaves (``router.w``, ``wi``, ``wg``, ``wo`` and, with shared
-    experts, ``shared.{wi,wg,wo}.w``) keep their names, as do the leaves of
-    the MLA, Mamba and RWKV mixers and the RWKV channel mix that are not a
-    ``Dense``'s ``w`` (``q_norm.scale``, ``conv_w``, ``A_log``, ``mu``,
-    ``u``, ...). Every parameter of the port must be matched by one leaf,
-    and no leaf may be left over.
+    ``groups[gi][r]``, and layer r of an enc-dec ``encoder`` becomes
+    ``encoder[r]`` (its ``enc_norm`` and each decoder block's ``norm_x`` and
+    ``cross`` keep their names). A tied model has no ``lm_head``. A MoE
+    layer's ``ffn`` leaves (``router.w``, ``wi``, ``wg``, ``wo`` and, with
+    shared experts, ``shared.{wi,wg,wo}.w``) keep their names, as do the
+    leaves of the MLA, Mamba and RWKV mixers and the RWKV channel mix that
+    are not a ``Dense``'s ``w`` (``q_norm.scale``, ``conv_w``, ``A_log``,
+    ``mu``, ``u``, ...). Every parameter of the port must be matched by one
+    leaf, and no leaf may be left over.
     """
     from repro_torch._unused.models import lm
 
     dev = resolve_device(device, user="convert_lm_params")
     model = lm.init_params(cfg, device="meta")
-    state = {}
-    for key in ("embed", "final_norm", "lm_head"):
-        if key in params:
-            for name, leaf in _leaves(params[key], f"{key}."):
-                state[name] = torch.tensor(np.array(leaf))
-    for gi, group in enumerate(params["groups"]):
-        for name, leaf in _leaves(group):
-            leaf = np.array(leaf)
-            for r in range(leaf.shape[0]):
-                state[f"groups.{gi}.{r}.{name}"] = torch.tensor(leaf[r])
-    model.load_state_dict(state, strict=True, assign=True)
+    model.load_state_dict(lm_named(params), strict=True, assign=True)
     return model.to(dev)

@@ -8,7 +8,10 @@ default ``--arch`` (``rwkv6-3b``), on one card and without a mesh (ROADMAP
 A.6.7). ``--arch`` takes every card the port has
 (``configs.base.list_archs()``: ``starcoder2-3b``, ``qwen2.5-32b``,
 ``minitron-8b``, ``command-r-35b``, ``mixtral-8x22b``,
-``deepseek-v2-236b``, ``jamba-v0.1-52b`` and ``rwkv6-3b``); at ``--preset
+``deepseek-v2-236b``, ``jamba-v0.1-52b``, ``rwkv6-3b``,
+``seamless-m4t-medium`` and ``pixtral-12b``, which take the reference's
+branches: no frames and no cross cache, so Seamless's cross-attention
+attends to the token itself, and the prompt has no patches); at ``--preset
 full`` the card's float32 weights must fit the card's memory. Weights are
 random, drawn on the device from a generator seeded with 0. The prompt is
 fed token by token through the decode step, then ``--new-tokens`` steps are

@@ -198,8 +198,15 @@ toks = torch.zeros((1, 16), dtype=torch.long)
 with attention.flash_enabled("on"):
     make_prefill_step(lcfg)(params, {"tokens": toks})
 assert greedy_generate(params, lcfg, toks[:, :4], 3).shape == (1, 3)
+# and one training step
+from repro_torch._unused.train.optimizer import AdamWConfig, adamw_init
+from repro_torch._unused.train.train_step import make_train_step
+opt = adamw_init(dict(params.named_parameters()), AdamWConfig())
+make_train_step(lcfg, AdamWConfig())(params.requires_grad_(True), opt,
+                                      {"tokens": toks, "labels": toks})
 assert "repro_torch.kernels.traceback" in mods and "repro_torch.kernels.fused" in mods
 assert "repro_torch._unused.flash_attention" in mods and "repro_torch.launch.serve" in mods
+assert "repro_torch._unused.train.checkpoint" in mods and "repro_torch.launch.train" in mods
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
 print(len(mods), bad)

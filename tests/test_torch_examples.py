@@ -68,6 +68,13 @@ def test_serve_lm_on_the_cpu():
     assert out[2].startswith("mixtral-8x22b") and "MoE 4 experts top-2" in out[2]
 
 
+def test_train_tiny_lm_on_the_cpu(tmp_path):
+    out = _run("torch_train_tiny_lm.py", "--device", "cpu", "--preset", "tiny", "--steps", "20",
+               "--global-batch", "4", "--seq-len", "32", "--ckpt-dir", str(tmp_path))
+    assert out[0].startswith("training starcoder2-3b-reduced:") and "20 steps" in out[0]
+    assert out[-1].startswith("loss: ")
+
+
 @pytest.mark.parametrize("arch", list_archs())
 def test_serve_cli_takes_every_ported_card(arch, monkeypatch, capsys):
     from repro_torch.launch import serve

@@ -208,13 +208,6 @@ def test_block_matches_jax(parallel):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("desc,cross,item", [(GQA, True, "cross")])
-def test_unported_block_parts_raise(desc, cross, item):
-    _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match=rf"{item}.*ROADMAP A\.6\.5"):
-        blocks.block_init(cfg, desc, device="cpu", cross=cross)
-
-
 @pytest.mark.parametrize("parallel", [False, True])
 def test_moe_block_matches_jax(parallel):
     """The MoE FFN is ported: a ``ffn="moe"`` block builds, takes the
@@ -331,29 +324,13 @@ def test_full_size_count_from_shapes():
 
 def test_configs_match_the_reference():
     assert list_archs() == ["command-r-35b", "deepseek-v2-236b", "jamba-v0.1-52b",
-                            "minitron-8b", "mixtral-8x22b", "qwen2.5-32b", "rwkv6-3b",
-                            "starcoder2-3b"]
+                            "minitron-8b", "mixtral-8x22b", "pixtral-12b", "qwen2.5-32b",
+                            "rwkv6-3b", "seamless-m4t-medium", "starcoder2-3b"]
     for name in list_archs():
         want, got = j_get_config(name), get_config(name)
         for j, p in ((want, got), (want.reduced(), got.reduced())):
             assert dataclasses.asdict(p) == dataclasses.asdict(j)
             assert p.n_params_estimate == j.n_params_estimate
-
-
-@pytest.mark.parametrize("name", ["seamless-m4t-medium", "pixtral-12b"])
-def test_unported_card_raises(name):
-    j_get_config(name)  # the reference has it
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_config(name)
-
-
-@pytest.mark.parametrize("kw", [{"encdec": True}])
-def test_unported_param_counts_raise(kw):
-    """The count covers every decoder layer; enc-dec names its slice
-    instead of being counted as zero."""
-    cfg = dataclasses.replace(get_config("starcoder2-3b"), **kw)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6\.5"):
-        cfg.n_params_estimate
 
 
 @pytest.mark.parametrize("shared", [0, 2])

@@ -281,7 +281,26 @@ Then the enc-dec card, the VLM stub and the training path:
     profiler window over one step; then ``python -m
     repro_torch.launch.train --preset 100m --steps 20`` with a failure
     injected at step 12 and checkpoints every 10 steps: restored and
-    finished.
+    finished;
+28. the LM's mesh, in one process over device lists on the one card:
+    Jamba-v0.1 at full width, 8 layers (one pattern repeat), float32
+    weights, served over data=1, model=4 of ``[cuda:0] * 4`` under
+    ``axis_rules``: ``make_prefill_step`` on 2 x 2048 tokens (bf16; the
+    flash kernel's launches counted; MoE layers on the expert-parallel
+    path, 16 experts on 4 shards, each shard's routed tokens printed),
+    its last logits and next tokens against the same prefill over a
+    (1, 1) mesh; then ``make_decode_step`` at s_max = 32768 (context
+    parallel: the attention layer's cache as 4 sequence tiles of 8192),
+    its first 30,000 positions seeded K/V (so every tile takes part),
+    a 4-token prompt and 16 greedy steps in float32, logits allclose to
+    the (1, 1) run and equal tokens, ms per step; the serve CLI
+    (``launch/serve.py``, Mixtral's tiny preset) on the card, every MoE
+    call on the expert-parallel path; StarCoder2-3B at full
+    width, 2 layers, two float32 ``make_mesh_train_step`` steps over
+    data=2 of ``[cuda:0] * 2`` against two single-device steps (loss
+    within 1e-4, parameters within 2e-4), flash launches counted;
+    ``pipeline_apply`` (P = 4, M = 6, (2, 16) microbatches) over
+    ``[cuda:0] * 4`` against the sequential stages.
 
 Each phase prints its seconds (``[seconds]`` lines). The line before the
 last is the card's name and power limit; the last line is
@@ -352,6 +371,15 @@ ENCDEC_GREEDY = 32  # timed greedy steps against the cross cache (bf16)
 VLM_LAYERS = 2
 # phase 27: the training step on StarCoder2-3B at full width (and full depth)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
+# phase 28: the LM's mesh over device lists on the one card
+MESH_SERVE_LAYERS, MESH_PREFILL = 8, (2, 2048)  # Jamba: one pattern repeat; 2 x 2048 tokens
+MESH_S_MAX, MESH_PROMPT, MESH_NEW = 32768, 4, 16  # context-parallel decode from 32768
+MESH_CTX = 30000  # cache positions filled with seeded K/V before the prompt: all 4 tiles live
+MESH_LOGIT_ATOL = 1e-3  # float32: 4 sequence tiles' combine vs 1 tile, roundoff only
+MESH_PREFILL_ATOL = 0.25  # bf16 prefill logits, model=4 vs (1, 1) (bit-equal expected)
+MESH_TRAIN = (4, 1024, 2)  # StarCoder2-3B: batch, sequence, steps
+MESH_LOSS_ATOL, MESH_PARAM_ATOL = 1e-4, 2e-4  # the reference's tests/test_distributed.py
+PIPE_ATOL = 1e-5
 # float32 compute, flash on vs off: the flash path's backward stores the probabilities in bf16
 # (the reference's _attend_chunked default), the streaming path's in float32, so the gradients
 # differ at bf16 level: each leaf within 3e-2 of its largest entry
@@ -2513,6 +2541,255 @@ def train_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
     return {"train step": launches[-1][1]}
 
 
+def lm_mesh_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
+    """Phase 28 (lm mesh): the LM over meshes of device lists on the one
+    card (see the module docstring). Returns the flash launches of the
+    mesh prefill and of one mesh train step."""
+    import contextlib
+    import dataclasses
+    import gc
+    import io
+
+    from repro_torch.configs.base import get_config
+    from repro_torch._unused import flash_attention as fa
+    from repro_torch._unused.models import blocks, lm, moe
+    from repro_torch._unused.serve.serve_step import make_decode_step, make_prefill_step
+    from repro_torch._unused.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch._unused.train.train_step import (make_mesh_train_step, make_train_step,
+                                                      place_train_state)
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_decode_mesh, make_local_mesh
+    from repro_torch.launch.pp import bubble_fraction, pipeline_apply
+    from repro_torch.sharding.place import Placed
+    from repro_torch.sharding.rules import axis_rules
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    zero, read = counter_fns(torch, counters)
+    tag = "[28 lm mesh]"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    mesh4 = make_local_mesh(data=1, model=4, devices=[dev] * 4)
+    mesh1 = make_local_mesh(devices=[dev])
+    card = mesh1.devices.flat[0]  # the one card, by index
+
+    # ---- Jamba-v0.1 served over data=1, model=4 ------------------------------------------
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, n_layers=MESH_SERVE_LAYERS)
+    params = lm.init_params(cfg, generator=gen, device=dev)
+    kinds = [f"{d.mixer}/{d.ffn}" for pattern, repeat in cfg.layer_list for d in pattern
+             for _ in range(repeat)]
+    B, S = MESH_PREFILL
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    prefill = make_prefill_step(cfg)
+    with axis_rules(mesh4):
+        prefill(params, {"tokens": tokens[:, :256]})  # warm up
+    loads = []
+
+    def recorded(p, x, cfg_):
+        loads.append(moe.ep_load(p, x, cfg_))
+        return moe.moe_apply(p, x, cfg_)
+
+    zero()
+    fa.launches = fa.tc_launches = 0
+    blocks.moe_apply = recorded
+    try:
+        with axis_rules(mesh4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            next4 = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        blocks.moe_apply = moe.moe_apply
+    pre_launches = (fa.launches, fa.tc_launches)
+    others = read()
+    n_attn, n_moe = kinds.count("gqa/dense") + kinds.count("gqa/moe"), sum(
+        k.endswith("moe") for k in kinds)
+    if pre_launches != (n_attn, n_attn) or others or len(loads) != n_moe:
+        raise AssertionError(f"{tag} jamba mesh prefill: flash launches {pre_launches} (want "
+                             f"{n_attn} on the tensor-core body), decoder kernels {others}, "
+                             f"{len(loads)} MoE layers recorded (want {n_moe})")
+    log(f"{tag} {power}: {cfg.name} ({full.source}) at full width, {cfg.n_layers} layers "
+        f"{kinds}, {lm.count_params(params):,} float32 parameters, over data=1, model=4 of "
+        f"[{card}] * 4: make_prefill_step, {B} x {S} tokens, bf16: {pre_ms:.1f} ms, flash "
+        f"launches {pre_launches[0]} ({pre_launches[1]} on the tensor-core body); EP routing "
+        f"group {B * S} tokens, capacity C = {loads[0][0]['capacity']} per expert, routed "
+        f"entries kept per model shard (4 experts each) in each MoE layer "
+        f"{[ld[0]['kept'] for ld in loads]}, dropped {[sum(ld[0]['dropped']) for ld in loads]}"
+        f" of {B * S * cfg.top_k}")
+    with torch.no_grad():
+        with axis_rules(mesh4):
+            last4 = lm.apply_train(params, {"tokens": tokens}, cfg)[:, -1]
+        with axis_rules(mesh1):
+            next1 = prefill(params, {"tokens": tokens})
+            last1 = lm.apply_train(params, {"tokens": tokens}, cfg)[:, -1]
+    pre_err = float((last4 - last1).abs().max())
+    if not (torch.equal(next4, next1) and pre_err <= MESH_PREFILL_ATOL
+            and bool(torch.isfinite(last4).all())):
+        raise AssertionError(f"{tag} jamba prefill model=4 vs (1, 1): tokens {next4.tolist()} "
+                             f"vs {next1.tolist()}, last logits differ by {pre_err}")
+    log(f"{tag} {cfg.name} prefill over model=4 vs (1, 1): next tokens equal "
+        f"{next4.tolist()}, last-position logits max abs diff {pre_err:.3e} (atol "
+        f"{MESH_PREFILL_ATOL})")
+    del last4, last1
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    prompt = tokens[:, :MESH_PROMPT]
+    # a long context: the attention cache's first MESH_CTX positions filled with seeded K/V,
+    # the same in both runs, so that every sequence tile takes part in the combine
+    kv_shape = (B, MESH_S_MAX, cfg.n_kv_heads, cfg.head_dim)
+    ctx_kv = [torch.randn(kv_shape, generator=gen, device=dev) for _ in range(2)]
+    for t in ctx_kv:
+        t[:, MESH_CTX:] = 0
+
+    def serve_run(mesh):
+        logits, times = [], []
+        real = lm.apply_decode
+
+        def keep(*a, **k):
+            out = real(*a, **k)
+            logits.append(out[0][:, -1])
+            return out
+
+        lm.apply_decode = keep
+        try:
+            with axis_rules(mesh):
+                step = make_decode_step(cfg32, MESH_S_MAX)
+                cache = lm.init_cache(cfg32, B, MESH_S_MAX, torch.float32, device=dev,
+                                      ctx_parallel=step.ctx_parallel)
+                for g in cache["groups"]:
+                    for layer in g:
+                        for c in layer.values():
+                            if hasattr(c["mixer"], "k"):
+                                c["mixer"].k.copy_(ctx_kv[0])
+                                c["mixer"].v.copy_(ctx_kv[1])
+                for t in range(MESH_PROMPT):
+                    nxt, cache = step(params, prompt[:, t:t + 1], cache, MESH_CTX + t)
+                toks = []
+                for t in range(MESH_NEW):
+                    toks.append(nxt)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    nxt, cache = step(params, nxt[:, None], cache, MESH_CTX + MESH_PROMPT + t)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            lm.apply_decode = real
+        kv = [c["mixer"].k for g in cache["groups"] for layer in g for c in layer.values()
+              if hasattr(c["mixer"], "k")]
+        return step.ctx_parallel, torch.stack(toks, 1), torch.stack(logits, 1), times, kv
+
+    ctx4, toks4, logits4, times4, kv4 = serve_run(mesh4)
+    ctx1, toks1, logits1, times1, kv1 = serve_run(mesh1)
+    dec_err = float((logits4 - logits1).abs().max())
+    tiles = [tuple(k.tiles.shape) for k in kv4 if isinstance(k, Placed)]
+    if not (ctx4 and ctx1 and tiles == [(1, 4)] * n_attn and torch.equal(toks4, toks1)
+            and dec_err <= MESH_LOGIT_ATOL):
+        raise AssertionError(f"{tag} jamba decode: ctx_parallel {ctx4}/{ctx1}, cache tiles "
+                             f"{tiles}, tokens equal {torch.equal(toks4, toks1)}, logits "
+                             f"differ by {dec_err}")
+    log(f"{tag} {power}: {cfg.name} make_decode_step(s_max={MESH_S_MAX}) (context parallel: "
+        f"the attention cache as {tiles[0][1]} sequence tiles of "
+        f"{MESH_S_MAX // tiles[0][1]}, its first {MESH_CTX} positions seeded K/V), float32, "
+        f"batch {B}, prompt {MESH_PROMPT} then {MESH_NEW} greedy steps over model=4 vs (1, 1): "
+        f"tokens equal {toks4[0].tolist()}; "
+        f"logits max abs diff {dec_err:.3e} over {logits4.shape[1]} steps (atol "
+        f"{MESH_LOGIT_ATOL}); ms per greedy step: model=4 median "
+        f"{statistics.median(times4):.1f}, (1, 1) median {statistics.median(times1):.1f}")
+    del params, tokens, logits4, logits1, kv4, kv1, ctx_kv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the serve CLI on the card, under axis_rules(make_local_mesh()): a MoE card takes EP
+    ep_calls = []
+    real_ep = moe._moe_apply_ep
+    moe._moe_apply_ep = lambda *a: ep_calls.append(a[3]) or real_ep(*a)
+    argv = sys.argv
+    sys.argv = ["serve", "--arch", "mixtral-8x22b", "--batch", "4", "--new-tokens", "16",
+                "--device", str(dev)]
+    try:
+        cli_out = io.StringIO()
+        with contextlib.redirect_stdout(cli_out):
+            serve.main()
+    finally:
+        moe._moe_apply_ep, sys.argv = real_ep, argv
+    line = cli_out.getvalue().strip()
+    if not (ep_calls and set(ep_calls) == {"model"} and line.startswith("[serve] ")):
+        raise AssertionError(f"{tag} the serve CLI: EP calls {len(ep_calls)}, output {line!r}")
+    log(f"{tag} {power}: launch.serve.main(), --arch mixtral-8x22b --batch 4 --new-tokens 16 "
+        f"(tiny preset, 16 + 16 steps), under axis_rules(make_local_mesh()): {len(ep_calls)} MoE "
+        f"calls, every one on the expert-parallel path; {line}")
+    clock.lap("phase 28 jamba mesh serve")
+
+    # ---- StarCoder2-3B: the mesh train step over data=2 ---------------------------------------
+    tcfg = dataclasses.replace(get_config("starcoder2-3b"), n_layers=2, compute_dtype="float32")
+    Bt, St, n_steps = MESH_TRAIN
+    opt_cfg = AdamWConfig()  # lr 3e-6 at step 1 (warmup 100)
+    single = lm.init_params(tcfg, generator=gen, device=dev).requires_grad_(True)
+    mesh2 = make_local_mesh(data=2, devices=[dev] * 2)
+    placed, popt = place_train_state(single, tcfg, opt_cfg, mesh2)
+    sopt = adamw_init(dict(single.named_parameters()), opt_cfg)
+    s_step = make_train_step(tcfg, opt_cfg)
+    m_step = make_mesh_train_step(tcfg, opt_cfg, mesh2)
+    losses, m_ms, s_ms, m_launches = [], [], [], []
+    for i in range(n_steps):
+        batch = {"tokens": torch.randint(0, tcfg.vocab, (Bt, St), generator=gen, device=dev),
+                 "labels": torch.randint(0, tcfg.vocab, (Bt, St), generator=gen, device=dev)}
+        zero()
+        fa.launches = fa.tc_launches = 0
+        t0 = time.perf_counter()
+        placed, popt, mm = m_step(placed, popt, batch)
+        torch.cuda.synchronize()
+        m_ms.append((time.perf_counter() - t0) * 1e3)
+        m_launches.append(fa.launches)
+        others = read()
+        fa.launches = 0
+        t0 = time.perf_counter()
+        single, sopt, sm = s_step(single, sopt, batch)
+        torch.cuda.synchronize()
+        s_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append((float(mm["loss"]), float(sm["loss"]), fa.launches))
+        if others:
+            raise AssertionError(f"{tag} the mesh train step launched decoder kernels {others}")
+    p_err = max(float((placed[k].full().detach() - p.detach()).abs().max())
+                for k, p in single.named_parameters())
+    l_err = max(abs(a - b) for a, b, _ in losses)
+    want = 2 * 2 * tcfg.n_layers  # two data shards, forward + remat recompute per layer
+    if not (l_err <= MESH_LOSS_ATOL and p_err <= MESH_PARAM_ATOL
+            and all(n == want for n in m_launches)):
+        raise AssertionError(f"{tag} starcoder2 mesh step: losses {losses}, params differ by "
+                             f"{p_err}, flash launches per mesh step {m_launches} (want {want})")
+    log(f"{tag} {power}: {tcfg.name} at full width, {tcfg.n_layers} layers, float32, "
+        f"make_mesh_train_step over data=2 of [{card}] * 2 (FSDP tiles, each shard {Bt // 2} x "
+        f"{St} tokens) vs make_train_step on one device, {n_steps} steps: losses (mesh, single) "
+        f"{[(round(a, 6), round(b, 6)) for a, b, _ in losses]}, max diff {l_err:.3e} (atol "
+        f"{MESH_LOSS_ATOL}); parameters after {n_steps} steps max abs diff {p_err:.3e} (atol "
+        f"{MESH_PARAM_ATOL}); flash launches per step mesh {m_launches[-1]} (CUDA-core body, "
+        f"float32), single {losses[-1][2]}; step ms mesh {[round(x, 1) for x in m_ms]}, single "
+        f"{[round(x, 1) for x in s_ms]}")
+    del single, sopt, placed, popt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the pipeline over [cuda:0] * 4 -------------------------------------------------------
+    P, M, mb, d = 4, 6, 2, 16
+    mesh_p = make_decode_mesh(f"pipe={P}", devices=[dev] * P)
+    ws = torch.randn((P, d, d), generator=gen, device=dev) * 0.3
+    x = torch.randn((M, mb, d), generator=gen, device=dev)
+    out = pipeline_apply(lambda w, h: torch.tanh(h @ w), ws, x, mesh_p, axis="pipe")
+    ref = x
+    for s_ in range(P):
+        ref = torch.tanh(ref @ ws[s_])
+    pp_err = float((out - ref).abs().max())
+    if not pp_err <= PIPE_ATOL:
+        raise AssertionError(f"{tag} pipeline_apply vs sequential: {pp_err}")
+    log(f"{tag} pipeline_apply P={P} M={M} microbatches of ({mb}, {d}) over [{card}] * {P}: "
+        f"max abs diff {pp_err:.3e} from the sequential stages (atol {PIPE_ATOL}); bubble "
+        f"fraction {bubble_fraction(P, M):.4f}")
+    clock.lap("phase 28 lm mesh train and pipeline")
+    return {"mesh prefill": pre_launches[1], "mesh train step": m_launches[-1]}
+
+
 def main() -> int:
     clock = PhaseClock()
     import torch
@@ -3452,12 +3729,18 @@ def main() -> int:
     mixer_phases(torch, dev, counters, power, clock)
     encdec = encdec_phases(torch, dev, counters, power, clock)
     trained = train_phases(torch, dev, counters, power, clock)
-    # the tensor-core body's launches on every LM path: StarCoder2-3B's prefill (its main path,
-    # ``launches``), the enc-dec and VLM prefills and one training step
+    meshed = lm_mesh_phases(torch, dev, counters, power, clock)
+    # the flash launches on every LM path: StarCoder2-3B's prefill (its main path,
+    # ``launches``), the enc-dec and VLM prefills, one training step and the Jamba mesh
+    # prefill (the tensor-core body), and one float32 mesh train step (the CUDA-core body)
     flash_rows[0]["launches_by_path"] = {"starcoder2-3b prefill": flash_rows[0]["launches"],
                                          "seamless prefill": encdec["launches"]["seamless"],
                                          "pixtral prefill": encdec["launches"]["pixtral"],
-                                         "starcoder2-3b train step": trained["train step"]}
+                                         "starcoder2-3b train step": trained["train step"],
+                                         "jamba-v0.1 mesh prefill (model=4)":
+                                             meshed["mesh prefill"],
+                                         "starcoder2-3b mesh train step (data=2, float32)":
+                                             meshed["mesh train step"]}
     flash_rows[0]["seamless_shapes"] = encdec["seamless"]
 
     for mod in list(sys.modules):

@@ -6,15 +6,17 @@ forward), AdamW, async checkpoints, failure recovery.
     PYTHONPATH=src python examples/torch_train_tiny_lm.py --steps 300
     PYTHONPATH=src python examples/torch_train_tiny_lm.py --device cpu --preset tiny --steps 20
 
-The counterpart of ``examples/train_tiny_lm.py``, on one device: the card
-unless ``--device cpu`` asks for a rehearsal on the CPU. It checks that the
-loss fell.
+The counterpart of ``examples/train_tiny_lm.py``: like it, the loop trains
+over ``make_local_mesh()`` under its rules, every CUDA device torch finds
+(one card: the one-device step), or the ``--device`` given (``--device
+cpu``: a rehearsal on the CPU). It checks that the loss fell.
 """
 
 import argparse
 import tempfile
 from pathlib import Path
 
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.train import TrainLoop, preset_config
 from repro_torch._unused.models import lm
 from repro_torch._unused.train.optimizer import AdamWConfig
@@ -39,7 +41,7 @@ def main():
     loop = TrainLoop(
         cfg,
         AdamWConfig(lr=1e-3, total_steps=args.steps, warmup_steps=max(args.steps // 20, 5)),
-        args.device,
+        make_local_mesh(devices=None if args.device is None else [args.device]),
         ckpt_dir=args.ckpt_dir,
         global_batch=args.global_batch,
         seq_len=args.seq_len,

@@ -13,8 +13,17 @@ and, under a gradient, a backward that recomputes :func:`_attend_chunked`
 under autograd. Cross-attention (``gqa_apply(..., xa=...)``) takes K and V
 from the encoder's output, with no rotary positions, no causal mask and no
 window. The cache write is in place (the reference returns a new buffer);
-the returned cache holds the same tensors. There is no context-parallel
-write (ROADMAP A.6.7).
+the returned cache holds the same tensors.
+Context-parallel decode (``ctx_parallel=True``, the serve step's long
+caches): under a rule context, ``lm.init_cache`` lays a GQA or MLA cache
+whose ``seq_ctx`` axis maps to ``model`` as sequence tiles on the model
+devices (a :class:`~repro_torch.sharding.place.Placed` leaf). The write is
+the reference's masked write: each tile writes the slot only where it falls
+in its slice. :func:`_attend_decode_tiles` computes each tile's softmax
+partials ``(max, sum, acc)`` on its device and joins them with the
+flash-decode combine on the data shard's first device, the three
+reductions that GSPMD makes collectives in the reference. A plain cache
+(no rules) takes the same write in place.
 MLA caches the latent and the shared rope key and rebuilds each head's keys
 and values from the latent at every step; its prefill runs the streaming
 softmax, never the flash kernel, as in the reference (its key width
@@ -32,12 +41,14 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.place import Placed
+from repro_torch.sharding.rules import shard
 from repro_torch._unused.flash_attention import flash_attention
-from .layers import (Dense, Norm, apply_rope, cdtype, dense_apply, dense_init, norm_apply,
-                     norm_init, rope_sin_cos)
+from .layers import (Dense, Norm, apply_rope, cdtype, dense_apply, dense_axes, dense_init,
+                     norm_apply, norm_axes, norm_init, rope_sin_cos)
 
-__all__ = ["GQA", "gqa_init", "gqa_apply", "MLA", "mla_init", "mla_apply", "KVCache",
-           "flash_enabled"]
+__all__ = ["GQA", "gqa_init", "gqa_axes", "gqa_apply", "MLA", "mla_init", "mla_axes",
+           "mla_apply", "KVCache", "flash_enabled"]
 
 NEG_INF = -1e30
 
@@ -100,9 +111,22 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def _cache_write(buf: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Tensor:
-    """Write ``new`` (B, 1, ...) at position ``slot`` of ``buf``'s seq axis, in place."""
-    buf[:, slot : slot + 1] = new.to(buf.dtype)
+def _cache_write(buf, new: torch.Tensor, slot: int, ctx_parallel: bool = False):
+    """Write ``new`` (B, 1, ...) at position ``slot`` of ``buf``'s seq axis,
+    in place. With ``ctx_parallel`` the buffer may be laid as sequence
+    tiles (:class:`Placed`, made so by ``lm.init_cache`` under the rules):
+    the masked write, each tile writing only where the slot falls in its
+    slice, no tile leaving its device."""
+    if not (ctx_parallel and isinstance(buf, Placed)):
+        buf[:, slot : slot + 1] = new.to(buf.dtype)
+        return buf
+    for pos in buf.positions():
+        sl = buf.sharding.indices(buf.shape, pos)
+        seq = sl[1]
+        if seq.start <= slot < seq.stop:
+            tile = buf.tiles[pos]
+            part = new[(sl[0], slice(0, 1), *sl[2:])]
+            tile[:, slot - seq.start : slot - seq.start + 1] = part.to(tile.device, tile.dtype)
     return buf
 
 
@@ -182,6 +206,55 @@ def _attend_decode(
     return out.permute(0, 3, 1, 2, 4)  # (B,1,Hkv,G,dhv)
 
 
+def _on(p: Dense, device: torch.device) -> Dense:
+    """``p``'s weights on ``device`` (the module itself where they are)."""
+    if p.w.device == device:
+        return p
+    return Dense(p.w.to(device), None if p.b is None else p.b.to(device))
+
+
+def _attend_decode_tiles(q: torch.Tensor, k: Placed, v: Placed, *, scale: float,
+                         valid: torch.Tensor, softcap: Optional[float] = None, kv=None):
+    """:func:`_attend_decode` over a cache laid as tiles (batch over data
+    shards, sequence over model shards). Each tile's partials — the row
+    max ``m``, the sum ``l`` of ``exp(s − m)`` and ``acc`` = that times V —
+    are computed on the tile's device; the flash-decode combine
+    (``M = max m``, ``l = Σ l·e^(m−M)``, ``acc = Σ acc·e^(m−M)``, out =
+    acc / l) runs on the first tile's device of each batch slice, and the
+    batch slices are joined on q's device. ``kv(k_tile, v_tile)`` maps the
+    cached tiles to the keys and values (MLA rebuilds them from its latent
+    cache); ``None`` takes them as they are."""
+    q32 = q.float() * scale
+    v_blocks = v.blocks()
+    parts: dict[tuple[int, int], list] = {}
+    for coords, k_t in k.blocks().items():
+        sl = k.block_slices(coords)
+        dev = k_t.device
+        k_f, v_f = (k_t, v_blocks[coords]) if kv is None else kv(k_t, v_blocks[coords])
+        s = torch.einsum("bxhgd,bthd->bhgxt", q32[sl[0]].to(dev), k_f.float())
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        s = s.masked_fill(~valid[sl[0], sl[1]].to(dev)[:, None, None, None, :], NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        acc = torch.einsum("bhgxt,bthd->bhgxd", p, v_f.float())
+        parts.setdefault((sl[0].start, sl[0].stop), []).append((m, p.sum(-1, keepdim=True), acc))
+    outs = []
+    for _, group in sorted(parts.items()):
+        dev = group[0][0].device
+        ms = [m.to(dev) for m, _, _ in group]
+        M = ms[0]
+        for m in ms[1:]:
+            M = torch.maximum(M, m)
+        l = acc = 0.0
+        for m, (_, l_t, acc_t) in zip(ms, group):
+            w = torch.exp(m - M)
+            l = l + l_t.to(dev) * w
+            acc = acc + acc_t.to(dev) * w
+        outs.append((acc / torch.clamp_min(l, 1e-30)).permute(0, 3, 1, 2, 4).to(q.device))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)  # (B,1,Hkv,G,dhv)
+
+
 # =====================================================================================
 # GQA
 # =====================================================================================
@@ -205,6 +278,16 @@ def gqa_init(cfg: ModelConfig, *, gen=None, device=None) -> GQA:
     )
 
 
+def gqa_axes(cfg: ModelConfig) -> dict:
+    b = cfg.qkv_bias
+    return {
+        "wq": dense_axes("fsdp", ("heads", "head_dim"), bias=b),
+        "wk": dense_axes("fsdp", ("kv_heads", "head_dim"), bias=b),
+        "wv": dense_axes("fsdp", ("kv_heads", "head_dim"), bias=b),
+        "wo": dense_axes("mlp", ("fsdp",)),
+    }
+
+
 def gqa_apply(
     p: GQA,
     x: torch.Tensor,  # (B, S, d)
@@ -215,6 +298,7 @@ def gqa_apply(
     cache: Optional[KVCache] = None,
     cache_len: Optional[int] = None,  # tokens already in cache
     xa: Optional[torch.Tensor] = None,  # cross-attention context (B, Sx, d)
+    ctx_parallel: bool = False,
 ):
     """Returns (out (B,S,d), new_cache)."""
     B, S, d = x.shape
@@ -226,6 +310,9 @@ def gqa_apply(
     kv_src = x if xa is None else xa
     k = dense_apply(p.wk, kv_src, cfg)
     v = dense_apply(p.wv, kv_src, cfg)
+    q = shard(q, ("batch", "seq", "heads", "head_dim"))
+    k = shard(k, ("batch", "seq", "kv_heads", "head_dim"))
+    v = shard(v, ("batch", "seq", "kv_heads", "head_dim"))
     if xa is None:  # self-attention: rotary positions, the same for q and k
         sin, cos = rope_sin_cos(positions, dh, cfg.rope_theta)
         q = apply_rope(q, sin[None], cos[None])
@@ -239,8 +326,8 @@ def gqa_apply(
         S_max = cache.k.shape[1]
         ring = bool(cfg.sliding_window) and S_max == cfg.sliding_window
         slot = cache_len % cfg.sliding_window if ring else cache_len
-        ck = _cache_write(cache.k, k, slot)
-        cv = _cache_write(cache.v, v, slot)
+        ck = _cache_write(cache.k, k, slot, ctx_parallel)
+        cv = _cache_write(cache.v, v, slot, ctx_parallel)
         new_cache = KVCache(ck, cv)
         t_idx = torch.arange(S_max, device=x.device)
         if ring:
@@ -249,8 +336,11 @@ def gqa_apply(
             valid = t_idx <= cache_len
             if cfg.sliding_window:
                 valid &= t_idx > cache_len - cfg.sliding_window
-        out = _attend_decode(qg, ck, cv, scale=scale, valid=valid.expand(B, S_max),
-                             softcap=cfg.attn_logit_softcap)
+        axes = ("batch", "seq_ctx" if ctx_parallel else None, "kv_heads", "head_dim")
+        ck, cv = shard(ck, axes), shard(cv, axes)
+        attend = _attend_decode_tiles if isinstance(ck, Placed) else _attend_decode
+        out = attend(qg, ck, cv, scale=scale, valid=valid.expand(B, S_max),
+                     softcap=cfg.attn_logit_softcap)
     else:
         is_causal = causal and xa is None
         win = cfg.sliding_window if xa is None else None
@@ -262,7 +352,7 @@ def gqa_apply(
                 softcap=cfg.attn_logit_softcap, p_dtype=cdtype(cfg),
             )
 
-    out = out.reshape(B, S, H * dh).to(cdtype(cfg))
+    out = shard(out.reshape(B, S, H * dh).to(cdtype(cfg)), ("batch", "seq", "mlp"))
     return dense_apply(p.wo, out, cfg), new_cache
 
 
@@ -300,6 +390,20 @@ def mla_init(cfg: ModelConfig, *, gen=None, device=None) -> MLA:
     )
 
 
+def mla_axes(cfg: ModelConfig) -> dict:
+    return {
+        "wdq": dense_axes("fsdp", (None,)),
+        "q_norm": norm_axes(cfg),
+        "wuq": dense_axes("fsdp", ("heads", "head_dim")),
+        "wdkv": dense_axes("fsdp", (None,)),
+        "kv_norm": norm_axes(cfg),
+        "wkr": dense_axes("fsdp", (None,)),
+        "wuk": dense_axes("fsdp", ("heads", "head_dim")),
+        "wuv": dense_axes("fsdp", ("heads", "head_dim")),
+        "wo": dense_axes("mlp", ("fsdp",)),
+    }
+
+
 def mla_apply(
     p: MLA,
     x: torch.Tensor,  # (B, S, d)
@@ -309,6 +413,7 @@ def mla_apply(
     causal: bool = True,
     cache: Optional[KVCache] = None,
     cache_len: Optional[int] = None,
+    ctx_parallel: bool = False,
 ):
     """Returns (out (B,S,d), new_cache)."""
     B, S, d = x.shape
@@ -326,31 +431,30 @@ def mla_apply(
     k_rope = dense_apply(p.wkr, x, cfg)[:, :, None, :]  # (B,S,1,dr)
     k_rope = apply_rope(k_rope, sin[None], cos[None])[:, :, 0]  # (B,S,dr)
 
+    def rebuild(c, r):
+        """Each head's keys and values from the latent ``c`` and rope key
+        ``r`` (B, T, ·), on their device."""
+        k_nope = dense_apply(_on(p.wuk, c.device), c, cfg)  # (B,T,H,dn)
+        vv = dense_apply(_on(p.wuv, c.device), c, cfg)  # (B,T,H,dv)
+        rope = r[:, :, None, :].to(k_nope.dtype).expand(*c.shape[:2], H, dr)
+        return torch.cat([k_nope, rope], dim=-1), vv
+
+    q_full = torch.cat([q_nope, q_rope], dim=-1).reshape(B, S, H, 1, dn + dr)
     new_cache = None
     if cache is not None:
         cache_len = int(cache_len)
-        ck = _cache_write(cache.k, ckv, cache_len)
-        cr = _cache_write(cache.v, k_rope, cache_len)
+        ck = _cache_write(cache.k, ckv, cache_len, ctx_parallel)
+        cr = _cache_write(cache.v, k_rope, cache_len, ctx_parallel)
         new_cache = KVCache(ck, cr)
-        ckv_all, k_rope_all = ck, cr
         T = ck.shape[1]
         valid = (torch.arange(T, device=x.device) <= cache_len).expand(B, T)
+        if isinstance(ck, Placed):  # sequence tiles: rebuild K/V and attend tile by tile
+            out = _attend_decode_tiles(q_full, ck, cr, scale=scale, valid=valid, kv=rebuild)
+        else:
+            out = _attend_decode(q_full, *rebuild(ck, cr), scale=scale, valid=valid)
     else:
-        ckv_all, k_rope_all = ckv, k_rope
-        T = S
+        out = _attend_chunked(q_full, *rebuild(ckv, k_rope), causal=causal, window=None,
+                              scale=scale, p_dtype=cdtype(cfg))
 
-    # rebuild each head's keys and values from the latent
-    k_nope = dense_apply(p.wuk, ckv_all, cfg)  # (B,T,H,dn)
-    vv = dense_apply(p.wuv, ckv_all, cfg)  # (B,T,H,dv)
-    k_full = torch.cat([k_nope, k_rope_all[:, :, None, :].to(k_nope.dtype).expand(B, T, H, dr)],
-                       dim=-1)
-    q_full = torch.cat([q_nope, q_rope], dim=-1).reshape(B, S, H, 1, dn + dr)
-
-    if cache is not None:
-        out = _attend_decode(q_full, k_full, vv, scale=scale, valid=valid)
-    else:
-        out = _attend_chunked(q_full, k_full, vv, causal=causal, window=None, scale=scale,
-                              p_dtype=cdtype(cfg))
-
-    out = out.reshape(B, S, H * dv).to(cdtype(cfg))
+    out = shard(out.reshape(B, S, H * dv).to(cdtype(cfg)), ("batch", "seq", "mlp"))
     return dense_apply(p.wo, out, cfg), new_cache

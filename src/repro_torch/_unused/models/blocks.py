@@ -25,17 +25,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import LayerDesc, ModelConfig
-from .attention import (GQA, MLA, KVCache, _attend_decode, gqa_apply, gqa_init, mla_apply,
-                        mla_init)
-from .layers import (FFN, ChannelMix, Norm, dense_apply, ffn_apply, ffn_init, norm_apply,
-                     norm_init)
-from .moe import MoE, moe_apply, moe_init
-from .ssm import (RWKV, Mamba, MambaCache, RwkvCache, mamba_apply, mamba_init, rwkv_apply,
-                  rwkv_init)
+from .attention import (GQA, MLA, KVCache, _attend_decode, gqa_apply, gqa_axes, gqa_init,
+                        mla_apply, mla_axes, mla_init)
+from .layers import (FFN, ChannelMix, Norm, dense_apply, ffn_apply, ffn_axes, ffn_init,
+                     norm_apply, norm_axes, norm_init)
+from .moe import MoE, moe_apply, moe_axes, moe_init
+from .ssm import (RWKV, Mamba, MambaCache, RwkvCache, mamba_apply, mamba_axes, mamba_init,
+                  rwkv_apply, rwkv_axes, rwkv_init)
 
-__all__ = ["Block", "block_init", "block_apply", "block_cache_init"]
+__all__ = ["Block", "block_init", "block_axes", "block_apply", "block_cache_init",
+           "block_cache_axes"]
 
 _MIXER_INIT = {"gqa": gqa_init, "mla": mla_init, "mamba": mamba_init, "rwkv6": rwkv_init}
+_MIXER_AXES = {"gqa": gqa_axes, "mla": mla_axes, "mamba": mamba_axes, "rwkv6": rwkv_axes}
 
 
 class Block(nn.Module):
@@ -67,6 +69,18 @@ def block_init(cfg: ModelConfig, desc: LayerDesc, *, gen=None, device=None,
         norm_init(d, cfg, device=device) if cross else None,
         gqa_init(cfg, gen=gen, device=device) if cross else None,
     )
+
+
+def block_axes(cfg: ModelConfig, desc: LayerDesc, *, cross: bool = False) -> dict:
+    """The logical axes of a :class:`Block`'s leaves, keyed as its parameters."""
+    a: dict = {"norm1": norm_axes(cfg), "mixer": _MIXER_AXES[desc.mixer](cfg)}
+    if cross:
+        a["norm_x"] = norm_axes(cfg)
+        a["cross"] = gqa_axes(cfg)
+    if not cfg.parallel_block:
+        a["norm2"] = norm_axes(cfg)
+    a["ffn"] = moe_axes(cfg) if desc.ffn == "moe" else ffn_axes(cfg)
+    return a
 
 
 def block_cache_init(cfg: ModelConfig, desc: LayerDesc, batch: int, s_max: int, dtype,
@@ -103,13 +117,34 @@ def block_cache_init(cfg: ModelConfig, desc: LayerDesc, batch: int, s_max: int, 
     return caches
 
 
-def _apply_mixer(p, x, cfg, desc, *, positions, cache, cache_len, causal):
+def block_cache_axes(cfg: ModelConfig, desc: LayerDesc, *, ctx_parallel: bool = False,
+                     cross: bool = False) -> dict:
+    """The logical axes of :func:`block_cache_init`'s leaves; with
+    ``ctx_parallel`` the GQA and MLA caches' sequence axis is ``seq_ctx``."""
+    seq_ax = "seq_ctx" if ctx_parallel else None
+    if desc.mixer == "gqa":
+        kv = ("batch", seq_ax, "kv_heads", None)
+        axes = {"mixer": KVCache(kv, kv)}
+    elif desc.mixer == "mla":
+        axes = {"mixer": KVCache(("batch", seq_ax, None), ("batch", seq_ax, None))}
+    elif desc.mixer == "mamba":
+        axes = {"mixer": MambaCache(("batch", None, "mlp"), ("batch", "mlp", None))}
+    else:
+        axes = {"mixer": RwkvCache(("batch", None, None), ("batch", None, None),
+                                   ("batch", "heads", None, None))}
+    if cross:
+        kv = ("batch", None, "kv_heads", None)
+        axes["cross"] = KVCache(kv, kv)
+    return axes
+
+
+def _apply_mixer(p, x, cfg, desc, *, positions, cache, cache_len, causal, ctx_parallel):
     if desc.mixer == "gqa":
         return gqa_apply(p, x, cfg, positions=positions, causal=causal, cache=cache,
-                         cache_len=cache_len)
+                         cache_len=cache_len, ctx_parallel=ctx_parallel)
     if desc.mixer == "mla":
         return mla_apply(p, x, cfg, positions=positions, causal=causal, cache=cache,
-                         cache_len=cache_len)
+                         cache_len=cache_len, ctx_parallel=ctx_parallel)
     if desc.mixer == "mamba":
         return mamba_apply(p, x, cfg, cache=cache)
     return rwkv_apply(p, x, cfg, cache=cache)
@@ -126,12 +161,13 @@ def block_apply(
     cache_len=None,
     xa: Optional[torch.Tensor] = None,  # encoder context (cross-attention blocks)
     causal: bool = True,
+    ctx_parallel: bool = False,
 ):
     """Returns (x', new_cache)."""
     mixer_cache = (cache or {}).get("mixer")
     xn = norm_apply(p.norm1, x, cfg)
     out, mc = _apply_mixer(p.mixer, xn, cfg, desc, positions=positions, cache=mixer_cache,
-                           cache_len=cache_len, causal=causal)
+                           cache_len=cache_len, causal=causal, ctx_parallel=ctx_parallel)
     if cfg.parallel_block:
         ffn = moe_apply if desc.ffn == "moe" else ffn_apply
         return x + out + ffn(p.ffn, xn, cfg), (None if mc is None else {"mixer": mc})

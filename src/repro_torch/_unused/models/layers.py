@@ -13,7 +13,8 @@ explicit ``torch.Generator`` on the parameters' device, so their numbers
 differ from ``jax.random``'s: the tests carry the reference's weights across
 with :func:`repro_torch.interop.convert_lm_params`. The RWKV channel mix
 (``ffn_act="rwkv_cm"``) is a :class:`ChannelMix` with ``mu``, ``wk``, ``wv``
-and ``wr``.
+and ``wr``. The ``*_axes`` functions give each module's leaves their
+logical axes, keyed as its parameters are (``sharding.rules``).
 """
 
 from __future__ import annotations
@@ -29,11 +30,11 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 
 __all__ = [
-    "Dense", "dense_init", "dense_apply",
-    "Norm", "norm_init", "norm_apply",
-    "Embed", "round_vocab", "embed_init",
+    "Dense", "dense_init", "dense_axes", "dense_apply",
+    "Norm", "norm_init", "norm_axes", "norm_apply",
+    "Embed", "round_vocab", "embed_init", "embed_axes",
     "rope_sin_cos", "apply_rope",
-    "FFN", "ChannelMix", "ffn_init", "ffn_apply",
+    "FFN", "ChannelMix", "ffn_init", "ffn_axes", "ffn_apply",
     "cdtype", "pdtype",
 ]
 
@@ -76,6 +77,14 @@ def dense_init(in_dim: int, out_dims: Sequence[int], cfg, *, gen=None, device=No
     return Dense(w, _const(tuple(out_dims), cfg, device, 0.0) if bias else None)
 
 
+def dense_axes(in_axis, out_axes, *, bias=False) -> dict:
+    """The logical axes of a :class:`Dense`'s leaves (``sharding.rules``)."""
+    a = {"w": (in_axis, *out_axes)}
+    if bias:
+        a["b"] = tuple(out_axes)
+    return a
+
+
 def dense_apply(p: Dense, x: torch.Tensor, cfg) -> torch.Tensor:
     """x (..., in_dim) → (..., *out_dims) in the compute dtype: the
     reference's ``"...d,dh->...h"`` and ``"bsd,dhe->bshe"`` contractions.
@@ -107,6 +116,13 @@ def norm_init(dim: int, cfg, *, device=None) -> Norm:
     return Norm(_const((dim,), cfg, device, 1.0), bias)
 
 
+def norm_axes(cfg) -> dict:
+    a = {"scale": ("embed",)}
+    if cfg.norm_type == "layernorm":
+        a["bias"] = ("embed",)
+    return a
+
+
 def norm_apply(p: Norm, x: torch.Tensor, cfg) -> torch.Tensor:
     xf = x.float()
     if cfg.norm_type == "layernorm":
@@ -135,6 +151,10 @@ class Embed(nn.Module):
 
 def embed_init(cfg, *, gen=None, device=None) -> Embed:
     return Embed(_normal((round_vocab(cfg.vocab), cfg.d_model), cfg, gen, device, 0.02))
+
+
+def embed_axes() -> dict:
+    return {"table": ("vocab", "fsdp")}
 
 
 # ---- rotary position embeddings ---------------------------------------------------
@@ -191,6 +211,23 @@ def ffn_init(cfg: ModelConfig, d_ff: int, *, gen=None, device=None) -> FFN | Cha
     wi = dense_init(d, (d_ff,), cfg, **kw)
     wg = dense_init(d, (d_ff,), cfg, **kw) if cfg.ffn_act == "swiglu" else None
     return FFN(wi, dense_init(d_ff, (d,), cfg, **kw), wg)
+
+
+def ffn_axes(cfg: ModelConfig) -> dict:
+    if cfg.ffn_act == "swiglu":
+        return {
+            "wi": dense_axes("fsdp", ("mlp",)),
+            "wg": dense_axes("fsdp", ("mlp",)),
+            "wo": dense_axes("mlp", ("fsdp",)),
+        }
+    if cfg.ffn_act == "rwkv_cm":
+        return {
+            "mu": (None, "embed"),
+            "wk": dense_axes("fsdp", ("mlp",)),
+            "wv": dense_axes("mlp", ("fsdp",)),
+            "wr": dense_axes("fsdp", ("embed",)),
+        }
+    return {"wi": dense_axes("fsdp", ("mlp",)), "wo": dense_axes("mlp", ("fsdp",))}
 
 
 def ffn_apply(p: FFN | ChannelMix, x: torch.Tensor, cfg: ModelConfig, *,

@@ -24,9 +24,20 @@ requires one, each layer runs under ``torch.utils.checkpoint``
 reference's default full remat (``REPRO_REMAT=dots`` is not ported).
 :func:`apply_decode` and :func:`prefill_cross` serve, under
 ``torch.no_grad``.
+
+:func:`param_axes` and :func:`cache_axes` give every parameter and cache
+leaf its logical axes (``sharding.rules``), keyed by the port's names; a
+stacked layer of the reference (``(None, *axes)``) is one entry per layer
+here. Under a rule context with ``ctx_parallel``, :func:`init_cache` lays
+the GQA and MLA caches as sequence tiles on the ``model`` devices, and
+:func:`apply_decode` attends over them tile by tile. A layer may also be an
+object with ``gather()`` (the mesh train step's tiles): it is gathered into
+a module inside the layer's remat, so that the backward gathers it again.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -34,14 +45,19 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerDesc, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.sharding.place import place_zeros, zip_tree
+from repro_torch.sharding.rules import (NamedSharding, context_state, current_rules,
+                                        restored_context, shard)
 from .attention import KVCache
-from .blocks import block_apply, block_cache_init, block_init
-from .layers import (Dense, Embed, Norm, cdtype, dense_apply, embed_init, norm_apply, norm_init,
-                     pdtype, round_vocab)
+from .blocks import block_apply, block_axes, block_cache_axes, block_cache_init, block_init
+from .layers import (Dense, Embed, Norm, cdtype, dense_apply, embed_axes, embed_init,
+                     norm_apply, norm_axes, norm_init, pdtype, round_vocab)
 
 __all__ = [
     "LM",
     "init_params",
+    "param_axes",
+    "cache_axes",
     "apply_train",
     "encode",
     "init_cache",
@@ -103,6 +119,33 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
     return LM(embed, norm_init(cfg.d_model, cfg, device=dev), groups, lm_head, encoder, enc_norm)
 
 
+def _flat(tree: dict, prefix: str = ""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flat(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """The logical axes of every parameter of :func:`init_params`, keyed as
+    ``named_parameters()``: the reference's ``param_axes`` with each
+    stacked group (``(None, *axes)``) spelled out per layer."""
+    top: dict = {"embed": embed_axes(), "final_norm": norm_axes(cfg)}
+    if not cfg.tie_embeddings:
+        top["lm_head"] = {"w": ("fsdp", "vocab")}
+    if cfg.encdec:
+        top["enc_norm"] = norm_axes(cfg)
+    axes = dict(_flat(top))
+    for gi, (pattern, repeat) in enumerate(cfg.layer_list):
+        one = {f"l{i}": block_axes(cfg, d, cross=cfg.encdec) for i, d in enumerate(pattern)}
+        for r in range(repeat):
+            axes.update(_flat(one, f"groups.{gi}.{r}."))
+    for r in range(cfg.n_encoder_layers if cfg.encdec else 0):
+        axes.update(_flat({"l0": block_axes(cfg, ENC_PATTERN[0])}, f"encoder.{r}."))
+    return axes
+
+
 def count_params(params: LM) -> int:
     return sum(p.numel() for p in params.parameters())
 
@@ -151,10 +194,12 @@ def _embed_input(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     if cfg.frontend == "vision_patches":
         P = cfg.n_patches
         emb = torch.cat([batch["patch_embeds"].to(emb.dtype), emb[:, P:]], dim=1)
-    return emb
+    return shard(emb, ("batch", "seq", "embed"))
 
 
 def _layers(layer: nn.ModuleDict, pattern, x, cfg, positions, causal, xa):
+    if hasattr(layer, "gather"):  # tiles on a mesh: the whole layer, on x's device
+        layer = layer.gather()
     for i, desc in enumerate(pattern):
         x, _ = block_apply(layer[f"l{i}"], x, cfg, desc, positions=positions, causal=causal,
                            xa=xa)
@@ -166,12 +211,17 @@ def _remat(layer: nn.ModuleDict, pattern, x, cfg, positions, causal=True, xa=Non
     pattern), recomputed in the backward when a gradient is being taken:
     grad mode is on and the input, the context or a parameter of the layer
     requires one (serving, whose parameters do not, never checkpoints).
-    The forward draws no random numbers, so no RNG state is kept."""
+    The forward draws no random numbers, so no RNG state is kept; a rule
+    context or shard position of the forward is entered again for the
+    recompute, which may run in the autograd engine's thread."""
     args = (layer, pattern, x, cfg, positions, causal, xa)
     if torch.is_grad_enabled() and (
             x.requires_grad or (xa is not None and xa.requires_grad)
             or any(p.requires_grad for p in layer.parameters())):
-        return checkpoint(_layers, *args, use_reentrant=False, preserve_rng_state=False)
+        state = context_state()
+        kw = {} if state == (None, None) else {
+            "context_fn": lambda: (contextlib.nullcontext(), restored_context(state))}
+        return checkpoint(_layers, *args, use_reentrant=False, preserve_rng_state=False, **kw)
     return _layers(*args)
 
 
@@ -188,7 +238,7 @@ def _logits(params: LM, x, cfg: ModelConfig) -> torch.Tensor:
         w = params.embed.table.to(cdtype(cfg)).T
     else:
         w = params.lm_head.w.to(cdtype(cfg))
-    return (x @ w).float()
+    return shard((x @ w).float(), ("batch", "seq", "vocab"))
 
 
 def encode(params: LM, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -212,16 +262,44 @@ def apply_train(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16, *,
-               cross_len: int = 0, device=None) -> dict:
+               cross_len: int = 0, device=None, ctx_parallel: bool = False) -> dict:
     """``{"groups": [[{"l{i}": block cache} per layer] per group]}``; an
     enc-dec card with ``cross_len`` also gets each decoder block's
-    ``"cross"`` K/V, which :func:`prefill_cross` fills."""
+    ``"cross"`` K/V, which :func:`prefill_cross` fills. Under a rule context
+    with ``ctx_parallel``, every leaf whose :func:`cache_axes` sequence axis
+    the rules map to a mesh axis (``seq_ctx`` → ``model``, where it divides
+    the length) is laid as zero tiles on the mesh's devices; the rest stay
+    on ``device``."""
     dev = resolve_device(device, user="the LM")
     cross_len = cross_len if cfg.encdec else 0
+    rules = current_rules() if ctx_parallel else None
+
+    def build(device_):
+        return {"groups": [
+            [{f"l{i}": block_cache_init(cfg, desc, batch, s_max, dtype, cross_len=cross_len,
+                                        device=device_)
+              for i, desc in enumerate(pattern)} for _ in range(repeat)]
+            for pattern, repeat in cfg.layer_list
+        ]}
+
+    if rules is None:
+        return build(dev)
+
+    def leaf(t, axes):
+        spec = rules.spec(axes, shape=tuple(t.shape))
+        if "seq_ctx" in axes and spec[axes.index("seq_ctx")] is not None:
+            return place_zeros(t.shape, t.dtype, NamedSharding(rules.mesh, spec))
+        return torch.zeros(t.shape, dtype=t.dtype, device=dev)
+
+    axes = cache_axes(cfg, ctx_parallel=True, cross=bool(cross_len))
+    return zip_tree(leaf, build("meta"), axes)
+
+
+def cache_axes(cfg: ModelConfig, *, ctx_parallel: bool = False, cross: bool = False) -> dict:
+    """The logical axes of :func:`init_cache`'s leaves, in its structure."""
     return {"groups": [
-        [{f"l{i}": block_cache_init(cfg, desc, batch, s_max, dtype, cross_len=cross_len,
-                                    device=dev)
-          for i, desc in enumerate(pattern)} for _ in range(repeat)]
+        [{f"l{i}": block_cache_axes(cfg, d, ctx_parallel=ctx_parallel, cross=cross and cfg.encdec)
+          for i, d in enumerate(pattern)} for _ in range(repeat)]
         for pattern, repeat in cfg.layer_list
     ]}
 
@@ -246,13 +324,14 @@ def prefill_cross(params: LM, enc_out: torch.Tensor, cfg: ModelConfig, cache: di
 
 
 @torch.no_grad()
-def apply_decode(params: LM, tokens: torch.Tensor, cache: dict, cache_len, cfg: ModelConfig):
+def apply_decode(params: LM, tokens: torch.Tensor, cache: dict, cache_len, cfg: ModelConfig, *,
+                 ctx_parallel: bool = False):
     """One decode step. tokens (B, 1) → (logits (B, 1, V), cache). The KV
-    and MLA caches are written in place; the Mamba and RWKV states are
-    replaced in the returned cache; the cross K/V entries are kept as they
-    are."""
+    and MLA caches are written in place (with ``ctx_parallel``, the masked
+    write into sequence tiles); the Mamba and RWKV states are replaced in
+    the returned cache; the cross K/V entries are kept as they are."""
     cache_len = int(cache_len)
-    x = params.embed.table[tokens].to(cdtype(cfg))
+    x = shard(params.embed.table[tokens].to(cdtype(cfg)), ("batch", None, "embed"))
     positions = torch.full((1,), cache_len, device=x.device)
     new_groups = []
     for (pattern, _repeat), layers, c_g in zip(cfg.layer_list, params.groups, cache["groups"]):
@@ -261,7 +340,8 @@ def apply_decode(params: LM, tokens: torch.Tensor, cache: dict, cache_len, cfg: 
             new_c = {}
             for i, desc in enumerate(pattern):
                 x, nc = block_apply(layer[f"l{i}"], x, cfg, desc, positions=positions,
-                                    cache=c_layer[f"l{i}"], cache_len=cache_len)
+                                    cache=c_layer[f"l{i}"], cache_len=cache_len,
+                                    ctx_parallel=ctx_parallel)
                 new_c[f"l{i}"] = {**c_layer[f"l{i}"], **(nc or {})}
             new_g.append(new_c)
         new_groups.append(new_g)

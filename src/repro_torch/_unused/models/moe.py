@@ -15,10 +15,19 @@ The counterpart of ``repro._unused.models.moe`` (``moe_capacity``,
      token's row.
 
 The expert products are ``torch.einsum`` over the expert axis (batched
-GEMMs); the reference computes them outside any Pallas kernel too. The
-expert-parallel path (``_moe_apply_ep``) needs the LM's mesh and waits for
-it (ROADMAP A.6.7): ``moe_apply`` needs no mesh. ``dropped`` counts the
-entries that ``moe_apply`` drops by capacity on the same input.
+GEMMs); the reference computes them outside any Pallas kernel too.
+
+Under a rule context (``sharding.rules.axis_rules``) whose ``experts``
+axis divides ``n_experts``, ``moe_apply`` takes the expert-parallel path
+``_moe_apply_ep``, as the reference does, a one-device ``(1, 1)`` mesh
+included. Its routing group is a data shard's local tokens, all rows
+together, with capacity ``C = clip(ceil(cf·T·k/E), 1, T)``, so it drops
+other entries than the dense path, whose groups are the rows. Each model
+shard computes its ``E/ep`` experts on its own device of the mesh; their
+sum (the reference's ``psum``) lands on the data shard's first device, and
+the shared experts are added after it. ``dropped`` counts the entries that
+the dense path drops by capacity on an input; ``ep_load`` gives each
+shard's kept and dropped entries on the expert-parallel path.
 """
 
 from __future__ import annotations
@@ -30,9 +39,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from .layers import FFN, Dense, cdtype, dense_init, pdtype
+from repro_torch.sharding.rules import batch_shards, current_rules, mesh_position, shard
+from .layers import FFN, Dense, cdtype, dense_axes, dense_init, pdtype
 
-__all__ = ["MoE", "moe_init", "moe_apply", "moe_capacity", "dropped"]
+__all__ = ["MoE", "moe_init", "moe_axes", "moe_apply", "moe_capacity", "dropped", "ep_load"]
 
 
 def moe_capacity(cfg: ModelConfig, seq_len: int) -> int:
@@ -79,10 +89,26 @@ def moe_init(cfg: ModelConfig, *, gen=None, device=None) -> MoE:
     return MoE(router, wi, wg, wo, shared)
 
 
+def moe_axes(cfg: ModelConfig) -> dict:
+    a = {
+        "router": {"w": ("fsdp", None)},
+        "wi": ("experts", "fsdp", "expert_mlp"),
+        "wg": ("experts", "fsdp", "expert_mlp"),
+        "wo": ("experts", "expert_mlp", "fsdp"),
+    }
+    if cfg.n_shared_experts:
+        a["shared"] = {
+            "wi": dense_axes("fsdp", ("mlp",)),
+            "wg": dense_axes("fsdp", ("mlp",)),
+            "wo": dense_axes("mlp", ("fsdp",)),
+        }
+    return a
+
+
 def _route(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     """(gate (B,S,k) f32, ids (B,S,k) int64): softmax in float32, then the k
     largest with the lower expert id first on ties, renormalized."""
-    logits = x.float() @ p.router.w.float()
+    logits = x.float() @ p.router.w.to(x.device).float()
     probs = torch.softmax(logits, dim=-1)
     # a stable descending sort keeps equal probabilities in expert order
     gate, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -117,7 +143,16 @@ def dropped(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x (B, S, d) → (B, S, d) in x's dtype."""
+    """x (B, S, d) → (B, S, d) in x's dtype: the expert-parallel path when
+    the rules allow it (:func:`_ep_enabled`), else the dense path."""
+    ep_axis = _ep_enabled(cfg)
+    if ep_axis is not None:
+        return _moe_apply_ep(p, x, cfg, ep_axis)
+    return _moe_apply_dense(p, x, cfg)
+
+
+def _moe_apply_dense(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, d) → (B, S, d). Routing groups = batch rows."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = moe_capacity(cfg, S)
@@ -135,12 +170,13 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     xt = x[rows, tok_s]  # (B, S·k, d)
     buf = torch.zeros((B, E * C + 1, d), dtype=dtype, device=dev)
     buf[rows, dest] = xt.to(dtype)
-    buf = buf[:, : E * C].reshape(B, E, C, d)
+    buf = shard(buf[:, : E * C].reshape(B, E, C, d), ("batch", "experts", None, None))
 
     # ---- the experts (SwiGLU), batched over the expert axis -------------------------
     wi, wg, wo = (w.to(dtype) for w in (p.wi, p.wg, p.wo))
     h = F.silu(torch.einsum("becd,edf->becf", buf, wg)) * torch.einsum("becd,edf->becf", buf, wi)
-    y = torch.einsum("becf,efd->becd", h, wo)
+    h = shard(h, ("batch", "experts", None, "expert_mlp"))
+    y = shard(torch.einsum("becf,efd->becd", h, wo), ("batch", "experts", None, None))
 
     # ---- combine: gather back, weight by gate, add to the token rows ---------------
     y_flat = torch.cat([y.reshape(B, E * C, d), y.new_zeros((B, 1, d))], dim=1)
@@ -160,3 +196,108 @@ def _add_shared(p: MoE, x: torch.Tensor, out: torch.Tensor, cfg: ModelConfig) ->
     xs = x.to(dtype)
     h = F.silu(xs @ sh.wg.w.to(dtype)) * (xs @ sh.wi.w.to(dtype))
     return out + h @ sh.wo.w.to(dtype)
+
+
+# ---- expert parallelism ---------------------------------------------------------------
+def _ep_enabled(cfg: ModelConfig) -> str | None:
+    """The mesh axis for expert parallelism if usable, else None: a rule
+    context whose ``experts`` rule names a mesh axis that divides
+    ``n_experts``."""
+    r = current_rules()
+    if r is None:
+        return None
+    ax = r.rules.get("experts")
+    if isinstance(ax, tuple):
+        ax = ax[0] if ax else None
+    if ax is None or ax not in r.mesh.axis_names:
+        return None
+    if cfg.n_experts % int(r.mesh.shape[ax]) != 0:
+        return None
+    return ax
+
+
+def _ep_route(p: MoE, xl: torch.Tensor, cfg: ModelConfig):
+    """One data shard's routing over all its T = B·S tokens, in float32:
+    (tok_s, gate_s, ids_s, rank, keep, C) for the T·k entries sorted by
+    expert, stably; ``keep`` is rank < C = clip(ceil(cf·T·k/E), 1, T)."""
+    Bl, Sl, _ = xl.shape
+    T, E, k = Bl * Sl, cfg.n_experts, cfg.top_k
+    C = max(min(int(math.ceil(cfg.capacity_factor * T * k / E)), T), 1)
+    gate, ids = _route(p, xl, cfg)
+    dev = xl.device
+    ids_f = ids.reshape(T * k)
+    order = torch.argsort(ids_f, stable=True)
+    ids_s = ids_f[order]
+    tok_s = torch.arange(T, device=dev).repeat_interleave(k)[order]
+    gate_s = gate.reshape(T * k)[order]
+    starts = torch.searchsorted(ids_s, torch.arange(E, device=dev))
+    rank = torch.arange(T * k, device=dev) - starts[ids_s]
+    return tok_s, gate_s, ids_s, rank, rank < C, C
+
+
+def _moe_apply_ep(p: MoE, x: torch.Tensor, cfg: ModelConfig, ep_axis: str) -> torch.Tensor:
+    """The expert-parallel path (the reference's ``shard_map`` body per
+    shard). For each data shard and each model shard ``m`` along
+    ``ep_axis``: route the shard's tokens, compute the routed contribution
+    of experts ``[m·E/ep, (m+1)·E/ep)`` on the mesh device at (data shard,
+    m), and sum the model shards' outputs on the data shard's first device;
+    the data shards' rows are joined on x's device, then the shared experts
+    are added."""
+    rules = current_rules()
+    mesh = rules.mesh
+    d, E = x.shape[-1], cfg.n_experts
+    ep = int(mesh.shape[ep_axis])
+    E_loc = E // ep
+    dtype = cdtype(cfg)
+    outs = []
+    for coords, rows in batch_shards(x.shape):
+        xs = x[rows]
+        Bl, Sl, _ = xs.shape
+        T = Bl * Sl
+        first = mesh.devices[mesh_position(mesh, {**coords, ep_axis: 0})]
+        xl = xs.to(first)
+        tok_s, gate_s, ids_s, rank, keep, C = _ep_route(p, xl, cfg)
+        xt = xl.reshape(T, d)
+        routed = None
+        for m in range(ep):
+            dev = mesh.devices[mesh_position(mesh, {**coords, ep_axis: m})]
+            # slots of THIS shard's experts only
+            dest = ids_s * C + rank - m * E_loc * C
+            valid = keep & (dest >= 0) & (dest < E_loc * C)
+            dest = torch.where(valid, dest, E_loc * C).to(dev)
+            buf = torch.zeros((E_loc * C + 1, d), dtype=dtype, device=dev)
+            buf[dest] = xt[tok_s].to(dev, dtype)
+            buf = buf[: E_loc * C].reshape(E_loc, C, d)
+            wi, wg, wo = (w[m * E_loc:(m + 1) * E_loc].to(dev, dtype) for w in (p.wi, p.wg, p.wo))
+            h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) * torch.einsum("ecd,edf->ecf",
+                                                                               buf, wi)
+            y = torch.einsum("ecf,efd->ecd", h, wo).reshape(E_loc * C, d)
+            y = torch.cat([y, y.new_zeros((1, d))])
+            contrib = y[dest] * (gate_s * valid).to(dev, dtype)[:, None]
+            out = torch.zeros((T, d), dtype=dtype, device=dev)
+            out = out.index_put((tok_s.to(dev),), contrib, accumulate=True)
+            routed = out.to(first) if routed is None else routed + out.to(first)
+        outs.append(routed.reshape(Bl, Sl, d).to(x.device))
+    routed = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+    return _add_shared(p, x, routed, cfg).to(x.dtype)
+
+
+def ep_load(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> list[dict]:
+    """Under the rules of the expert-parallel path, each (data shard, model
+    shard)'s ``kept`` and ``dropped`` routed entries on input ``x``: a list
+    over data shards of ``{"coords", "kept": [per model shard],
+    "dropped": [...] , "capacity": C}`` (ints)."""
+    ep_axis = _ep_enabled(cfg)
+    if ep_axis is None:
+        raise ValueError("ep_load needs a rule context that enables expert parallelism")
+    ep = int(current_rules().mesh.shape[ep_axis])
+    E_loc = cfg.n_experts // ep
+    out = []
+    for coords, rows in batch_shards(x.shape):
+        xs = x[rows]
+        _, _, ids_s, _, keep, C = _ep_route(p, xs, cfg)
+        shard_of = ids_s // E_loc
+        out.append({"coords": dict(coords), "capacity": C,
+                    "kept": [int((keep & (shard_of == m)).sum()) for m in range(ep)],
+                    "dropped": [int((~keep & (shard_of == m)).sum()) for m in range(ep)]})
+    return out

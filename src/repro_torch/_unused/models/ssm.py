@@ -39,11 +39,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from .layers import Dense, _const, cdtype, dense_apply, dense_init, pdtype
+from .layers import Dense, _const, cdtype, dense_apply, dense_axes, dense_init, pdtype
 
 __all__ = [
-    "Mamba", "mamba_init", "mamba_apply", "MambaCache",
-    "RWKV", "rwkv_init", "rwkv_apply", "RwkvCache",
+    "Mamba", "mamba_init", "mamba_axes", "mamba_apply", "MambaCache",
+    "RWKV", "rwkv_init", "rwkv_axes", "rwkv_apply", "RwkvCache",
 ]
 
 MAMBA_CHUNK = 64
@@ -110,6 +110,20 @@ def mamba_init(cfg: ModelConfig, *, gen=None, device=None) -> Mamba:
         _const((di,), cfg, device, 1.0),
         dense_init(di, (d,), cfg, **kw),
     )
+
+
+def mamba_axes(cfg: ModelConfig) -> dict:
+    return {
+        "in_proj": dense_axes("fsdp", ("mlp",)),
+        "conv_w": ("conv", "mlp"),
+        "conv_b": ("mlp",),
+        "x_proj": dense_axes("mlp", (None,)),
+        "dt_proj": dense_axes(None, ("mlp",)),
+        "dt_bias": ("mlp",),
+        "A_log": ("mlp", "state"),
+        "D": ("mlp",),
+        "out_proj": dense_axes("mlp", ("fsdp",)),
+    }
 
 
 def _first_order_scan(a: torch.Tensor, b: torch.Tensor):
@@ -228,6 +242,23 @@ def rwkv_init(cfg: ModelConfig, *, gen=None, device=None) -> RWKV:
         _const((H, dh), cfg, device, 0.0),
         dense_init(d, (d,), cfg, **kw),
     )
+
+
+def rwkv_axes(cfg: ModelConfig) -> dict:
+    return {
+        "mu": (None, "embed"),
+        "wr": dense_axes("fsdp", ("heads", "head_dim")),
+        "wk": dense_axes("fsdp", ("heads", "head_dim")),
+        "wv": dense_axes("fsdp", ("heads", "head_dim")),
+        "wg": dense_axes("fsdp", ("mlp",)),
+        "w0": ("embed",),
+        "w_lora_a": dense_axes("fsdp", (None,)),
+        "w_lora_b": dense_axes(None, ("embed",)),
+        "u": ("heads", "head_dim"),
+        "ln_scale": ("heads", "head_dim"),
+        "ln_bias": ("heads", "head_dim"),
+        "wo": dense_axes("mlp", ("fsdp",)),
+    }
 
 
 def _rwkv_chunked(r, k, v, logw, u, s0, chunk: int):

@@ -1,11 +1,16 @@
 """Serving: batched greedy single-token decode steps and the prefill.
 
-The counterpart of ``repro._unused.serve.serve_step`` on one device: there
-is no mesh, so no context-parallel cache (ROADMAP A.6.7). The decode step
+The counterpart of ``repro._unused.serve.serve_step``. The decode step
 runs one new token against the cache: a KV cache (ring-buffered to the
 window for sliding-window models), MLA's latent cache, or the O(1) state
 of Mamba and RWKV; an enc-dec card's cache also holds the cross K/V that
-``lm.prefill_cross`` filled. The prefill is the full-sequence forward under
+``lm.prefill_cross`` filled. From ``s_max >= CTX_PARALLEL_THRESHOLD`` the
+step decodes context-parallel, as the reference's does: under a rule
+context (``sharding.rules.axis_rules`` over a mesh of device lists, one
+process) a cache made by ``lm.init_cache(..., ctx_parallel=True)`` lives
+as sequence tiles on the ``model`` devices and each step combines the
+tiles' softmax partials; without rules the step is the same arithmetic on
+one cache. The prefill is the full-sequence forward under
 ``torch.no_grad``, where the flash kernel runs on the card in GQA layers
 (and in an enc-dec card's encoder and cross-attention); MLA runs the
 streaming softmax and Mamba and RWKV their chunked scans. Its batch holds
@@ -20,15 +25,27 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch._unused.models import lm
 
-__all__ = ["make_decode_step", "make_prefill_step", "greedy_generate"]
+__all__ = ["CTX_PARALLEL_THRESHOLD", "make_decode_step", "make_prefill_step",
+           "greedy_generate"]
+
+#: shard the cache's sequence axis over the ``model`` mesh axis from this
+#: length up (context-parallel decode), as the reference does
+CTX_PARALLEL_THRESHOLD = 1 << 15  # 32768
 
 
 def make_decode_step(cfg: ModelConfig, s_max: int):
+    """The greedy decode step (params, tokens (B, 1), cache, cache_len) →
+    (next tokens (B,) int32, cache); ``step.ctx_parallel`` says whether it
+    decodes context-parallel (``s_max >= CTX_PARALLEL_THRESHOLD``)."""
+    ctx_parallel = s_max >= CTX_PARALLEL_THRESHOLD
+
     def step(params, tokens: torch.Tensor, cache, cache_len: int):
-        logits, new_cache = lm.apply_decode(params, tokens, cache, cache_len, cfg)
+        logits, new_cache = lm.apply_decode(params, tokens, cache, cache_len, cfg,
+                                            ctx_parallel=ctx_parallel)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, new_cache
 
+    step.ctx_parallel = ctx_parallel
     return step
 
 
@@ -51,8 +68,8 @@ def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_new: int, 
     """
     B, S0 = prompt.shape
     s_max = s_max or (S0 + n_new)
-    cache = lm.init_cache(cfg, B, s_max, device=prompt.device)
     step = make_decode_step(cfg, s_max)
+    cache = lm.init_cache(cfg, B, s_max, device=prompt.device, ctx_parallel=step.ctx_parallel)
     for t in range(S0):
         nxt, cache = step(params, prompt[:, t : t + 1], cache, t)
     tok = nxt[:, None]

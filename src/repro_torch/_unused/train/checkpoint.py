@@ -159,9 +159,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int | None, like: Any) -> Any:
+    def restore(self, step: int | None, like: Any, *, shardings: Any | None = None) -> Any:
         """Restore into the structure of ``like`` (values replaced by CPU
-        tensors of the file's dtype). A leaf count or a shape that differs
+        tensors of the file's dtype). With ``shardings`` (a tree of
+        :class:`~repro_torch.sharding.rules.NamedSharding` mirroring
+        ``like``, ``None`` where a leaf stays a tensor) the leaves are placed
+        over the mesh (``sharding.place.place``), as the reference's
+        ``device_put`` per leaf does. A leaf count or a shape that differs
         from ``like``'s raises ``ValueError``."""
         if step is None:
             step = self.latest_step()
@@ -181,4 +185,11 @@ class CheckpointManager:
                 raise ValueError(f"checkpoint leaf {entry['key']} has shape {entry['shape']}, "
                                  f"expected {list(want)} for {key}")
             arrays.append(torch.from_numpy(np.load(d / entry["file"])))
+        if shardings is not None:
+            from repro_torch.sharding.place import place
+
+            flat_sh = [s for _, s in flatten_with_paths(shardings)]
+            if len(flat_sh) != len(arrays):
+                raise ValueError(f"shardings has {len(flat_sh)} leaves, expected {len(arrays)}")
+            arrays = [a if s is None else place(a, s) for a, s in zip(arrays, flat_sh)]
         return unflatten(like, arrays)

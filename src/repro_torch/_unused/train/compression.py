@@ -4,10 +4,13 @@ The counterpart of ``repro._unused.train.compression``, bit for bit: blocks
 of 256 elements of the flattened leaf share a float32 scale max|x|/127
 (at least 1e-12); values round half to even and clip to ±127. Leaves under
 256 elements pass through unchanged. ``compress_decompress_tree`` is the
-quantize→dequantize round trip (the wire format simulated on one device;
-the cross-pod all-reduce it shrinks waits for the LM's mesh, ROADMAP
-A.6.7); ``ef_compress`` adds the residual back into the next gradient
-(error feedback). Trees are dicts of tensors.
+quantize→dequantize round trip, the wire format simulated where the
+reference applies it: on the whole gradient of each leaf, after the
+single-device step's backward and, over a mesh, after the data shards'
+gradients are summed (``train_step.make_mesh_train_step``; one process
+moves no bytes between shards, so nothing is sent in int8);
+``ef_compress`` adds the residual back into the next gradient (error
+feedback). Trees are dicts of tensors.
 """
 
 from __future__ import annotations

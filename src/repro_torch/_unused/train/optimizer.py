@@ -1,10 +1,13 @@
 """AdamW + cosine schedule in plain tensor ops (no ``torch.optim``).
 
-The counterpart of ``repro._unused.train.optimizer`` on one device. The
-parameters, gradients and moments are dicts keyed by the port's parameter
-names (``dict(model.named_parameters())``); :func:`adamw_update` writes the
-new parameters and moments in place, one leaf at a time, so that the step
-needs no second copy of the state. The arithmetic is the reference's:
+The counterpart of ``repro._unused.train.optimizer``. The parameters,
+gradients and moments are dicts keyed by the port's parameter names
+(``dict(model.named_parameters())``); :func:`adamw_update` writes the new
+parameters and moments in place, one leaf at a time, so that the step
+needs no second copy of the state. Over a mesh the leaves are
+:class:`~repro_torch.sharding.place.Placed` tiles and
+:func:`adamw_update_tiles` runs the same update once per tile, on its
+device, with the global gradient norm of the distinct tiles. The arithmetic is the reference's:
 gradients scaled by one global-norm clip, bias-corrected moments, weight
 decay on every leaf (norms and biases included), schedule and corrections
 in float32.
@@ -18,8 +21,8 @@ from typing import Mapping, NamedTuple
 
 import torch
 
-__all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update", "cosine_schedule",
-           "global_norm"]
+__all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update", "adamw_update_tiles",
+           "cosine_schedule", "global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,26 +72,55 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree.values()))
 
 
+def _adamw_leaf(p, g, m, v, lr, scale, b1c, b2c, cfg: AdamWConfig) -> None:
+    """One leaf's update, in place, on the leaf's device."""
+    if isinstance(scale, torch.Tensor):
+        scale = scale.to(g.device)
+    g = g.float() * scale
+    m_new = cfg.b1 * m.float() + (1 - cfg.b1) * g
+    v_new = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
+    delta = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps) + cfg.weight_decay * p.float()
+    p.copy_(p.float() - lr * delta)
+    m.copy_(m_new)
+    v.copy_(v_new)
+
+
+def _schedule(state: OptState, gnorm: torch.Tensor, cfg: AdamWConfig):
+    step = state.step + 1
+    scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+             if cfg.grad_clip else 1.0)
+    b1c = 1.0 - _f32(cfg.b1) ** step.float()
+    b2c = 1.0 - _f32(cfg.b2) ** step.float()
+    return step, cosine_schedule(cfg, step), scale, b1c, b2c
+
+
 @torch.no_grad()
 def adamw_update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
                  state: OptState, cfg: AdamWConfig):
     """Returns (params, new_state, metrics); ``params`` and the moments are
     updated in place, ``grads`` is read. ``metrics``: ``grad_norm`` (on the
     gradients' device) and ``lr``."""
-    step = state.step + 1
-    lr = cosine_schedule(cfg, step)
     gnorm = global_norm(grads)
-    scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-             if cfg.grad_clip else 1.0)
-    b1c = 1.0 - _f32(cfg.b1) ** step.float()
-    b2c = 1.0 - _f32(cfg.b2) ** step.float()
+    step, lr, scale, b1c, b2c = _schedule(state, gnorm, cfg)
     for key, p in params.items():
-        m, v = state.m[key], state.v[key]
-        g = grads[key].float() * scale
-        m_new = cfg.b1 * m.float() + (1 - cfg.b1) * g
-        v_new = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
-        delta = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps) + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        m.copy_(m_new)
-        v.copy_(v_new)
+        _adamw_leaf(p, grads[key], state.m[key], state.v[key], lr, scale, b1c, b2c, cfg)
+    return params, OptState(step, state.m, state.v), {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def adamw_update_tiles(params: Mapping, grads: Mapping, state: OptState, cfg: AdamWConfig):
+    """:func:`adamw_update` over :class:`~repro_torch.sharding.place.Placed`
+    parameters, gradients and moments of one layout: every tile (replicas
+    included) takes the update of its own slice on its device. The
+    gradient norm sums each distinct gradient tile once, on the first
+    parameter's device."""
+    dev = next(iter(params.values())).device
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(t.float())).to(dev)
+                           for g in grads.values() for t in g.blocks().values()))
+    step, lr, scale, b1c, b2c = _schedule(state, gnorm, cfg)
+    for key, p in params.items():
+        g, m, v = grads[key], state.m[key], state.v[key]
+        for pos in p.positions():
+            _adamw_leaf(p.tiles[pos], g.tiles[pos], m.tiles[pos], v.tiles[pos], lr, scale, b1c,
+                        b2c, cfg)
     return params, OptState(step, state.m, state.v), {"grad_norm": gnorm, "lr": lr}

@@ -1,6 +1,6 @@
 """Training step: causal-LM loss, gradients, AdamW update.
 
-The counterpart of ``repro._unused.train.train_step`` on one device. The
+The counterpart of ``repro._unused.train.train_step``. On one device the
 step takes the :class:`~repro_torch._unused.models.lm.LM` module, whose
 parameters the trainer has switched to ``requires_grad=True`` once
 (:class:`~repro_torch.launch.train.TrainLoop` does so where it builds them),
@@ -12,25 +12,52 @@ masters), takes the loss's gradient with ``torch.autograd.grad`` (the model
 recomputes each layer in the backward, and the flash kernel's backward is
 the plain streaming softmax's), optionally round-trips it through int8
 compression, and updates the parameters and moments in place.
+
+:func:`make_mesh_train_step` is the step over a mesh of device lists, in
+one process: the parameters and AdamW moments are
+:class:`~repro_torch.sharding.place.Placed` per ``lm.param_axes`` and the
+rules (``fsdp`` → ``data``: each data device holds its slice). Each data
+shard computes the loss of its batch rows on its first device: the top
+leaves are gathered there at the start, each layer inside its remat (so
+the backward gathers it again), and the backward sends each slice's
+gradient back to its tile, where the data shards' gradients add up. The
+shard losses are weighted by the global batch's token count (its
+``loss_mask`` where it has one), so that their sum is ``loss_fn`` of the
+whole batch. With ``compress_grads`` the int8 round trip runs on each
+summed gradient leaf, as the reference's does on its global gradients.
+Then one AdamW update runs per tile. A ``model`` axis larger than one
+places tiles only: each data shard computes with whole gathered layers,
+which gives the reference's values (splitting heads and MLP columns over
+model devices is later work, ROADMAP).
 """
 
 from __future__ import annotations
 
 import copy
+import functools
+import types
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.place import Placed, place, place_zeros
+from repro_torch.sharding.rules import (DEFAULT_RULES, SINGLE_POD_RULES, LogicalRules,
+                                        axis_rules, batch_shards, mesh_position, on_shard,
+                                        tree_shardings)
 from repro_torch._unused.models import lm
-from .optimizer import AdamWConfig, OptState, adamw_update
+from .optimizer import AdamWConfig, OptState, adamw_update, adamw_update_tiles
 
-__all__ = ["loss_fn", "cast_params_for_compute", "make_train_step"]
+__all__ = ["loss_fn", "cast_params_for_compute", "make_train_step", "make_mesh_train_step",
+           "place_train_state"]
 
 
-def loss_fn(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params, batch: dict, cfg: ModelConfig, *, denom=None) -> torch.Tensor:
     """Next-token cross-entropy over the (padded) vocab, mean over tokens
-    (over ``loss_mask`` where the batch has one)."""
+    (over ``loss_mask`` where the batch has one). ``denom`` replaces the
+    batch's own token count (a data shard's loss weighted by the global
+    batch's)."""
     logits = lm.apply_train(params, batch, cfg)  # (B,S,Vp) f32
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
@@ -38,20 +65,24 @@ def loss_fn(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     mask = batch.get("loss_mask")
     if mask is not None:
         nll = nll * mask
-        denom = torch.clamp(mask.sum(), min=1.0)
-    else:
-        denom = float(nll.numel())
+    if denom is None:
+        denom = torch.clamp(mask.sum(), min=1.0) if mask is not None else float(nll.numel())
     return nll.sum() / denom
 
 
-def _cast_view(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+def _view(module: nn.Module, leaves: dict, prefix: str = "") -> nn.Module:
+    """A shallow copy of ``module`` whose parameters are ``leaves[prefix + name]``."""
     view = copy.copy(module)
-    view._parameters = {
-        k: (p.to(dtype) if p is not None and p.dtype == torch.float32 and p.dim() >= 2 else p)
-        for k, p in module._parameters.items()}
-    view._modules = {k: None if m is None else _cast_view(m, dtype)
+    view._parameters = {k: None if p is None else leaves[f"{prefix}{k}"]
+                        for k, p in module._parameters.items()}
+    view._modules = {k: None if m is None else _view(m, leaves, f"{prefix}{k}.")
                      for k, m in module._modules.items()}
     return view
+
+
+def _compute_cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A float32 leaf of rank ≥ 2 in the compute dtype; other leaves as they are."""
+    return t.to(dtype) if t.dtype == torch.float32 and t.dim() >= 2 else t
 
 
 def cast_params_for_compute(params: nn.Module, cfg: ModelConfig) -> nn.Module:
@@ -60,7 +91,10 @@ def cast_params_for_compute(params: nn.Module, cfg: ModelConfig) -> nn.Module:
     back to the float32 masters); ``params`` itself when the compute dtype is
     float32."""
     cd = getattr(torch, cfg.compute_dtype)
-    return params if cd == torch.float32 else _cast_view(params, cd)
+    if cd == torch.float32:
+        return params
+    return _view(params, {k: _compute_cast(p, cd)
+                          for k, p in params.named_parameters(remove_duplicate=False)})
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, compress_grads: bool = False):
@@ -81,5 +115,118 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, compress_grads: b
             grads = compress_decompress_tree(grads)
         _, new_opt, metrics = adamw_update(leaves, grads, opt_state, opt_cfg)
         return params, new_opt, dict(metrics, loss=loss.detach())
+
+    return step
+
+
+def place_train_state(params: nn.Module, cfg: ModelConfig, opt_cfg: AdamWConfig, mesh):
+    """``params`` (the full module) laid over ``mesh`` per
+    ``lm.param_axes(cfg)`` and the mesh's default rules: (``{name:
+    Placed}`` with every tile a leaf of its own that requires grad, the
+    AdamW state with its moments placed alike)."""
+    r = LogicalRules(mesh, DEFAULT_RULES if "pod" in mesh.axis_names else SINGLE_POD_RULES)
+    named = {k: p.detach() for k, p in params.named_parameters()}
+    shardings = tree_shardings(named, lm.param_axes(cfg), r)
+    placed = {k: place(t, shardings[k], copy=True) for k, t in named.items()}
+    for p in placed.values():
+        for pos in p.positions():
+            p.tiles[pos].requires_grad_(True)
+    dt = getattr(torch, opt_cfg.state_dtype)
+
+    def zeros():
+        return {k: place_zeros(p.shape, dt, p.sharding) for k, p in placed.items()}
+
+    return placed, OptState(torch.zeros((), dtype=torch.int32), zeros(), zeros())
+
+
+class _LayerTiles:
+    """One layer's placed parameters, gathered onto ``device`` (and cast for
+    compute) when ``lm`` runs the layer, inside its remat."""
+
+    def __init__(self, module: nn.Module, prefix: str, params: dict, device, cast):
+        self.module, self.prefix, self.device, self.cast = module, prefix, device, cast
+        self.names = [k for k in params if k.startswith(prefix)]
+        self.params = params
+
+    def parameters(self):
+        for k in self.names:
+            yield from self.params[k].blocks().values()
+
+    def gather(self) -> nn.Module:
+        n = len(self.prefix)
+        return _view(self.module, {k[n:]: self.cast(self.params[k].full(self.device))
+                                   for k in self.names})
+
+
+def _shard_model(template: lm.LM, params: dict, device, cast):
+    """The LM as ``lm.apply_train`` reads it, for one data shard: the top
+    leaves gathered onto ``device`` now, the layers as :class:`_LayerTiles`."""
+    def top(name):
+        sub = getattr(template, name)
+        if sub is None:
+            return None
+        return _view(sub, {k: cast(p.full(device)) for k, p in params.items()
+                           if k.startswith(name + ".")}, name + ".")
+
+    groups = [[_LayerTiles(layer, f"groups.{gi}.{r}.", params, device, cast)
+               for r, layer in enumerate(layers)] for gi, layers in enumerate(template.groups)]
+    encoder = None if template.encoder is None else [
+        _LayerTiles(layer, f"encoder.{r}.", params, device, cast)
+        for r, layer in enumerate(template.encoder)]
+    return types.SimpleNamespace(embed=top("embed"), final_norm=top("final_norm"),
+                                 lm_head=top("lm_head"), enc_norm=top("enc_norm"),
+                                 groups=groups, encoder=encoder)
+
+
+def make_mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, *,
+                         compress_grads: bool = False):
+    """The train step over ``mesh`` (params, opt_state, batch) → (params,
+    opt_state, metrics), for the state :func:`place_train_state` lays out;
+    tiles and moments are updated in place. The batch's rows are split into
+    data shards along the mesh axes of the ``batch`` rule; it runs under
+    ``axis_rules(mesh)``, so MoE layers take the expert-parallel
+    path within each data shard. ``metrics``: ``loss`` (the global batch's
+    mean, on the mesh's first device), ``grad_norm`` and ``lr``."""
+    template = lm.init_params(cfg, device="meta")
+    cast = functools.partial(_compute_cast, dtype=getattr(torch, cfg.compute_dtype))
+
+    def step(params: dict, opt_state: OptState, batch: dict):
+        with axis_rules(mesh):
+            first = mesh.devices.flat[0]
+            tiles = [t for p in params.values() for t in p.blocks().values()]
+            for t in tiles:
+                t.grad = None
+            mask = batch.get("loss_mask")
+            denom = (torch.clamp(mask.sum(), min=1.0) if mask is not None
+                     else float(batch["tokens"].numel()))
+            loss = None
+            for coords, rows in batch_shards(batch["tokens"].shape):
+                dev = mesh.devices[mesh_position(mesh, coords)]
+                sub = {k: v[rows].to(dev) for k, v in batch.items()}
+                d = denom.to(dev) if isinstance(denom, torch.Tensor) else denom
+                with on_shard(coords), torch.enable_grad():
+                    shard_loss = loss_fn(_shard_model(template, params, dev, cast), sub, cfg,
+                                         denom=d)
+                    shard_loss.backward()
+                shard_loss = shard_loss.detach().to(first)
+                loss = shard_loss if loss is None else loss + shard_loss
+            grads = {}
+            for k, p in params.items():
+                grid = np.empty(p.tiles.shape, dtype=object)
+                canon = p.blocks()
+                for pos in p.positions():
+                    g = canon[p.sharding.block(pos, p.ndim)].grad
+                    grid[pos] = torch.zeros_like(p.tiles[pos]) if g is None else g.to(
+                        p.tiles[pos].device)
+                grads[k] = Placed(p.sharding, p.shape, grid)
+            for t in tiles:
+                t.grad = None
+            if compress_grads:
+                from .compression import compress_decompress_tree
+
+                full = compress_decompress_tree({k: g.full() for k, g in grads.items()})
+                grads = {k: place(full[k], grads[k].sharding) for k in grads}
+            _, new_opt, metrics = adamw_update_tiles(params, grads, opt_state, opt_cfg)
+        return params, new_opt, dict(metrics, loss=loss)
 
     return step

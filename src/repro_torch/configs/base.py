@@ -15,7 +15,7 @@ import dataclasses
 import importlib
 from typing import Literal, Optional
 
-__all__ = ["ModelConfig", "LayerDesc", "WAITING_SLICES", "register", "get_config", "list_archs"]
+__all__ = ["ModelConfig", "LayerDesc", "register", "get_config", "list_archs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,13 +223,6 @@ class ModelConfig:
             n_patches=min(self.n_patches, 4) if self.n_patches else 0,
         )
 
-
-#: the ROADMAP items that port what the port does not have yet: the LM's
-#: mesh (a sharded parameter tree, a multi-device trainer, MoE's expert
-#: parallelism, the context-parallel cache)
-WAITING_SLICES = {
-    "mesh": "ROADMAP A.6.7",
-}
 
 _REGISTRY: dict[str, ModelConfig] = {}
 

@@ -8,17 +8,20 @@ remain. The decode is bit-exact either way: the mesh only places lanes.
 
 `plan_rescale` computes the largest valid mesh after losing `lost_chips`
 devices; `plan_decode_rescale` restricts it to the lane axes and
-`rescale_decode_engine` builds the replacement engine. The reference's
-`reshard` (moving an LM's parameter tree onto a new mesh) is not here.
+`rescale_decode_engine` builds the replacement engine. `reshard` moves an
+LM's tree (parameters, optimizer state, caches) onto a new mesh with its
+logical axes resolved again by the rules of that mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 
 __all__ = [
+    "reshard",
     "plan_rescale",
     "plan_decode_rescale",
     "rescale_decode_engine",
@@ -157,3 +160,19 @@ def rescale_decode_engine(engine, lost_chips: int):
         block_axes=engine.block_axes,
         shard_dispatch=engine.shard_dispatch,
     )
+
+
+def reshard(tree: Any, axes_tree: Any, new_mesh, rules_map=None) -> Any:
+    """Move a tree onto ``new_mesh`` with its logical axes re-resolved: its
+    leaves (tensors, numpy arrays or :class:`~repro_torch.sharding.place.Placed`)
+    are gathered to the host and placed per ``tree_shardings`` under
+    ``rules_map`` (``None``: the default rules for the mesh's axes)."""
+    from repro_torch.sharding.place import gather_tree, place_tree
+    from repro_torch.sharding.rules import (DEFAULT_RULES, SINGLE_POD_RULES, LogicalRules,
+                                            tree_shardings)
+
+    if rules_map is None:
+        rules_map = DEFAULT_RULES if "pod" in new_mesh.axis_names else SINGLE_POD_RULES
+    rules = LogicalRules(new_mesh, rules_map)
+    host = gather_tree(tree, "cpu")
+    return place_tree(host, tree_shardings(host, axes_tree, rules))

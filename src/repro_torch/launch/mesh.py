@@ -1,11 +1,21 @@
-"""Decode meshes over device lists: the port's stand-in for ``jax.sharding.Mesh``.
+"""Device meshes over device lists: the port's stand-in for ``jax.sharding.Mesh``.
 
+A mesh is a named grid of ``torch.device`` objects, driven by one process.
 The decoder shards nothing but its lane axis (the flattened frames ×
-parallel-blocks axis), and parallel blocks never interact, so a mesh here is
-only a placement: a named grid of ``torch.device`` objects over which
-:func:`repro_torch.sharding.smap.lane_split` cuts the lanes. The counterpart
-of ``repro.launch.mesh`` for the decode fleet; the LM's production mesh and
-the multi-process start stay out (one process drives every device it names).
+parallel-blocks axis), and parallel blocks never interact, so for it a mesh
+is only a placement over which :func:`repro_torch.sharding.smap.lane_split`
+cuts the lanes. The LM uses the same :class:`DecodeMesh` under
+``sharding.rules.axis_rules``: parameters and optimizer state placed per
+the logical rules, MoE's experts split over ``model``, the context-parallel
+cache's sequence tiles, the data-parallel train step and the pipeline's
+stages. The counterpart of ``repro.launch.mesh``: the production shapes
+(:func:`make_production_mesh`), the local test meshes and the decode
+fleet's, and :func:`maybe_init_distributed` for a multi-process start under
+``torchrun``:
+
+    # per host i of N (same command everywhere, torchrun sets RANK):
+    torchrun --nnodes N --nproc-per-node 1 --node-rank i \\
+        --master-addr host0 --master-port 29500 -m repro_torch.launch.train ...
 
 A device list may name one device more than once: ``["cpu"] * 8`` rehearses
 an 8-way split on the CPU, and ``[torch.device("cuda", 0)] * 4`` splits the
@@ -22,6 +32,7 @@ from __future__ import annotations
 
 import collections
 import math
+import os
 from typing import Sequence
 
 import numpy as np
@@ -34,6 +45,8 @@ __all__ = [
     "canonical_device",
     "make_decode_mesh",
     "make_local_mesh",
+    "make_production_mesh",
+    "maybe_init_distributed",
     "parse_mesh_spec",
     "shrink_mesh",
 ]
@@ -95,6 +108,46 @@ def _available_devices() -> list[torch.device]:
     """Every CUDA device torch finds; none raises DeviceUnavailableError."""
     resolve_device(None, user="make_decode_mesh")
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> DecodeMesh:
+    """The production mesh: ``(16, 16)`` over ``("data", "model")``, or
+    ``(2, 16, 16)`` over ``("pod", "data", "model")`` with ``multi_pod``,
+    laid over the first 256 or 512 entries of ``devices`` (``None``: every
+    CUDA device torch finds). Too few devices raise ``ValueError`` naming
+    the count."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    devs = _available_devices() if devices is None else list(devices)
+    need = math.prod(shape)
+    if len(devs) < need:
+        raise ValueError(f"the production mesh {shape} over {axes} needs {need} devices, "
+                         f"only {len(devs)} available")
+    return DecodeMesh(devs[:need], shape, axes)
+
+
+def maybe_init_distributed() -> bool:
+    """Start the default ``torch.distributed`` process group from torchrun's
+    environment, if configured.
+
+    Returns True when ``init_process_group`` was called (``MASTER_ADDR``,
+    ``WORLD_SIZE`` and ``RANK`` all set; ``MASTER_PORT`` defaults to
+    29500), False for single-process runs. The backend is NCCL when torch
+    finds a CUDA device and gloo otherwise. Call it before building a mesh:
+    the recipe at the top of this module.
+    """
+    addr = os.environ.get("MASTER_ADDR")
+    num = os.environ.get("WORLD_SIZE")
+    rank = os.environ.get("RANK")
+    if not (addr and num and rank):
+        return False
+    import torch.distributed as dist
+
+    port = os.environ.get("MASTER_PORT", "29500")
+    dist.init_process_group("nccl" if torch.cuda.is_available() else "gloo",
+                            init_method=f"tcp://{addr}:{port}", world_size=int(num),
+                            rank=int(rank))
+    return True
 
 
 def make_local_mesh(data: int | None = None, model: int = 1, *, devices=None) -> DecodeMesh:

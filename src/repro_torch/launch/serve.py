@@ -4,8 +4,11 @@
         --batch 4 --new-tokens 64
 
 The counterpart of ``repro.launch.serve`` with the same flags and the same
-default ``--arch`` (``rwkv6-3b``), on one card and without a mesh (ROADMAP
-A.6.7). ``--arch`` takes every card the port has
+default ``--arch`` (``rwkv6-3b``). Like the reference, it runs its steps
+under ``axis_rules(make_local_mesh())``, here a ``(1, 1)`` mesh of the one
+device it serves on, so a MoE card (Mixtral-8x22B, DeepSeek-V2, Jamba-v0.1)
+routes through the expert-parallel path, whose routing group is the whole
+batch, as the reference's CLI does. ``--arch`` takes every card the port has
 (``configs.base.list_archs()``: ``starcoder2-3b``, ``qwen2.5-32b``,
 ``minitron-8b``, ``command-r-35b``, ``mixtral-8x22b``,
 ``deepseek-v2-236b``, ``jamba-v0.1-52b``, ``rwkv6-3b``,
@@ -29,8 +32,39 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch._unused.models import lm
 from repro_torch._unused.serve.serve_step import make_decode_step
+from repro_torch.sharding.rules import axis_rules
+
+__all__ = ["main", "generate"]
+
+
+def generate(cfg, params, prompt: torch.Tensor, new_tokens: int, mesh):
+    """The CLI's loop: under ``axis_rules(mesh)``, feed ``prompt`` (B, P)
+    token by token through the decode step, then take ``new_tokens``
+    greedy steps. Returns (the new tokens (B, new_tokens) int32, the
+    seconds of the greedy steps, each run ending in a synchronize on a
+    card)."""
+    dev = prompt.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    B, P = prompt.shape
+    s_max = P + new_tokens
+    with axis_rules(mesh):
+        step = make_decode_step(cfg, s_max)
+        cache = lm.init_cache(cfg, B, s_max, device=dev, ctx_parallel=step.ctx_parallel)
+        for t in range(P):
+            nxt, cache = step(params, prompt[:, t : t + 1], cache, t)
+        sync()
+        t0 = time.perf_counter()
+        tok = nxt[:, None]
+        outs = []
+        for t in range(new_tokens):
+            outs.append(tok)
+            nxt, cache = step(params, tok, cache, P + t)
+            tok = nxt[:, None]
+        sync()
+    return torch.cat(outs, dim=1), time.perf_counter() - t0
 
 
 def main() -> None:
@@ -47,26 +81,11 @@ def main() -> None:
     if args.preset == "tiny":
         cfg = cfg.reduced()
     dev = resolve_device(args.device, user="serve")
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     rng = np.random.default_rng(0)
-    s_max = args.prompt_len + args.new_tokens
 
     params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
-    cache = lm.init_cache(cfg, args.batch, s_max, device=dev)
-    step = make_decode_step(cfg, s_max)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)), device=dev)
-
-    for t in range(args.prompt_len):
-        nxt, cache = step(params, prompt[:, t : t + 1], cache, t)
-    sync()
-
-    t0 = time.perf_counter()
-    tok = nxt[:, None]
-    for t in range(args.new_tokens):
-        nxt, cache = step(params, tok, cache, args.prompt_len + t)
-        tok = nxt[:, None]
-    sync()
-    dt = time.perf_counter() - t0
+    _, dt = generate(cfg, params, prompt, args.new_tokens, make_local_mesh(devices=[dev]))
 
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
     total = args.batch * args.new_tokens

@@ -8,20 +8,29 @@ crash recovery and (optional) failure injection to prove it.
     PYTHONPATH=src python -m repro_torch.launch.train --preset tiny --steps 60 \\
         --inject-failure-at 40 --ckpt-every 20
 
-The counterpart of ``repro.launch.train`` with the reference's flags, on one
-device: :class:`TrainLoop` takes ``device`` where the reference takes its
-local mesh (``None``: ``"cuda"``, which raises ``DeviceUnavailableError``
-without a GPU; a one-device ``DecodeMesh`` names its device; a mesh of more
-devices is refused, since the sharded trainer waits for the LM's mesh,
-ROADMAP A.6.7). ``--device cpu`` rehearses on the CPU, whose times are the
-CPU's. Weights are drawn from a generator seeded with 42 on the device.
-Checkpoints hold ``{"params", "opt": (step, m, v)}`` in the reference's
-layout (:func:`train_state_tree`), so either package restores the other's.
+The counterpart of ``repro.launch.train`` with the reference's flags.
+:class:`TrainLoop` takes a device or a mesh where the reference takes its
+mesh, and runs its steps under ``axis_rules(mesh)`` as the reference does
+(``None``: ``"cuda"``, which raises ``DeviceUnavailableError`` without a
+GPU). A mesh of one device trains on that device with the one-device step;
+a mesh of more devices (a :class:`~repro_torch.launch.mesh.DecodeMesh`
+over a device list, one process; ``[cuda:0] * n`` splits one card) places
+the parameters and AdamW state per the rules and runs
+``make_mesh_train_step``: data-parallel over the ``batch`` rule's axes,
+FSDP over ``data``, MoE's expert-parallel path over ``model``. The CLI
+trains over ``make_local_mesh()``: every CUDA device torch finds, or the
+``--device`` given. ``--device cpu`` rehearses on the CPU, whose times
+are the CPU's. Weights are drawn from a generator seeded with 42 on the
+(first) device. Checkpoints hold ``{"params", "opt": (step, m, v)}`` in the
+reference's layout (:func:`train_state_tree`, gathered from the tiles over
+a mesh), so either package restores the other's, and a mesh run restores
+into its tiles.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import tempfile
 import time
@@ -30,14 +39,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.configs.base import WAITING_SLICES, get_config
+from repro_torch.configs.base import get_config
 from repro_torch.device import resolve_device
 from repro_torch.interop import lm_named, lm_tree
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.sharding.place import Placed
+from repro_torch.sharding.rules import axis_rules
 from repro_torch._unused.models import lm
 from repro_torch._unused.train.checkpoint import CheckpointManager
 from repro_torch._unused.train.data import PrefetchPipeline, SyntheticLMStream
 from repro_torch._unused.train.optimizer import AdamWConfig, OptState, adamw_init
-from repro_torch._unused.train.train_step import make_train_step
+from repro_torch._unused.train.train_step import (make_mesh_train_step, make_train_step,
+                                                  place_train_state)
 
 __all__ = ["TrainLoop", "main", "preset_config", "train_state_tree", "load_train_state"]
 
@@ -66,22 +79,36 @@ def preset_config(arch: str, preset: str):
     raise ValueError(preset)
 
 
+def _named(params) -> dict:
+    return params if isinstance(params, dict) else dict(params.named_parameters())
+
+
 def train_state_tree(params, opt_state: OptState, *, device="cpu") -> dict:
     """``{"params": ..., "opt": OptState(step, m, v)}`` in the reference's
     layout (:func:`~repro_torch.interop.lm_tree`), leaves on ``device``
-    (``"meta"``: the shapes only, a tree to restore into)."""
-    def tree(named):
-        return lm_tree({k: t.detach().to(device) for k, t in named.items()})
+    (``"meta"``: the shapes only, a tree to restore into). ``params`` is the
+    module or a dict keyed by its names; :class:`Placed` leaves (a mesh
+    run's tiles) are gathered."""
+    def leaf(t):
+        if isinstance(t, Placed):
+            if torch.device(device).type == "meta":
+                return torch.empty(t.shape, dtype=t.dtype, device="meta")
+            return t.full(device).detach()
+        return t.detach().to(device)
 
-    return {"params": tree(dict(params.named_parameters())),
+    def tree(named):
+        return lm_tree({k: leaf(t) for k, t in named.items()})
+
+    return {"params": tree(_named(params)),
             "opt": OptState(opt_state.step.clone(), tree(opt_state.m), tree(opt_state.v))}
 
 
 @torch.no_grad()
 def load_train_state(tree: dict, params, opt_state: OptState) -> OptState:
     """Copy a restored :func:`train_state_tree` into ``params`` and the
-    moments in place; returns the state with the restored step."""
-    for dst, src in ((dict(params.named_parameters()), tree["params"]),
+    moments in place (into every tile of :class:`Placed` leaves); returns
+    the state with the restored step."""
+    for dst, src in ((_named(params), tree["params"]),
                      (opt_state.m, tree["opt"].m), (opt_state.v, tree["opt"].v)):
         for k, t in lm_named(src).items():
             dst[k].copy_(t)
@@ -89,14 +116,11 @@ def load_train_state(tree: dict, params, opt_state: OptState) -> OptState:
                     opt_state.v)
 
 
-def _train_device(device) -> torch.device:
+def _train_target(device):
+    """(mesh or None, the device the loop draws its weights on)."""
     if hasattr(device, "devices"):  # a DecodeMesh
-        if device.size > 1:
-            raise NotImplementedError(
-                f"TrainLoop runs on one device; a mesh of {device.size} devices waits for the "
-                f"LM's mesh ({WAITING_SLICES['mesh']})")
-        device = device.devices.flat[0]
-    return resolve_device(device, user="TrainLoop")
+        return device, device.devices.flat[0]
+    return None, resolve_device(device, user="TrainLoop")
 
 
 class TrainLoop:
@@ -117,7 +141,7 @@ class TrainLoop:
     ):
         self.cfg = cfg
         self.opt_cfg = opt_cfg
-        self.device = _train_device(device)
+        self.mesh, self.device = _train_target(device)
         self.ckpt = CheckpointManager(ckpt_dir, keep=3)
         self.ckpt_every = ckpt_every
         self.seq_len = seq_len
@@ -126,14 +150,26 @@ class TrainLoop:
         self.pipeline = PrefetchPipeline(self.stream, depth=2)
         self.straggler_timeout = straggler_timeout
         self.metrics_log: list[dict] = []
-        self.step_fn = make_train_step(cfg, opt_cfg, compress_grads=compress_grads)
+        self.sharded = self.mesh is not None and self.mesh.size > 1
+        if self.sharded:
+            self.step_fn = make_mesh_train_step(cfg, opt_cfg, self.mesh,
+                                                compress_grads=compress_grads)
+        else:
+            self.step_fn = make_train_step(cfg, opt_cfg, compress_grads=compress_grads)
         self._init()
+
+    def _rules(self):
+        return contextlib.nullcontext() if self.mesh is None else axis_rules(self.mesh)
 
     def _init(self) -> None:
         gen = torch.Generator(device=self.device).manual_seed(INIT_SEED)
         self.params = lm.init_params(self.cfg, generator=gen, device=self.device)
-        self.params.requires_grad_(True)
-        self.opt_state = adamw_init(dict(self.params.named_parameters()), self.opt_cfg)
+        if self.sharded:
+            self.params, self.opt_state = place_train_state(self.params, self.cfg,
+                                                            self.opt_cfg, self.mesh)
+        else:
+            self.params.requires_grad_(True)
+            self.opt_state = adamw_init(dict(self.params.named_parameters()), self.opt_cfg)
         self.step = 0
 
     # ---- checkpoint plumbing ---------------------------------------------------------
@@ -170,6 +206,10 @@ class TrainLoop:
         return self.metrics_log
 
     def _run_until(self, n_steps: int, inject_failure_at: int | None):
+        with self._rules():
+            self._steps(n_steps, inject_failure_at)
+
+    def _steps(self, n_steps: int, inject_failure_at: int | None):
         while self.step < n_steps:
             if inject_failure_at is not None and self.step == inject_failure_at:
                 inject_failure_at = None
@@ -212,10 +252,11 @@ def main() -> None:
     args = ap.parse_args()
 
     cfg = preset_config(args.arch, args.preset)
+    mesh = make_local_mesh(devices=None if args.device is None else [args.device])
     loop = TrainLoop(
         cfg,
         AdamWConfig(total_steps=args.steps, warmup_steps=max(args.steps // 20, 5)),
-        args.device,
+        mesh,
         ckpt_dir=args.ckpt_dir,
         global_batch=args.global_batch,
         seq_len=args.seq_len,

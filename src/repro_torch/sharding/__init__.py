@@ -1,1 +1,2 @@
-"""Placement of the decoder's lane axis over a device mesh."""
+"""Logical-axis rules and the placement of tensors over a device mesh:
+the decoder's lane axis and the LM's parameters, caches and activations."""

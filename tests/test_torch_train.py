@@ -479,11 +479,13 @@ def test_train_loop_device_rules(tmp_path):
 
     cfg = get_config("starcoder2-3b").reduced()
     opt = optimizer.AdamWConfig()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6\.7"):
-        train.TrainLoop(cfg, opt, make_local_mesh(devices=["cpu"] * 2), ckpt_dir=tmp_path)
+    two = make_local_mesh(devices=["cpu"] * 2)
+    loop = train.TrainLoop(cfg, opt, two, ckpt_dir=tmp_path)  # a mesh of two: the sharded step
+    loop.pipeline.close()
+    assert loop.sharded and loop.mesh is two and loop.device == torch.device("cpu")
     loop = train.TrainLoop(cfg, opt, make_local_mesh(devices=["cpu"]), ckpt_dir=tmp_path)
     loop.pipeline.close()
-    assert loop.device == torch.device("cpu")
+    assert not loop.sharded and loop.device == torch.device("cpu")
     if not torch.cuda.is_available():
         from repro_torch.device import DeviceUnavailableError
 

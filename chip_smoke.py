@@ -278,10 +278,13 @@ Then the enc-dec card, the VLM stub and the training path:
     compute, per-layer remat, AdamW) for 6 steps of ``SyntheticLMStream``
     batches of 2 x 2048 tokens: finite loss that falls, step ms, tokens/s,
     peak memory, 60 flash launches per step on the tensor-core body, and a
-    profiler window over one step; then ``python -m
-    repro_torch.launch.train --preset 100m --steps 20`` with a failure
-    injected at step 12 and checkpoints every 10 steps: restored and
-    finished;
+    profiler window over one step; the same 6 steps from the same
+    parameters under ``REPRO_REMAT=dots`` (the products' outputs saved):
+    losses within 1e-4 of full remat's, step ms, tokens/s, peak memory and
+    the step's FLOPs counted on meta (``launch/cost.py``) under either
+    policy; then ``python -m repro_torch.launch.train --preset 100m
+    --steps 20`` with a failure injected at step 12 and checkpoints every
+    10 steps: restored and finished;
 28. the LM's mesh, in one process over device lists on the one card:
     Jamba-v0.1 at full width, 8 layers (one pattern repeat), float32
     weights, served over data=1, model=4 of ``[cuda:0] * 4`` under
@@ -300,7 +303,18 @@ Then the enc-dec card, the VLM stub and the training path:
     data=2 of ``[cuda:0] * 2`` against two single-device steps (loss
     within 1e-4, parameters within 2e-4), flash launches counted;
     ``pipeline_apply`` (P = 4, M = 6, (2, 16) microbatches) over
-    ``[cuda:0] * 4`` against the sequential stages.
+    ``[cuda:0] * 4`` against the sequential stages;
+29. the dry-run tooling (CPU only, on meta tensors, started in the
+    background at the beginning): ``python -m repro_torch.launch.dryrun``
+    for the decoder cells (``--viterbi``), StarCoder2-3B × train_4k and ×
+    decode_32k (the context-parallel cache) and DeepSeek-V2 × train_4k with
+    and without ``REPRO_MOE_RULES=fsdp``, each report's counted FLOPs,
+    bytes, collective bytes and argument GB of the busiest mesh position;
+    K1's and K2's counted work at 8,192 int8 blocks equal to their bounds'
+    inputs; then phase 6's decode from framed blocks and phase 17's prefill
+    (30 flash launches of the band's FLOPs) counted on meta, each count's
+    bound over the time that phase measured: a roofline share above 1.0
+    fails.
 
 Each phase prints its seconds (``[seconds]`` lines). The line before the
 last is the card's name and power limit; the last line is
@@ -311,11 +325,22 @@ torch finds no CUDA device or when the port's sources are missing.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+try:  # the H100's peaks and each kernel's (bytes, operations): one source with the roofline
+    from repro_torch.launch.cost import (BF16_FLOPS_PER_S, F32_FLOPS_PER_S, HBM_BYTES_PER_S,
+                                         INT32_OPS_PER_S, bound, flash_cost, fused_cost,
+                                         k1_cost, k1_matrix_cost, k2_cost, k2_prefix_cost,
+                                         k2_staged_bytes)
+except ImportError:  # no port beside this script: main() says so and exits non-zero
+    pass
 
 DEVICE = "cuda"
 SEED = 20261016
@@ -324,19 +349,6 @@ EBN0_DB = 4.0
 N_STREAMS, STREAM_BITS = 64, 65536
 SLAB_STREAMS, SLAB_STREAM_BITS, SLAB_PAGES = 512, 8192, 1024  # phase 20's slab
 
-# H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM3. The sheet gives
-# 67 TFLOP/s float32 outside the tensor cores, i.e. 132 SMs × 128 lanes × 2
-# (FMA) × 1.98 GHz; a Hopper SM has 64 INT32 lanes, so the 32-bit integer
-# ALU peak is 132 × 64 × 1.98e9 op/s. Rates assume the full 700 W limit.
-HBM_BYTES_PER_S = 3.35e12
-# Only the INT32 pipe: IMAD (on the FMA pipe) and DPX may issue beside it,
-# so a kernel could in principle beat this rate. A share of the bound above
-# 100 % would mean that the operation count or this peak is wrong, never
-# the timing; the script refuses such a reading (below, before the kernels
-# line).
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-BF16_FLOPS_PER_S = 989e12  # dense tensor-core peak
-F32_FLOPS_PER_S = 67e12  # outside the tensor cores
 
 # the LM path: StarCoder2-3B prefill of 2 prompts × 8192 tokens
 LM_BATCH, LM_SEQ = 2, 8192
@@ -380,6 +392,22 @@ MESH_PREFILL_ATOL = 0.25  # bf16 prefill logits, model=4 vs (1, 1) (bit-equal ex
 MESH_TRAIN = (4, 1024, 2)  # StarCoder2-3B: batch, sequence, steps
 MESH_LOSS_ATOL, MESH_PARAM_ATOL = 1e-4, 2e-4  # the reference's tests/test_distributed.py
 PIPE_ATOL = 1e-5
+# phase 27: REPRO_REMAT=dots keeps the products that full remat recomputes, so the losses
+# should agree as closely as the mesh step's do (the reference's tests/test_distributed.py)
+DOTS_LOSS_ATOL = 1e-4
+# phase 29: the dry-runs (CPU only, on meta tensors), started in the background at the
+# beginning and read at the end: (label, knobs, arguments of repro_torch.launch.dryrun)
+DRYRUNS = (
+    ("MOE train_4k", {}, ("--arch", "MOE", "--shape", "train_4k")),
+    ("MOE train_4k fsdp", {"REPRO_MOE_RULES": "fsdp"}, ("--arch", "MOE", "--shape", "train_4k")),
+    ("starcoder2-3b train_4k", {}, ("--arch", "starcoder2-3b", "--shape", "train_4k")),
+    ("starcoder2-3b decode_32k", {}, ("--arch", "starcoder2-3b", "--shape", "decode_32k")),
+    ("viterbi", {}, ("--viterbi",)),
+)
+DRYRUN_MOE = "deepseek-v2-236b"
+DRYRUN_AT_ONCE = 2  # background processes beside the phases (the two MoE runs first)
+# times of earlier phases that [29 roofline] divides the counted bounds by (not timed again)
+MEASURED: dict = {}
 # float32 compute, flash on vs off: the flash path's backward stores the probabilities in bf16
 # (the reference's _attend_chunked default), the streaming path's in float32, so the gradients
 # differ at bf16 level: each leaf within 3e-2 of its largest entry
@@ -416,95 +444,6 @@ def wall_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
-
-
-def k1_cost(code, T: int, B: int, sym_bytes: int) -> tuple[float, float]:
-    """(bytes, operations) K1 must move and do: symbols in, survivor words and
-    final metrics out; per stage and block 2^(R-1)·(R-1) folded-metric adds
-    and, per state, two adds, a compare and a select."""
-    W = -(-code.n_states // 32)
-    nbytes = T * code.R * B * sym_bytes + T * W * B * 4 + code.n_states * B * 4
-    ops = T * B * (4 * code.n_states + code.n_folded * (code.R - 1))
-    return float(nbytes), float(ops)
-
-
-def k2_cost(T: int, B: int, decode_start: int, n_decode: int) -> tuple[float, float]:
-    """(bytes, operations) of the serial walk: one start state and one word per
-    walked stage in, one bit word per decoded stage out; about six integer
-    operations per walked stage."""
-    walked = T - 1 - decode_start
-    nbytes = B * 4 + B * walked * 4 + n_decode * B * 4
-    ops = B * (T - decode_start) * 6
-    return float(nbytes), float(ops)
-
-
-def k2_staged_bytes(T: int, B: int, decode_start: int, n_decode: int, W: int) -> float:
-    """Bytes of the staged walk, not a bound of the function (K2's is): all
-    W words of every walked stage and the start states in, the bits out."""
-    return float(B * 4 + B * (T - 1 - decode_start) * W * 4 + n_decode * B * 4)
-
-
-def fused_cost(code, T: int, B: int, sym_bytes: int, decode_start: int,
-               n_decode: int) -> tuple[float, float]:
-    """(bytes, operations) of the fused kernel: symbols and start states in,
-    packed bit words out; K1's operations plus the walk's."""
-    n_words = -(-n_decode // 32)
-    nbytes = T * code.R * B * sym_bytes + B * 4 + n_words * B * 4
-    ops = k1_cost(code, T, B, sym_bytes)[1] + B * (T - decode_start) * 6
-    return float(nbytes), float(ops)
-
-
-def k1_matrix_cost(code, T: int, B: int, sym_bytes: int, k: int) -> tuple[float, float]:
-    """(bytes, operations) of the matrix algorithm, not a bound of the
-    function (K1's is): K1's bytes; per k-step and target
-    2^k adds and 2^k - 1 compare-selects (two operations each), plus kR - 1
-    adds per folded combined row and block; the T mod k trailing stages as
-    K1's."""
-    nbytes = k1_cost(code, T, B, sym_bytes)[0]
-    nk, nb = 1 << k, k * code.R
-    per_step = code.n_states * (nk + 2 * (nk - 1)) + (1 << (nb - 1)) * (nb - 1)
-    per_stage = 4 * code.n_states + code.n_folded * (code.R - 1)
-    return float(nbytes), float(B * ((T // k) * per_step + (T % k) * per_stage))
-
-
-def prefix_geometry(T: int, decode_start: int, n_decode: int, tb_chunk: int):
-    """(n_act, nc_e, C, first stage read) of the prefix walk."""
-    from repro_torch.kernels.traceback import prefix_chunk_geometry
-
-    C, P, n_chunks, c_lo, c_hi = prefix_chunk_geometry(T, decode_start, n_decode, tb_chunk)
-    return n_chunks - c_lo, c_hi - c_lo + 1, C, max(0, c_lo * C - P)
-
-
-def k2_prefix_cost(code, T: int, B: int, decode_start: int, n_decode: int,
-                   tb_chunk: int) -> tuple[float, float]:
-    """(bytes, operations) of the prefix algorithm, not a bound of the
-    function (K2's is): the start states and the survivor
-    words of the stages the active chunks hold in, the bits out; about six
-    integer operations per composed (chunk, state, stage), per walked map
-    and per expanded stage."""
-    n_act, nc_e, C, first = prefix_geometry(T, decode_start, n_decode, tb_chunk)
-    W = -(-code.n_states // 32)
-    nbytes = B * 4 + (T - first) * W * B * 4 + n_decode * B * 4
-    ops = B * 6 * (n_act * C * code.n_states + n_act + nc_e * C)
-    return float(nbytes), float(ops)
-
-
-def bound(nbytes: float, ops: float, op_rate: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / op_rate
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
-
-def flash_cost(B: int, S: int, T: int, Hkv: int, G: int, dh: int, causal: bool,
-               window: int | None, elem_bytes: int) -> tuple[float, float]:
-    """(bytes, FLOP) of band attention: q, k, v read once and o written once;
-    4·dh FLOP (two products) per (query head, valid key) pair of the band."""
-    keys = 0
-    for p in range(S):
-        lo = max(0, p - window + 1) if window else 0
-        hi = min(T, p + 1) if causal else T
-        keys += max(0, hi - lo)
-    nbytes = elem_bytes * (2 * B * S * Hkv * G * dh + 2 * B * T * Hkv * dh)
-    return float(nbytes), float(4 * dh * B * Hkv * G * keys)
 
 
 def device_profile(torch, fn, top: int = 6):
@@ -792,6 +731,7 @@ def lm_phases(torch, dev, gen, decoder_counters) -> dict:
     del q32, k32, v32, qs32, ks32, vs32
     n_tok = LM_BATCH * LM_SEQ
     pre = [wall_ms(torch, lambda: prefill(params, batch), reps=1) for _ in range(3)]
+    MEASURED.update(prefill_ms=statistics.median(pre), flash_ms=flash_ms)
     log(f"[17 times] prefill end to end, {LM_BATCH} × {LM_SEQ} tokens: ms {pre}, median "
         f"{statistics.median(pre):.1f} ms → {n_tok / statistics.median(pre) * 1e3:.0f} tokens/s")
     n_prompt, n_steps, n_req = 16, 32, 4
@@ -2387,7 +2327,9 @@ def train_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
     from repro_torch._unused.models import attention, lm
     from repro_torch._unused.train.data import SyntheticLMStream
     from repro_torch._unused.train.optimizer import AdamWConfig, adamw_init
-    from repro_torch._unused.train.train_step import loss_fn, make_train_step
+    from repro_torch._unused.train.train_step import (cast_params_for_compute, loss_fn,
+                                                      make_train_step)
+    from repro_torch.launch.cost import WorkCounter
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
     torch.backends.cudnn.allow_tf32 = False
@@ -2465,7 +2407,11 @@ def train_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
     torch.cuda.empty_cache()
 
     # ---- the full-depth step -----------------------------------------------------------------
-    params = lm.init_params(cfg, generator=gen, device=dev).requires_grad_(True)
+    def full_depth_params():  # the same initial parameters for full remat and for dots
+        init = torch.Generator(device=dev).manual_seed(SEED + 270)
+        return lm.init_params(cfg, generator=init, device=dev).requires_grad_(True)
+
+    params = full_depth_params()
     n_params = lm.count_params(params)
     # the reference's AdamW defaults: lr 3e-4 after 100 warmup steps, so these steps take
     # 3e-6 to 1.8e-5 (one step at 3e-4 on these random 30 layers sends the loss from 11.3 to 21.9)
@@ -2518,6 +2464,65 @@ def train_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     clock.lap("phase 27 train step")
+
+    # ---- the same steps under REPRO_REMAT=dots: the products' outputs kept ----------------
+    prev = os.environ.get("REPRO_REMAT")
+    os.environ["REPRO_REMAT"] = "dots"
+    try:
+        params = full_depth_params()
+        opt = adamw_init(dict(params.named_parameters()), opt_cfg)
+        step = make_train_step(cfg, opt_cfg)
+        dots_losses, dots_times = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(TRAIN_STEPS):
+            batch = on_device(stream.batch(i))
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            dots_losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            dots_times.append((time.perf_counter() - t0) * 1e3)
+        dots_peak = torch.cuda.max_memory_allocated()
+        del params, opt, step, batch, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_REMAT", None)
+        else:
+            os.environ["REPRO_REMAT"] = prev
+    loss_diff = max(abs(a - b) for a, b in zip(dots_losses, losses))
+    if not loss_diff <= DOTS_LOSS_ATOL:
+        raise AssertionError(f"{tag} REPRO_REMAT=dots: losses {dots_losses} against full "
+                             f"remat's {losses}, {loss_diff:.3e} apart")
+    counted = {}
+    meta_params = lm.init_params(cfg, device="meta").requires_grad_(True)
+    meta_batch = {key: torch.empty((B, S), dtype=torch.int64, device="meta")
+                  for key in ("tokens", "labels")}
+    for mode in ("full", "dots"):
+        os.environ["REPRO_REMAT"] = mode
+        try:
+            with WorkCounter() as c, torch.enable_grad():
+                loss = loss_fn(cast_params_for_compute(meta_params, cfg), meta_batch, cfg)
+                torch.autograd.grad(loss, list(meta_params.parameters()))
+        finally:
+            os.environ.pop("REPRO_REMAT", None)
+        counted[mode] = c.flops
+    with WorkCounter() as c, torch.no_grad():
+        loss_fn(cast_params_for_compute(meta_params, cfg), meta_batch, cfg)
+    forward = c.flops
+    if prev is not None:
+        os.environ["REPRO_REMAT"] = prev
+    dots_med = statistics.median(dots_times[1:])
+    log(f"{tag} {power}: REPRO_REMAT=dots, {cfg.name} full depth, {B} x {S} tokens per step: "
+        f"losses {[round(x, 4) for x in dots_losses]}, {loss_diff:.3e} from full remat's "
+        f"(atol {DOTS_LOSS_ATOL}); step ms {[round(x, 1) for x in dots_times]}, median of the "
+        f"rest {dots_med:.1f} ms (full remat {med:.1f}) -> {B * S / dots_med * 1e3:.0f} "
+        f"tokens/s; peak {dots_peak / 1e9:.2f} GB (full remat {peak / 1e9:.2f}); counted step "
+        f"FLOP (launch/cost.py, on meta) full remat {counted['full']:.6e}, dots "
+        f"{counted['dots']:.6e}: {counted['full'] - counted['dots']:.6e} less recompute, "
+        f"{(counted['full'] - counted['dots']) / (counted['full'] - 3 * forward):.1%} of full "
+        f"remat's recompute (the step less three forwards of {forward:.6e})")
+    clock.lap("phase 27 dots")
 
     # ---- the train CLI: an injected failure restored from the last checkpoint -------------
     root = Path(__file__).resolve().parent
@@ -2790,6 +2795,176 @@ def lm_mesh_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
     return {"mesh prefill": pre_launches[1], "mesh train step": m_launches[-1]}
 
 
+class DryRuns:
+    """The ``DRYRUNS`` of ``repro_torch.launch.dryrun``, one subprocess each
+    at the lowest CPU priority with one thread, at most ``DRYRUN_AT_ONCE``
+    at a time (they count on meta tensors and touch no card, and share the
+    host with the phases' host clocks), in ``DRYRUNS`` order from two
+    feeder threads; reports and output under ``build/dryrun/``. ``wait``
+    collects them, ``stop`` kills what still runs and starts nothing more."""
+
+    def __init__(self):
+        root = Path(__file__).resolve().parent
+        self.dir = root / "build" / "dryrun"
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.env = {**os.environ, "PYTHONPATH": str(root / "src"), "OMP_NUM_THREADS": "1"}
+        self.root, self.t0 = root, time.perf_counter()
+        self.todo = list(DRYRUNS)
+        self.procs, self.rcs, self.stopped = {}, {}, False
+        self.lock = threading.Lock()
+        self.feeders = [threading.Thread(target=self._feed, daemon=True)
+                        for _ in range(DRYRUN_AT_ONCE)]
+        for t in self.feeders:
+            t.start()
+
+    def _name(self, label: str) -> str:
+        return label.replace("MOE", DRYRUN_MOE).replace(" ", "_")
+
+    def _feed(self) -> None:
+        while True:
+            with self.lock:
+                if self.stopped or not self.todo:
+                    return
+                label, knobs, argv = self.todo.pop(0)
+                argv = [a.replace("MOE", DRYRUN_MOE) for a in argv]
+                if argv[0] != "--viterbi":
+                    argv += ["--out", str(self.dir / f"{self._name(label)}.json")]
+                with open(self.dir / f"{self._name(label)}.log", "w") as log_file:
+                    proc = self.procs[label] = subprocess.Popen(
+                        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv],
+                        cwd=self.root, env={**self.env, **knobs}, stdout=log_file,
+                        stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19))
+            self.rcs[label] = proc.wait()
+
+    def wait(self, timeout: float) -> dict:
+        """Each run's report (the viterbi run: its single-pod int8 report),
+        after waiting at most ``timeout`` seconds in all; a run that fails or
+        has not finished raises."""
+        deadline = time.perf_counter() + timeout
+        for t in self.feeders:
+            t.join(timeout=max(0.0, deadline - time.perf_counter()))
+        reports = {}
+        for label, _, _ in DRYRUNS:
+            if label not in self.rcs:
+                raise AssertionError(f"[29 dryrun] {label} has not finished after "
+                                     f"{time.perf_counter() - self.t0:.0f} s")
+            out = self.dir / f"{self._name(label)}.json"
+            if label == "viterbi":
+                out = self.root / "reports" / "torch_dryrun" / \
+                    "viterbi-ccsds__stream_16m_int8__pod16x16.json"
+            if self.rcs[label] or not out.exists():
+                tail = (self.dir / f"{self._name(label)}.log").read_text()[-2000:]
+                raise AssertionError(f"[29 dryrun] {label} exited {self.rcs[label]}: {tail}")
+            reports[label.replace("MOE", DRYRUN_MOE)] = json.loads(out.read_text())
+        return reports
+
+    def stop(self) -> None:
+        with self.lock:
+            self.stopped = True
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def dryrun_phases(torch, dryruns: DryRuns, power: str, clock: PhaseClock) -> None:
+    """Phase 29: the dry-runs' reports, and the work the earlier phases'
+    timed calls do, counted on meta tensors (``launch/cost.py``) and
+    divided by the times those phases measured.
+
+    ``[29 dryrun]``: each ``DRYRUNS`` report's counted FLOPs, bytes,
+    collective bytes and argument GB of its busiest mesh position; K1's and
+    K2's counted work at 8,192 blocks of int8 CCSDS symbols equal to the
+    bounds' inputs (``PERF.md`` §6 rows 1 and 4), and the decoder report's
+    K1 and K2 equal to the same formulas at its lane shard's width.
+    ``[29 roofline]``: phase 6's decode from framed blocks (4,194,304 bits,
+    ``"cuda"``) and phase 17's StarCoder2-3B prefill (2 × 8192 tokens, 30
+    flash launches of the band's FLOPs), each count's bound over the phase's
+    time; a share above 1.0 fails."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.trellis import CCSDS_27
+    from repro_torch.kernels.ops import pbvd_decode_blocks
+    from repro_torch.launch.cost import WorkCounter
+    from repro_torch._unused.models import lm
+    from repro_torch._unused.serve.serve_step import make_prefill_step
+
+    t0 = time.perf_counter()
+    reports = dryruns.wait(timeout=240.0)
+    for label, r in reports.items():
+        c = r["count"]
+        knobs = (f"REPRO_MOE_RULES={r['moe_rules']}, REPRO_REMAT={r['remat']}"
+                 if "moe_rules" in r else "backend cuda")
+        log(f"[29 dryrun] {label} ({r['arch']} × {r['shape']} × {r['mesh']}, {knobs}): "
+            f"busiest position "
+            f"{c['busiest_position']} of {c['positions_with_work']} with work: "
+            f"{c['flops_per_device']:.6e} FLOP {c['flops_per_device_by_dtype']}, "
+            f"{c['bytes_per_device']:.6e} B, collective {c['collective_bytes_per_device']} "
+            f"(counts {c['collective_counts']}), args "
+            f"{r['memory']['argument_size_in_bytes'] / 1e9:.3f} GB; dry-run {r['total_s']} s")
+    want = {"acs_forward (K1)": k1_cost(CCSDS_27, 596, 8192, 1),
+            "traceback (K2)": k2_cost(596, 8192, 42, 512)}
+    blocks = torch.empty((596, 2, 8192), dtype=torch.int8, device="meta")
+    with WorkCounter() as decode_count:
+        pbvd_decode_blocks(blocks, CCSDS_27, decode_start=42, n_decode=512, backend="cuda")
+    got = {k: (v["bytes"], v["ops"]) for k, v in decode_count.total().kernels.items()}
+    vit = reports["viterbi"]["count"]["kernels_per_device"]
+    shard = reports["viterbi"]["count"]["kernels_per_device"]["acs_forward (K1)"]["bytes"]
+    width = 32768 // 16
+    vit_want = {"acs_forward (K1)": k1_cost(CCSDS_27, 596, width, 1),
+                "traceback (K2)": k2_cost(596, width, 42, 512)}
+    if (got != want or {k: (v["bytes"], v["ops"]) for k, v in vit.items()} != vit_want
+            or got["acs_forward (K1)"] != (50_921_472.0, 1_259_667_456.0)
+            or got["traceback (K2)"][0] != 34_930_688.0):
+        raise AssertionError(f"[29 dryrun] counted decoder work {got} (want {want}); the "
+                             f"report's lane shard {vit} (want {vit_want})")
+    log(f"[29 dryrun] counted at 8,192 blocks, R = 2, int8: K1 {got['acs_forward (K1)'][0]:.0f} "
+        f"B and {got['acs_forward (K1)'][1]:.0f} int32 op, K2 {got['traceback (K2)'][0]:.0f} B: "
+        f"the bounds' inputs (PERF.md §6 rows 1, 4); the stream_16m_int8 report's lane shard "
+        f"({width} blocks) K1 {shard:.0f} B, equal to the same formulas")
+    clock.lap("phase 29 dryrun")
+
+    shares = []
+    k1_b = got["acs_forward (K1)"]
+    k2_b = got["traceback (K2)"]
+    k1_bound = bound(*k1_b, INT32_OPS_PER_S)[0]
+    k2_bound = bound(*k2_b, INT32_OPS_PER_S)[0]
+    dec_bound = decode_count.total().bound_s() * 1e3
+    shares += [("K1", k1_bound, MEASURED["k1_ms"]), ("K2", k2_bound, MEASURED["k2_ms"]),
+               ("decode from framed blocks (phase 6's dispatch+K1+K2)", dec_bound,
+                MEASURED["decode_ms"])]
+    cfg = get_config("starcoder2-3b")
+    params = lm.init_params(cfg, device="meta")  # float32 at rest, as phase 16's
+    batch = {"tokens": torch.empty((LM_BATCH, LM_SEQ), dtype=torch.int64, device="meta")}
+    with WorkCounter() as prefill_count:
+        make_prefill_step(cfg)(params, batch)
+    tot = prefill_count.total()
+    flash = tot.kernels.get("flash_attention", {})
+    want_flash = flash_cost(LM_BATCH, LM_SEQ, LM_SEQ, cfg.n_kv_heads,
+                            cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, True,
+                            cfg.sliding_window, 2)
+    if (flash.get("launches") != cfg.n_layers or flash.get("kind") != "bf16"
+            or flash["ops"] != cfg.n_layers * want_flash[1]):
+        raise AssertionError(f"[29 roofline] counted prefill flash {flash}, want {cfg.n_layers} "
+                             f"bf16 launches of {want_flash[1]:.6e} FLOP")
+    flash_bound = bound(want_flash[0], want_flash[1], BF16_FLOPS_PER_S)[0]
+    shares += [("flash_attention (one prefill launch)", flash_bound, MEASURED["flash_ms"]),
+               ("StarCoder2-3B prefill (phase 17)", tot.bound_s() * 1e3, MEASURED["prefill_ms"])]
+    log(f"[29 roofline] {power}: counted StarCoder2-3B prefill {LM_BATCH} x {LM_SEQ}: "
+        f"{sum(tot.flops.values()):.6e} FLOP {dict(tot.flops)}, {tot.bytes:.6e} B; flash "
+        f"{flash['launches']} launches of {want_flash[1]:.6e} FLOP (the band at phase 17's "
+        f"shapes); decode: {dict(decode_count.total().flops)} op, {decode_count.bytes:.6e} B")
+    for what, b_ms, t_ms in shares:
+        share = b_ms / t_ms
+        log(f"[29 roofline] {power}: {what}: counted bound {b_ms:.4f} ms over {t_ms:.4f} ms "
+            f"measured = {share:.1%} of the roofline")
+        if share > 1.0:
+            raise AssertionError(f"[29 roofline] {what}: the bound {b_ms} ms is above the "
+                                 f"measured {t_ms} ms: the count or the peak is wrong")
+    log(f"[29 roofline] counted in {time.perf_counter() - t0:.1f} s (the dry-runs' wait "
+        f"included)")
+    clock.lap("phase 29 roofline")
+
+
 def main() -> int:
     clock = PhaseClock()
     import torch
@@ -2801,8 +2976,15 @@ def main() -> int:
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources are not under {src}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(src))
 
+    dryruns = DryRuns()  # CPU only: they run while the build and the card's phases do
+    try:
+        return checked_main(torch, clock, dryruns)
+    finally:
+        dryruns.stop()
+
+
+def checked_main(torch, clock, dryruns) -> int:
     from repro_torch.core.channel import bpsk, transmit
     from repro_torch.core.codespec import get_code_spec
     from repro_torch.core.encoder import encode
@@ -3044,6 +3226,7 @@ def main() -> int:
     )
     frame_ms = wall_ms(torch, lambda: engine._frame_one(y, n_bits), reps=5)
     blocks_ms = wall_ms(torch, lambda: engine._decode_blocks(blocks, (n_blocks,)), reps=5)
+    MEASURED.update(k1_ms=k1_ms, k2_ms=k2_ms, decode_ms=blocks_ms)
     dec_bits = engine._decode_blocks(blocks, (n_blocks,))
     unpack_ms = wall_ms(torch, lambda: dec_bits.t().reshape(-1)[:n_bits].contiguous(), reps=5)
     e2e_ms = wall_ms(torch, lambda: engine.decode(y, n_bits), reps=5)
@@ -3730,6 +3913,7 @@ def main() -> int:
     encdec = encdec_phases(torch, dev, counters, power, clock)
     trained = train_phases(torch, dev, counters, power, clock)
     meshed = lm_mesh_phases(torch, dev, counters, power, clock)
+    dryrun_phases(torch, dryruns, power, clock)
     # the flash launches on every LM path: StarCoder2-3B's prefill (its main path,
     # ``launches``), the enc-dec and VLM prefills, one training step and the Jamba mesh
     # prefill (the tensor-core body), and one float32 mesh train step (the CUDA-core body)

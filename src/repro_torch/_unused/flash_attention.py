@@ -12,7 +12,9 @@ reference's signature and checks
 TPU's ``q_chunk``/``kv_chunk`` are checked as the reference checks them, and
 the CUDA kernel chooses its own tiles (:func:`tile_plan`). For a CPU tensor
 it runs the plain version :func:`ref_mha` and casts to q's dtype; for a CUDA
-tensor it launches the kernel or raises, never falling back. There is no
+tensor it launches the kernel or raises, never falling back; for a meta
+tensor it launches nothing and reports the band's work to the work counter
+(``launch/cost.py``). There is no
 interpret mode: ``interpret`` is accepted and ignored.
 
 :func:`band_blocks` and :func:`launch_args` are the kernel's block range and
@@ -30,6 +32,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import cost
 
 __all__ = [
     "flash_attention",
@@ -227,6 +230,11 @@ def flash_attention(
         raise ValueError(f"S={S} % {q_chunk} or T={T} % {kv_chunk} != 0")
     if q.device.type == "cpu":
         return ref_mha(q, k, v, causal=causal, window=window, scale=scale).to(q.dtype)
+    if q.device.type == "meta":  # launches nothing; its work by the band, for the counter
+        cost.kernel("flash_attention", *cost.flash_cost(
+            B, S, T, Hkv, G, dh, causal, window, q.element_size()),
+            "bf16" if q.dtype == torch.bfloat16 else "f32")
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors, got {q.device}")
     out = torch.empty_like(q)

@@ -41,8 +41,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import dispatch_type
+from repro_torch.launch import cost
 from repro_torch.sharding.place import Placed
-from repro_torch.sharding.rules import shard
+from repro_torch.sharding.rules import on_position, shard
 from repro_torch._unused.flash_attention import flash_attention
 from .layers import (Dense, Norm, apply_rope, cdtype, dense_apply, dense_axes, dense_init,
                      norm_apply, norm_axes, norm_init, rope_sin_cos)
@@ -71,7 +73,7 @@ def _use_flash(x: torch.Tensor) -> bool:
         return False
     if mode in ("on", "1", "force"):
         return True
-    return x.device.type == "cuda"  # auto
+    return dispatch_type(x) == "cuda"  # auto (a counted meta tensor: the counter's target)
 
 
 class _FlashPlainBwd(torch.autograd.Function):
@@ -227,20 +229,30 @@ def _attend_decode_tiles(q: torch.Tensor, k: Placed, v: Placed, *, scale: float,
     q32 = q.float() * scale
     v_blocks = v.blocks()
     parts: dict[tuple[int, int], list] = {}
+    where = k.block_positions()
     for coords, k_t in k.blocks().items():
         sl = k.block_slices(coords)
         dev = k_t.device
-        k_f, v_f = (k_t, v_blocks[coords]) if kv is None else kv(k_t, v_blocks[coords])
-        s = torch.einsum("bxhgd,bthd->bhgxt", q32[sl[0]].to(dev), k_f.float())
-        if softcap is not None:
-            s = softcap * torch.tanh(s / softcap)
-        s = s.masked_fill(~valid[sl[0], sl[1]].to(dev)[:, None, None, None, :], NEG_INF)
-        m = s.amax(-1, keepdim=True)
-        p = torch.exp(s - m)
-        acc = torch.einsum("bhgxt,bthd->bhgxd", p, v_f.float())
-        parts.setdefault((sl[0].start, sl[0].stop), []).append((m, p.sum(-1, keepdim=True), acc))
+        with on_position(where[coords]):
+            k_f, v_f = (k_t, v_blocks[coords]) if kv is None else kv(k_t, v_blocks[coords])
+            s = torch.einsum("bxhgd,bthd->bhgxt", q32[sl[0]].to(dev), k_f.float())
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            s = s.masked_fill(~valid[sl[0], sl[1]].to(dev)[:, None, None, None, :], NEG_INF)
+            m = s.amax(-1, keepdim=True)
+            p = torch.exp(s - m)
+            acc = torch.einsum("bhgxt,bthd->bhgxd", p, v_f.float())
+            l_t = p.sum(-1, keepdim=True)
+        parts.setdefault((sl[0].start, sl[0].stop), []).append((m, l_t, acc, where[coords]))
+    counter = cost.active()
+    if counter is not None:  # each tile's partials go to its batch slice's first tile
+        for group in parts.values():
+            for part in group[1:]:
+                counter.collective("gather", sum(t.numel() * t.element_size()
+                                                 for t in part[:3]), group[0][3])
     outs = []
     for _, group in sorted(parts.items()):
+        group = [part[:3] for part in group]
         dev = group[0][0].device
         ms = [m.to(dev) for m, _, _ in group]
         M = ms[0]

@@ -21,7 +21,11 @@ The entry points run on the card unless the caller passes a CPU device:
 carry a gradient: with grad enabled and a parameter or input that
 requires one, each layer runs under ``torch.utils.checkpoint``
 (non-reentrant), the counterpart of the
-reference's default full remat (``REPRO_REMAT=dots`` is not ported).
+reference's remat: by default the whole layer is recomputed in the
+backward; with ``REPRO_REMAT=dots`` (read at each forward, as the
+reference reads it) the outputs of the products with no batch dimension
+(``aten.mm``/``addmm``: the dense layers, not ``bmm`` or attention) are
+saved and the rest recomputed (``create_selective_checkpoint_contexts``).
 :func:`apply_decode` and :func:`prefill_cross` serve, under
 ``torch.no_grad``.
 
@@ -38,10 +42,13 @@ a module inside the layer's remat, so that the backward gathers it again.
 from __future__ import annotations
 
 import contextlib
+import functools
+import os
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LayerDesc, ModelConfig
 from repro_torch.device import resolve_device
@@ -206,29 +213,70 @@ def _layers(layer: nn.ModuleDict, pattern, x, cfg, positions, causal, xa):
     return x
 
 
-def _remat(layer: nn.ModuleDict, pattern, x, cfg, positions, causal=True, xa=None):
+#: the products ``REPRO_REMAT=dots`` saves: no batch dimension (the reference's
+#: ``dots_with_no_batch_dims_saveable``)
+_SAVED_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _remat_dots() -> bool:
+    """The layer remat policy: ``REPRO_REMAT=dots`` saves the products'
+    outputs (recomputing only the rest in the backward's re-forward: more
+    memory, fewer recompute FLOPs); the default recomputes everything."""
+    return os.environ.get("REPRO_REMAT", "full") == "dots"
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _entered(contexts):
+    with contextlib.ExitStack() as stack:
+        for cm in contexts:
+            stack.enter_context(cm)
+        yield
+
+
+def _remat_contexts(state, dots: bool):
+    """``checkpoint``'s (forward, recompute) contexts: the selective policy's
+    pair under ``dots``, and the forward's rule context entered again for
+    the recompute."""
+    forward, recompute = [], []
+    if state != (None, None):
+        recompute.append(restored_context(state))
+    if dots:
+        f, r = create_selective_checkpoint_contexts(_dots_policy)
+        forward.append(f)
+        recompute.append(r)
+    return _entered(forward), _entered(recompute)
+
+
+def _remat(layer: nn.ModuleDict, pattern, x, cfg, positions, causal=True, xa=None,
+           dots: bool = False):
     """One scan step of the reference (the layers of one repeat of a
     pattern), recomputed in the backward when a gradient is being taken:
     grad mode is on and the input, the context or a parameter of the layer
     requires one (serving, whose parameters do not, never checkpoints).
-    The forward draws no random numbers, so no RNG state is kept; a rule
-    context or shard position of the forward is entered again for the
-    recompute, which may run in the autograd engine's thread."""
+    With ``dots`` the products' outputs are kept and not recomputed. The
+    forward draws no random numbers, so no RNG state is kept; a rule context
+    or shard position of the forward is entered again for the recompute,
+    which may run in the autograd engine's thread."""
     args = (layer, pattern, x, cfg, positions, causal, xa)
     if torch.is_grad_enabled() and (
             x.requires_grad or (xa is not None and xa.requires_grad)
             or any(p.requires_grad for p in layer.parameters())):
         state = context_state()
-        kw = {} if state == (None, None) else {
-            "context_fn": lambda: (contextlib.nullcontext(), restored_context(state))}
+        kw = {} if state == (None, None) and not dots else {
+            "context_fn": functools.partial(_remat_contexts, state, dots)}
         return checkpoint(_layers, *args, use_reentrant=False, preserve_rng_state=False, **kw)
     return _layers(*args)
 
 
 def _run_groups(groups: nn.ModuleList, x, cfg: ModelConfig, *, positions, causal=True, xa=None):
+    dots = _remat_dots()
     for (pattern, _repeat), layers in zip(cfg.layer_list, groups):
         for layer in layers:
-            x = _remat(layer, pattern, x, cfg, positions, causal, xa)
+            x = _remat(layer, pattern, x, cfg, positions, causal, xa, dots)
     return x
 
 
@@ -246,8 +294,9 @@ def encode(params: LM, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     (B, Sx, d) → (B, Sx, d) in the compute dtype; non-causal self-attention."""
     x = frames.to(cdtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
+    dots = _remat_dots()
     for layer in params.encoder:
-        x = _remat(layer, ENC_PATTERN, x, cfg, positions, causal=False)
+        x = _remat(layer, ENC_PATTERN, x, cfg, positions, causal=False, dots=dots)
     return norm_apply(params.enc_norm, x, cfg)
 
 

@@ -39,7 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.rules import batch_shards, current_rules, mesh_position, shard
+from repro_torch.launch import cost
+from repro_torch.sharding.rules import (batch_shards, current_rules, mesh_position, on_position,
+                                        shard)
 from .layers import FFN, Dense, cdtype, dense_axes, dense_init, pdtype
 
 __all__ = ["MoE", "moe_init", "moe_axes", "moe_apply", "moe_capacity", "dropped", "ep_load"]
@@ -259,23 +261,32 @@ def _moe_apply_ep(p: MoE, x: torch.Tensor, cfg: ModelConfig, ep_axis: str) -> to
         tok_s, gate_s, ids_s, rank, keep, C = _ep_route(p, xl, cfg)
         xt = xl.reshape(T, d)
         routed = None
+        first_pos = mesh_position(mesh, {**coords, ep_axis: 0})
         for m in range(ep):
-            dev = mesh.devices[mesh_position(mesh, {**coords, ep_axis: m})]
-            # slots of THIS shard's experts only
-            dest = ids_s * C + rank - m * E_loc * C
-            valid = keep & (dest >= 0) & (dest < E_loc * C)
-            dest = torch.where(valid, dest, E_loc * C).to(dev)
-            buf = torch.zeros((E_loc * C + 1, d), dtype=dtype, device=dev)
-            buf[dest] = xt[tok_s].to(dev, dtype)
-            buf = buf[: E_loc * C].reshape(E_loc, C, d)
-            wi, wg, wo = (w[m * E_loc:(m + 1) * E_loc].to(dev, dtype) for w in (p.wi, p.wg, p.wo))
-            h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) * torch.einsum("ecd,edf->ecf",
-                                                                               buf, wi)
-            y = torch.einsum("ecf,efd->ecd", h, wo).reshape(E_loc * C, d)
-            y = torch.cat([y, y.new_zeros((1, d))])
-            contrib = y[dest] * (gate_s * valid).to(dev, dtype)[:, None]
-            out = torch.zeros((T, d), dtype=dtype, device=dev)
-            out = out.index_put((tok_s.to(dev),), contrib, accumulate=True)
+            pos = mesh_position(mesh, {**coords, ep_axis: m})
+            dev = mesh.devices[pos]
+            with on_position(pos):
+                # slots of THIS shard's experts only
+                dest = ids_s * C + rank - m * E_loc * C
+                valid = keep & (dest >= 0) & (dest < E_loc * C)
+                dest = torch.where(valid, dest, E_loc * C).to(dev)
+                buf = torch.zeros((E_loc * C + 1, d), dtype=dtype, device=dev)
+                sent = xt[tok_s].to(dev, dtype)
+                buf[dest] = sent
+                buf = buf[: E_loc * C].reshape(E_loc, C, d)
+                wi, wg, wo = (w[m * E_loc:(m + 1) * E_loc].to(dev, dtype)
+                              for w in (p.wi, p.wg, p.wo))
+                h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) * torch.einsum(
+                    "ecd,edf->ecf", buf, wi)
+                y = torch.einsum("ecf,efd->ecd", h, wo).reshape(E_loc * C, d)
+                y = torch.cat([y, y.new_zeros((1, d))])
+                contrib = y[dest] * (gate_s * valid).to(dev, dtype)[:, None]
+                out = torch.zeros((T, d), dtype=dtype, device=dev)
+                out = out.index_put((tok_s.to(dev),), contrib, accumulate=True)
+            counter = cost.active()
+            if counter is not None and m:  # the tokens out to shard m and its sums back
+                counter.collective("all-to-all", sent.numel() * sent.element_size(), pos)
+                counter.collective("all-to-all", out.numel() * out.element_size(), first_pos)
             routed = out.to(first) if routed is None else routed + out.to(first)
         outs.append(routed.reshape(Bl, Sl, d).to(x.device))
     routed = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)

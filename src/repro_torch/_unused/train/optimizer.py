@@ -21,6 +21,8 @@ from typing import Mapping, NamedTuple
 
 import torch
 
+from repro_torch.sharding.rules import on_position
+
 __all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update", "adamw_update_tiles",
            "cosine_schedule", "global_norm"]
 
@@ -121,6 +123,7 @@ def adamw_update_tiles(params: Mapping, grads: Mapping, state: OptState, cfg: Ad
     for key, p in params.items():
         g, m, v = grads[key], state.m[key], state.v[key]
         for pos in p.positions():
-            _adamw_leaf(p.tiles[pos], g.tiles[pos], m.tiles[pos], v.tiles[pos], lr, scale, b1c,
-                        b2c, cfg)
+            with on_position(pos):
+                _adamw_leaf(p.tiles[pos], g.tiles[pos], m.tiles[pos], v.tiles[pos], lr, scale,
+                            b1c, b2c, cfg)
     return params, OptState(step, state.m, state.v), {"grad_norm": gnorm, "lr": lr}

@@ -119,12 +119,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, compress_grads: b
     return step
 
 
-def place_train_state(params: nn.Module, cfg: ModelConfig, opt_cfg: AdamWConfig, mesh):
+def place_train_state(params: nn.Module, cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
+                      rules=None):
     """``params`` (the full module) laid over ``mesh`` per
-    ``lm.param_axes(cfg)`` and the mesh's default rules: (``{name:
-    Placed}`` with every tile a leaf of its own that requires grad, the
-    AdamW state with its moments placed alike)."""
-    r = LogicalRules(mesh, DEFAULT_RULES if "pod" in mesh.axis_names else SINGLE_POD_RULES)
+    ``lm.param_axes(cfg)`` and ``rules`` (``None``: the mesh's default
+    rules): (``{name: Placed}`` with every tile a leaf of its own that
+    requires grad, the AdamW state with its moments placed alike)."""
+    if rules is None:
+        rules = DEFAULT_RULES if "pod" in mesh.axis_names else SINGLE_POD_RULES
+    r = LogicalRules(mesh, rules)
     named = {k: p.detach() for k, p in params.named_parameters()}
     shardings = tree_shardings(named, lm.param_axes(cfg), r)
     placed = {k: place(t, shardings[k], copy=True) for k, t in named.items()}
@@ -179,19 +182,21 @@ def _shard_model(template: lm.LM, params: dict, device, cast):
 
 
 def make_mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, *,
-                         compress_grads: bool = False):
+                         compress_grads: bool = False, rules=None):
     """The train step over ``mesh`` (params, opt_state, batch) → (params,
     opt_state, metrics), for the state :func:`place_train_state` lays out;
     tiles and moments are updated in place. The batch's rows are split into
     data shards along the mesh axes of the ``batch`` rule; it runs under
     ``axis_rules(mesh)``, so MoE layers take the expert-parallel
-    path within each data shard. ``metrics``: ``loss`` (the global batch's
-    mean, on the mesh's first device), ``grad_norm`` and ``lr``."""
+    path within each data shard; ``rules`` replaces the mesh's default
+    rules (as :func:`place_train_state`'s). ``metrics``: ``loss`` (the
+    global batch's mean, on the mesh's first device), ``grad_norm`` and
+    ``lr``."""
     template = lm.init_params(cfg, device="meta")
     cast = functools.partial(_compute_cast, dtype=getattr(torch, cfg.compute_dtype))
 
     def step(params: dict, opt_state: OptState, batch: dict):
-        with axis_rules(mesh):
+        with axis_rules(mesh, rules):
             first = mesh.devices.flat[0]
             tiles = [t for p in params.values() for t in p.blocks().values()]
             for t in tiles:

@@ -3,8 +3,8 @@
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
 package): the same ``LayerDesc`` and ``ModelConfig`` (every field, with
 ``dt_rank``, ``mamba_d_inner``, ``layer_list``, ``n_params_estimate``,
-``n_active_params_estimate`` and ``reduced()``). The benchmark shapes come
-with the slice that needs them. The registry holds every card of the
+``n_active_params_estimate`` and ``reduced()``), and the dry-run's input
+shapes ``ShapeSpec`` and ``SHAPES`` (``launch/specs.py``). The registry holds every card of the
 reference: the dense GQA cards, Mixtral's MoE, DeepSeek-V2's MLA, Jamba's
 Mamba, RWKV-6, the enc-dec SeamlessM4T-medium and the VLM stub Pixtral-12B.
 """
@@ -15,7 +15,8 @@ import dataclasses
 import importlib
 from typing import Literal, Optional
 
-__all__ = ["ModelConfig", "LayerDesc", "register", "get_config", "list_archs"]
+__all__ = ["ModelConfig", "LayerDesc", "ShapeSpec", "SHAPES", "register", "get_config",
+           "list_archs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,6 +224,21 @@ class ModelConfig:
             n_patches=min(self.n_patches, 4) if self.n_patches else 0,
         )
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 _REGISTRY: dict[str, ModelConfig] = {}
 

@@ -9,7 +9,11 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DeviceUnavailableError", "resolve_device"]
+__all__ = ["DeviceUnavailableError", "resolve_device", "dispatch_type"]
+
+#: the device type a meta tensor stands for while a work counter counts
+#: (``launch/cost.py``), else ``None``
+_META_STANDS_FOR: list = [None]
 
 
 class DeviceUnavailableError(RuntimeError):
@@ -27,3 +31,14 @@ def resolve_device(device: str | torch.device | None, user: str = "DecoderEngine
             f"plain PyTorch versions"
         )
     return dev
+
+
+def dispatch_type(t: torch.Tensor) -> str:
+    """The device type a dispatch decision reads for ``t``: its own, except
+    that inside a work counter (``launch/cost.py``) a meta tensor stands for
+    the counter's target device, so that the count takes the card's
+    branches."""
+    kind = t.device.type
+    if kind == "meta" and _META_STANDS_FOR[0] is not None:
+        return _META_STANDS_FOR[0]
+    return kind

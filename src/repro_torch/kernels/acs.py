@@ -7,7 +7,9 @@ branches, driven by ``acs_forward_pallas``) and K1-matrix its
 the metric modes ``f32``/``i16``/``i8``. :func:`acs_forward` takes the
 plain PyTorch version :func:`acs_forward_plain`
 (``repro_torch.kernels.ref.acs_forward_ref``) for a CPU tensor; for a CUDA
-tensor it launches a CUDA kernel or raises. Float symbols with
+tensor it launches a CUDA kernel or raises; for a meta tensor it launches
+nothing, returns outputs of the kernel's shapes and dtypes and reports the
+kernel's work to the work counter (``launch/cost.py``). Float symbols with
 ``impl="matrix"`` run the radix-2 butterfly kernel, as the reference lowers
 them (IEEE addition is not associative). What bounds the kernels on the
 card and what their design does about it is noted in the CUDA source. In
@@ -49,6 +51,7 @@ import torch
 from repro_torch.core.codespec import IS95_29, LTE_37
 from repro_torch.core.quantize import metric_mode_qmax, norm_interval
 from repro_torch.core.trellis import CCSDS_27, ConvCode
+from repro_torch.launch import cost
 from . import _build
 from .ref import _acc_dtype_for, acs_forward_ref as acs_forward_plain
 
@@ -239,6 +242,22 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _meta_forward(y, code: ConvCode, metric_mode: str, impl: str, k: int):
+    """The kernels' outputs on meta, launching nothing: survivor words
+    (T, W, B) int32 and metrics (N, B) int32 (float32 for float symbols),
+    with K1's or K1-matrix's work reported to the work counter."""
+    T, R, B = y.shape
+    float_syms = _acc_dtype_for(y.dtype, metric_mode) == torch.float32
+    if impl == "matrix" and float_syms:
+        impl = "butterfly"  # the float lowering, as on the card
+    name = "acs_forward_matrix (K1-matrix)" if impl == "matrix" else "acs_forward (K1)"
+    cost.kernel(name, *cost.acs_work(code, T, B, y.element_size(), impl, k), "int")
+    sp = torch.empty((T, -(-code.n_states // 32), B), dtype=torch.int32, device="meta")
+    pm = torch.empty((code.n_states, B), dtype=torch.float32 if float_syms else torch.int32,
+                     device="meta")
+    return sp, pm
+
+
 def acs_forward(
     y: torch.Tensor,
     code: ConvCode,
@@ -264,6 +283,8 @@ def acs_forward(
     if y.device.type == "cpu":
         return acs_forward_plain(y, code, metric_mode=metric_mode, radix=radix, impl=impl,
                                  matrix_k=k)
+    if y.device.type == "meta":
+        return _meta_forward(y, code, metric_mode, impl, k)
     if y.device.type != "cuda":
         raise ValueError(f"acs_forward runs on CPU or CUDA tensors, got {y.device}")
     if impl not in ("butterfly", "matrix"):

@@ -8,7 +8,9 @@ phases: radix 2 (``_acs_phase``), radix 4 (``_acs_phase_r4_dbuf``) and the
 k-stage matrix steps (``_acs_phase_mat_dbuf``), in the metric modes
 ``f32``/``i16``/``i8``. :func:`pbvd_fused` takes the plain PyTorch version
 :func:`pbvd_fused_plain` (``repro_torch.kernels.ref.pbvd_fused_ref``) for a
-CPU tensor; for a CUDA tensor it launches the CUDA kernel or raises. Float
+CPU tensor; for a CUDA tensor it launches the CUDA kernel or raises; for a
+meta tensor it launches nothing, returns the kernel's output shape and
+reports its work to the work counter (``launch/cost.py``). Float
 symbols with ``impl="matrix"`` run the radix-2 body, as the reference
 lowers them. What bounds the kernel on the card and what its design does
 about it is noted in the CUDA source.
@@ -43,6 +45,7 @@ import torch
 
 from repro_torch.core.quantize import metric_mode_qmax, norm_interval
 from repro_torch.core.trellis import ConvCode
+from repro_torch.launch import cost
 from . import _build
 from .acs import (
     _DTYPE_CODE,
@@ -231,6 +234,14 @@ def pbvd_fused(
         return pbvd_fused_plain(y, code, decode_start=decode_start, n_decode=n_decode,
                                 start_state=start_state, metric_mode=metric_mode, radix=radix,
                                 tb_mode=tb_mode, tb_chunk=tb_chunk, impl=impl, k=k)
+    if y.device.type == "meta":
+        T, _, B = y.shape
+        if impl == "matrix" and _acc_dtype_for(y.dtype, metric_mode) == torch.float32:
+            impl = "butterfly"  # the float lowering, as on the card
+        cost.kernel("pbvd_fused", *cost.fused_work(
+            code, T, B, y.element_size(), decode_start, n_decode, impl, k, tb_mode, tb_chunk),
+            "int")
+        return torch.empty((n_decode // 32, B), dtype=torch.int32, device="meta")
     if y.device.type != "cuda":
         raise ValueError(f"pbvd_fused runs on CPU or CUDA tensors, got {y.device}")
     if y.dim() != 3 or not y.is_contiguous():

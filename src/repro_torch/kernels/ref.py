@@ -42,6 +42,7 @@ from repro_torch.core.trellis import ConvCode
 
 __all__ = [
     "viterbi_classic_np",
+    "branch_metric_table",
     "folded_branch_metric_table",
     "expand_folded_bm",
     "folded_radix4_bm_table",
@@ -132,6 +133,18 @@ def _expand_signed(folded: torch.Tensor, index: np.ndarray, sign: np.ndarray, di
     shape[dim] = -1
     neg = torch.as_tensor(sign < 0, device=folded.device).reshape(shape)
     return torch.where(neg, -gathered, gathered)
+
+
+def branch_metric_table(y: torch.Tensor, code: ConvCode) -> torch.Tensor:
+    """Full BM table for all 2^R codewords. y: (..., R) → (..., 2^R).
+
+    The paper's group reduction: 2^R metrics per stage, not 2^K. Kept as
+    the unfolded reference; the decode paths compute the symmetry-folded
+    half table (:func:`folded_branch_metric_table`) and expand it with
+    signs.
+    """
+    signs = torch.as_tensor(code.codeword_signs, device=y.device).to(y.dtype)  # (2^R, R)
+    return torch.einsum("...r,cr->...c", y, signs)
 
 
 def folded_branch_metric_table(y: torch.Tensor, code: ConvCode, dim: int = -1) -> torch.Tensor:

@@ -15,7 +15,9 @@ stepping through words loaded once per row, the lane bodies of
 tail. :func:`traceback` and :func:`traceback_prefix` take the plain
 PyTorch versions :func:`traceback_plain` (``ref.traceback_ref``) and
 :func:`traceback_prefix_plain` (``ref.traceback_prefix_chunked_ref``) for a
-CPU tensor; for a CUDA tensor they launch their kernel or raise. What
+CPU tensor; for a CUDA tensor they launch their kernel or raise; for a
+meta tensor they launch nothing, return the kernel's output shape and
+report its work to the work counter (``launch/cost.py``). What
 bounds each kernel on the card is noted in the CUDA source.
 
 ``launches`` counts K2's launches and ``prefix_launches`` K2-prefix's, and
@@ -29,6 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.core.trellis import ConvCode
+from repro_torch.launch import cost
 from . import _build
 from .acs import _MAX_STATES
 from .ref import (
@@ -155,6 +158,10 @@ def _staged_walk(sp, code, decode_start, n_decode, start_state, copy: str) -> to
     global launches
     if sp.device.type == "cpu":
         return traceback_plain(sp, code, decode_start, n_decode, start_state)
+    if sp.device.type == "meta":
+        T, _, B = sp.shape
+        cost.kernel("traceback (K2)", *cost.k2_cost(T, B, decode_start, n_decode), "int")
+        return torch.empty((n_decode, B), dtype=torch.int32, device="meta")
     if sp.device.type != "cuda":
         raise ValueError(f"traceback runs on CPU or CUDA tensors, got {sp.device}")
     if sp.dim() != 3 or sp.dtype != torch.int32 or not sp.is_contiguous():
@@ -207,6 +214,11 @@ def traceback_prefix(
     global prefix_launches
     if sp.device.type == "cpu":
         return traceback_prefix_plain(sp, code, decode_start, n_decode, start_state, tb_chunk)
+    if sp.device.type == "meta":
+        T, _, B = sp.shape
+        cost.kernel("traceback_prefix (K2-prefix)",
+                    *cost.k2_prefix_cost(code, T, B, decode_start, n_decode, tb_chunk), "int")
+        return torch.empty((n_decode, B), dtype=torch.int32, device="meta")
     if sp.device.type != "cuda":
         raise ValueError(f"traceback_prefix runs on CPU or CUDA tensors, got {sp.device}")
     if sp.dim() != 3 or sp.dtype != torch.int32 or not sp.is_contiguous():

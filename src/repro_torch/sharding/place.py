@@ -20,6 +20,7 @@ import itertools
 import numpy as np
 import torch
 
+from repro_torch.launch import cost as _cost
 from .rules import NamedSharding, _is_namedtuple
 
 __all__ = ["Placed", "place", "place_zeros", "place_tree", "gather_tree", "map_tree",
@@ -33,6 +34,7 @@ class Placed:
 
     def __init__(self, sharding: NamedSharding, shape, tiles: np.ndarray):
         self.sharding, self.shape, self.tiles = sharding, torch.Size(shape), tiles
+        self._block_positions = None
 
     def __repr__(self) -> str:
         return f"Placed({tuple(self.shape)}, {self.dtype}, {self.sharding!r})"
@@ -56,10 +58,18 @@ class Placed:
     def blocks(self) -> dict[tuple[int, ...], torch.Tensor]:
         """Each distinct tile once, keyed by its tile coordinates: the tile of
         the first mesh position that holds that slice."""
-        out: dict[tuple[int, ...], torch.Tensor] = {}
-        for pos in self.positions():
-            out.setdefault(self.sharding.block(pos, self.ndim), self.tiles[pos])
-        return out
+        return {coords: self.tiles[pos] for coords, pos in self.block_positions().items()}
+
+    def block_positions(self) -> dict[tuple[int, ...], tuple[int, ...]]:
+        """The first mesh position that holds each distinct tile, keyed by
+        the tile's coordinates (a function of the sharding and the shape:
+        worked out once)."""
+        if self._block_positions is None:
+            out: dict[tuple[int, ...], tuple[int, ...]] = {}
+            for pos in self.positions():
+                out.setdefault(self.sharding.block(pos, self.ndim), pos)
+            self._block_positions = out
+        return self._block_positions
 
     def block_slices(self, coords: tuple[int, ...]) -> tuple[slice, ...]:
         """The slices of the global tensor that the tile at ``coords`` holds."""
@@ -81,7 +91,25 @@ class Placed:
             parts = [join(prefix + (i,)) for i in range(splits[dim])]
             return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
-        return join(())
+        out = join(())
+        counter = _cost.active()
+        if counter is not None:
+            self._count_gather(counter, blocks, out)
+        return out
+
+    def _count_gather(self, counter, blocks: dict, out: torch.Tensor) -> None:
+        """A work counter's record of :meth:`full` at the current position:
+        the tiles other positions hold come in (``all-gather``) and, when
+        ``out`` takes a gradient, go back in its backward
+        (``reduce-scatter``)."""
+        pos = counter.position()
+        here = self.sharding.block(pos, self.ndim) if len(pos) == self.tiles.ndim else None
+        nbytes = sum(t.numel() * t.element_size() for c, t in blocks.items() if c != here)
+        if not nbytes:
+            return
+        counter.collective("all-gather", nbytes, pos)
+        if out.requires_grad and out.grad_fn is not None:
+            out.register_hook(lambda g: counter.collective("reduce-scatter", nbytes, pos))
 
     @torch.no_grad()
     def copy_(self, full: torch.Tensor) -> "Placed":

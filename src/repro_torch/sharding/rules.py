@@ -44,6 +44,8 @@ __all__ = [
     "tree_shardings",
     "on_shard",
     "shard_position",
+    "on_position",
+    "current_position",
     "mesh_position",
     "batch_shards",
     "context_state",
@@ -228,6 +230,42 @@ def on_shard(position: Mapping[str, int]):
         yield
     finally:
         _local.position = prev
+
+
+@contextlib.contextmanager
+def on_position(position: Sequence[int]):
+    """Name the mesh position (grid index) the enclosed code computes on:
+    code that runs per position in turn (the per-tile AdamW update, MoE's
+    expert-parallel shards) says so for the work counter
+    (``launch/cost.py``); no value changes."""
+    prev = getattr(_local, "mesh_pos", None)
+    _local.mesh_pos = tuple(position)
+    try:
+        yield
+    finally:
+        _local.mesh_pos = prev
+
+
+def current_position() -> tuple[int, ...] | None:
+    """The grid index of the mesh position the current computation runs on:
+    the one :func:`on_position` names, else the first position of the data
+    shard :func:`on_shard` pins, else the mesh's first position under a rule
+    context; ``None`` without one."""
+    pos = getattr(_local, "mesh_pos", None)
+    if pos is not None:
+        return pos
+    rules = getattr(_local, "rules", None)
+    if rules is None:
+        return None
+    coords = getattr(_local, "position", None) or {}
+    key = (tuple(rules.mesh.axis_names), tuple(coords.items()))
+    pos = _POSITIONS.get(key)
+    if pos is None:
+        pos = _POSITIONS[key] = mesh_position(rules.mesh, coords)
+    return pos
+
+
+_POSITIONS: dict = {}  # (mesh axes, shard coordinates) → grid index
 
 
 def mesh_position(mesh, coords: Mapping[str, int]) -> tuple[int, ...]:

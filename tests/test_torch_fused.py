@@ -11,6 +11,7 @@ config interop of ``acs_radix`` and ``backend``.
 """
 
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -93,9 +94,12 @@ def test_fused_plain_is_reference_function_and_checks_arguments():
         fused.pbvd_fused(y, CCSDS, decode_start=2, n_decode=20)
     with pytest.raises(ValueError, match="decode_start"):
         fused.pbvd_fused(y, CCSDS, decode_start=20, n_decode=32)
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        fused.pbvd_fused(torch.empty((20, 2, 3), dtype=torch.int8, device="meta"), CCSDS,
+    with pytest.raises(ValueError, match="CPU or CUDA"):  # meta has the counter's branch
+        fused.pbvd_fused(types.SimpleNamespace(device=torch.device("xpu")), CCSDS,
                          decode_start=2, n_decode=32)
+    meta = fused.pbvd_fused(torch.empty((20, 2, 3), dtype=torch.int8, device="meta"), CCSDS,
+                            decode_start=2, n_decode=32)
+    assert meta.device.type == "meta" and meta.shape == (1, 3)
 
 
 def test_smem_plan():

@@ -10,6 +10,8 @@ by ``chip_smoke.py``; the per-thread arithmetic of the ACS kernel is
 modelled here in numpy so its tables are checked without a card.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -181,12 +183,21 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
 
 
 def test_wrappers_refuse_other_devices():
-    """No fallback: a tensor that is neither on the CPU nor on CUDA raises."""
+    """No fallback: a tensor neither on the CPU nor on CUDA raises. A meta
+    tensor takes the wrappers' meta branch (the work counter's,
+    ``launch/cost.py``): meta outputs, no launch; so the other device here
+    is a stand-in that names one."""
     code = CODES["ccsds"]
+    elsewhere = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        acs.acs_forward(torch.empty((4, 2, 3), dtype=torch.int8, device="meta"), code)
+        acs.acs_forward(elsewhere, code)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        traceback.traceback(torch.empty((4, 2, 3), dtype=torch.int32, device="meta"), code, 0, 2)
+        traceback.traceback(elsewhere, code, 0, 2)
+    acs.launches = traceback.launches = 0
+    sp, pm = acs.acs_forward(torch.empty((4, 2, 3), dtype=torch.int8, device="meta"), code)
+    bits = traceback.traceback(sp, code, 0, 2)
+    assert (sp.device.type, pm.device.type, bits.shape) == ("meta", "meta", (2, 3))
+    assert (acs.launches, traceback.launches) == (0, 0)
 
 
 @pytest.mark.parametrize(

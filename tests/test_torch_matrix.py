@@ -18,6 +18,7 @@ normalization intervals, compiling is the cheaper way.
 
 import contextlib
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -335,11 +336,14 @@ def test_matrix_ignores_the_radix_and_wrappers_refuse_other_devices():
                               acs_impl="matrix", acs_k=3, acs_radix=4)
     assert torch.equal(bits, pbvd_decode_blocks(y, code, decode_start=2, n_decode=8,
                                                 backend="ref"))
+    # meta tensors take the work counter's branch (launch/cost.py); another device raises
+    elsewhere = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        acs.acs_forward(elsewhere, code, impl="matrix")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fused.pbvd_fused(elsewhere, code, decode_start=0, n_decode=32, impl="matrix")
     meta = torch.empty((12, 2, 3), dtype=torch.int8, device="meta")
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        acs.acs_forward(meta, code, impl="matrix")
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        fused.pbvd_fused(meta, code, decode_start=0, n_decode=32, impl="matrix")
+    assert acs.acs_forward(meta, code, impl="matrix")[0].device.type == "meta"
     with pytest.raises(ValueError, match="impl must be"):
         acs.acs_forward(y, code, impl="systolic")
     assert traceback.traceback_prefix_plain is ref.traceback_prefix_chunked_ref

@@ -15,6 +15,7 @@ the new knobs against the JAX ``backend="ref"`` engine, and golden replay.
 """
 
 import json
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -269,12 +270,14 @@ def test_golden_replay_through_prefix_and_matrix(name, backend):
 
 def test_wrappers_refuse_other_devices_and_bad_geometry():
     code = CODES["ccsds"][0]
+    # meta tensors take the work counter's branch (launch/cost.py); another device raises
+    elsewhere = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        traceback.traceback_prefix(elsewhere, code, 2, 20)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fused.pbvd_fused(elsewhere, code, decode_start=2, n_decode=32, tb_mode="prefix")
     meta = torch.empty((40, 2, 3), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        traceback.traceback_prefix(meta, code, 2, 20)
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        fused.pbvd_fused(meta.to(torch.int8), code, decode_start=2, n_decode=32,
-                         tb_mode="prefix")
+    assert traceback.traceback_prefix(meta, code, 2, 20).device.type == "meta"
     sp = torch.zeros((40, 2, 3), dtype=torch.int32)
     with pytest.raises(ValueError, match="tb_chunk must be >= 1"):
         traceback.traceback_prefix(sp, code, 2, 20, 0, 0)

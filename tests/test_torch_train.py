@@ -137,6 +137,51 @@ def test_layers_are_recomputed_under_a_gradient(monkeypatch):
     assert calls == []
 
 
+@pytest.mark.parametrize("mesh", [None, (2, 1)])
+@pytest.mark.parametrize("name", ["starcoder2-3b", "mixtral-8x22b"])
+def test_remat_dots_gives_full_remats_gradients(monkeypatch, name, mesh):
+    """``REPRO_REMAT=dots`` keeps the products' outputs and recomputes the
+    rest: the loss and every gradient equal full remat's bit for bit (the
+    same ops on the same inputs), with the flash ``autograd.Function`` in
+    the layers and, under a (2, 1) mesh's rules, the remat's rule context
+    entered beside the policy; the step's FLOPs counted on meta
+    (``launch/cost.py``) are below full remat's, and the default is full
+    remat."""
+    import contextlib
+
+    from repro_torch.launch.cost import WorkCounter
+    from repro_torch.launch.mesh import DecodeMesh
+    from repro_torch.sharding.rules import axis_rules
+
+    _, cfg = _cfgs(name)
+    batch = _tb(_batch(cfg, 8))
+
+    def run(mode, model, batch):
+        if mode is None:
+            monkeypatch.delenv("REPRO_REMAT", raising=False)
+        else:
+            monkeypatch.setenv("REPRO_REMAT", mode)
+        rules = (axis_rules(DecodeMesh([model.embed.table.device] * 2, mesh, ("data", "model")))
+                 if mesh else contextlib.nullcontext())
+        with rules, attention.flash_enabled("on"):
+            loss = train_step.loss_fn(model, batch, cfg)
+            return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+    model = lm.init_params(cfg, generator=torch.Generator().manual_seed(8),
+                           device="cpu").requires_grad_(True)
+    (l_full, g_full), (l_dots, g_dots) = run("full", model, batch), run("dots", model, batch)
+    assert torch.equal(l_full, l_dots)
+    assert all(torch.equal(a, b) for a, b in zip(g_full, g_dots))
+    meta = lm.init_params(cfg, device="meta").requires_grad_(True)
+    meta_batch = {k: v.to("meta") for k, v in batch.items()}
+    flops = {}
+    for mode in ("full", "dots", None):
+        with WorkCounter() as c:
+            run(mode, meta, meta_batch)
+        flops[mode] = c.flops
+    assert flops["dots"] < flops["full"] == flops[None]
+
+
 def test_cast_params_for_compute():
     """bf16 compute: float32 leaves of rank >= 2 are cast (the QKV biases,
     (H, dh), too; the norms stay float32); the gradient arrives at the float32 masters; the loss

@@ -314,7 +314,18 @@ Then the enc-dec card, the VLM stub and the training path:
     inputs; then phase 6's decode from framed blocks and phase 17's prefill
     (30 flash launches of the band's FLOPs) counted on meta, each count's
     bound over the time that phase measured: a roofline share above 1.0
-    fails.
+    fails;
+30. the decode fleet across processes: two ranks (this script with
+    ``--fleet-rank``, ``MASTER_ADDR=127.0.0.1``, ``WORLD_SIZE=2``,
+    ``RANK=i``) on the one card, each starting the default group with
+    ``maybe_init_distributed`` (NCCL, which the decoder never touches) and
+    laying ``make_decode_mesh("data=2")`` over both ranks' ``cuda:0``: the
+    4,194,304-bit stream through ``"cuda"`` and ``"fused"`` equal to phase
+    4's ``"ref"`` bits on both ranks, with one launch of each kernel per
+    rank; a ragged ``decode_batch`` of phase 5's 64 streams equal to the
+    meshless one; each rank's decode ms and the gather's ms; then
+    ``python -m repro_torch.launch.serve_decoder --mesh data=2 --streams 64``
+    under two ranks. A failing or late rank fails the phase.
 
 Each phase prints its seconds (``[seconds]`` lines). The line before the
 last is the card's name and power limit; the last line is
@@ -326,6 +337,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1565,6 +1577,191 @@ def mesh_phases(torch, dev, counters, y, ref_bits, ys, batch, power: str) -> Non
             f"{n_bits} bits: wall {wall:.3f} ms under the profiler, device busy {busy:.3f} ms "
             f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; top kernels: "
             + "; ".join(f"{n} {t:.3f} ms × {c}" for n, t, c in kernels_p))
+
+
+FLEET_DEADLINE_S = 240  # the parent's wait for the two ranks, and again for the CLI's
+
+
+def _fleet_env(rank: int, port: int) -> dict:
+    root = Path(__file__).resolve().parent
+    return {**os.environ, "PYTHONPATH": str(root / "src"), "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(port), "WORLD_SIZE": "2", "RANK": str(rank)}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_ranks(argvs: list[list[str]], work: Path, tag: str) -> list[str]:
+    """Start one process per argv as ranks 0, 1, ... of one group; wait for
+    all of them until ``FLEET_DEADLINE_S``, kill any still running, and fail
+    unless every rank exited 0. Returns each rank's output."""
+    root = Path(__file__).resolve().parent
+    port = _free_port()
+    outs = [open(work / f"{tag}-{r}.log", "w") for r in range(len(argvs))]
+    procs = [subprocess.Popen(argv, cwd=root, env=_fleet_env(r, port), stdout=outs[r],
+                              stderr=subprocess.STDOUT) for r, argv in enumerate(argvs)]
+    deadline = time.monotonic() + FLEET_DEADLINE_S
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in outs:
+            f.close()
+    said = [(work / f"{tag}-{r}.log").read_text() for r in range(len(argvs))]
+    for r, p in enumerate(procs):
+        if p.returncode:
+            raise AssertionError(f"[30 fleet] {tag} rank {r} exited {p.returncode}:\n{said[r]}")
+    return said
+
+
+def fleet_rank(work: Path) -> int:
+    """One rank of phase 30 (``chip_smoke.py --fleet-rank DIR``): decode the
+    main stream and the ragged batch that the parent left in ``work``
+    through a ``data=2`` mesh over both ranks' ``cuda:0``, check and time
+    them, and write the rank's findings to ``work/rank<i>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.engine import DecoderEngine
+    from repro_torch.core.pbvd import PBVDConfig
+    from repro_torch.kernels import acs, fused, traceback
+    from repro_torch.launch.mesh import fleet_group, make_decode_mesh, maybe_init_distributed
+    from repro_torch.sharding import smap
+
+    if not maybe_init_distributed():
+        raise AssertionError("maybe_init_distributed started no process group")
+    rank = dist.get_rank()
+    dev = torch.device(DEVICE)
+    # every CUDA device torch finds, on every rank
+    mesh = make_decode_mesh("data=2", devices=None if dev.type == "cuda" else [dev])
+    inputs = torch.load(work / "inputs.pt")
+    y, ref_bits = inputs["y"].to(dev), inputs["ref_bits"].to(dev)
+    ys = [t.to(dev) for t in inputs["ys"]]
+    lens = inputs["lens"]
+    n_bits = ref_bits.shape[0]
+    D = PBVDConfig().D
+    counters = [("acs", acs, "launches"), ("traceback", traceback, "launches"),
+                ("fused", fused, "launches")]
+    zero, read = counter_fns(torch, counters)
+    wait_ms: list[float] = []
+    gather_ms: list[float] = []
+    plain_gather = smap._gather_slices
+
+    def timed_gather(*args, **kwargs):
+        # the wait for the other rank's slice first (a gloo barrier), then the gather
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.barrier(group=fleet_group())
+        t1 = time.perf_counter()
+        out = plain_gather(*args, **kwargs)
+        torch.cuda.synchronize()
+        wait_ms.append((t1 - t0) * 1e3)
+        gather_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    found: dict = {"rank": rank, "owners": mesh.owners.tolist(),
+                   "devices": [str(d) for d in mesh.devices.flat],
+                   "default backend": dist.get_backend()}
+    for be in ("cuda", "fused"):
+        eng = DecoderEngine(PBVDConfig(backend=be), mesh=mesh)
+        eng.decode(y[: 4 * D], 4 * D)  # first call loads the kernels
+        zero()
+        bits = eng.decode(y, n_bits)
+        found[be] = {"equal": bool(torch.equal(bits, ref_bits)), "launches": read()}
+        smap._gather_slices = timed_gather
+        wait_ms.clear()
+        gather_ms.clear()
+        found[be]["decode_ms"] = [wall_ms(torch, lambda: eng.decode(y, n_bits), reps=1)
+                                  for _ in range(5)]
+        found[be]["wait_ms"], found[be]["gather_ms"] = list(wait_ms), list(gather_ms)
+        smap._gather_slices = plain_gather
+        # the same stream meshless, in both ranks at once (each decodes all of it)
+        base = DecoderEngine(PBVDConfig(backend=be), device=dev)
+        dist.barrier(group=fleet_group())
+        found[be]["meshless_ms"] = [wall_ms(torch, lambda: base.decode(y, n_bits), reps=1)
+                                    for _ in range(5)]
+    eng = DecoderEngine(PBVDConfig(), mesh=mesh)
+    zero()
+    got = eng.decode_batch(ys, lens)
+    launches = read()
+    base = DecoderEngine(PBVDConfig(), device=dev).decode_batch(ys, lens)
+    found["batch"] = {"differ": [i for i, (a, b) in enumerate(zip(got, base))
+                                 if not torch.equal(a, b)], "launches": launches}
+    (work / f"rank{rank}.json").write_text(json.dumps(found))
+    dist.destroy_process_group()
+    return 0
+
+
+def fleet_phases(torch, y, ref_bits, ys, power: str) -> None:
+    """Phase 30: the decode fleet across two processes on the one card.
+    ``y``/``ref_bits`` are the main path's stream and its ``"ref"`` decode,
+    ``ys`` phase 5's 64 streams; each rank (:func:`fleet_rank`) reads them
+    from a file under ``build/``."""
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "fleet"
+    work.mkdir(parents=True, exist_ok=True)
+    for old in work.glob("rank*.json"):
+        old.unlink()
+    lens = [STREAM_BITS - (i * 1013) % (STREAM_BITS * 5 // 8) for i in range(len(ys))]
+    torch.save({"y": y.cpu(), "ref_bits": ref_bits.cpu(), "ys": [t.cpu() for t in ys],
+                "lens": lens}, work / "inputs.pt")
+    t0 = time.perf_counter()
+    me = [sys.executable, str(Path(__file__).resolve()), "--fleet-rank", str(work)]
+    _run_ranks([me, me], work, "rank")
+    found = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    one = {"cuda": {"acs": 1, "traceback": 1}, "fused": {"fused": 1}}
+    for f in found:
+        for be in ("cuda", "fused"):
+            if not f[be]["equal"] or f[be]["launches"] != one[be]:
+                raise AssertionError(f"[30 fleet] rank {f['rank']} {be}: equal "
+                                     f"{f[be]['equal']}, launches {f[be]['launches']}, "
+                                     f"expected {one[be]}")
+        if f["batch"]["differ"] or f["batch"]["launches"] != one["cuda"]:
+            raise AssertionError(f"[30 fleet] rank {f['rank']} ragged batch: streams "
+                                 f"{f['batch']['differ']} differ, launches "
+                                 f"{f['batch']['launches']}")
+    n_bits = ref_bits.shape[0]
+    for f in found:
+        log(f"[30 fleet] rank {f['rank']} of 2 (default group {f['default backend']}, mesh "
+            f"data=2 over {f['devices']} of ranks {f['owners']}): {n_bits} bits through cuda "
+            f"and fused == ref (phase 4) bit for bit, launches cuda {f['cuda']['launches']}, "
+            f"fused {f['fused']['launches']}; decode_batch of {len(ys)} ragged streams "
+            f"({min(lens)}-{max(lens)} bits) == meshless, launches {f['batch']['launches']}")
+        for be in ("cuda", "fused"):
+            def ms(key: str) -> str:
+                v = f[be][key]
+                return f"{', '.join(f'{t:.3f}' for t in v)} (median {statistics.median(v):.3f})"
+
+            log(f"[30 fleet] {power}: rank {f['rank']} {be}, {n_bits} bits end to end, ms "
+                f"{ms('decode_ms')}; of it the wait for the other rank {ms('wait_ms')} and "
+                f"the gather (device to host, gloo all_gather, host to device) "
+                f"{ms('gather_ms')}; meshless in both ranks at once {ms('meshless_ms')}")
+    log(f"[30 fleet] two ranks: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cli = [sys.executable, "-m", "repro_torch.launch.serve_decoder", "--mesh", "data=2",
+           "--streams", "64", "--n-chunks", "16"]
+    said = _run_ranks([cli, cli], work, "cli")
+    for r, text in enumerate(said):
+        lines = [ln for ln in text.splitlines() if ln.startswith("[serve_decoder]")]
+        errs = [re.search(r"BER = \S+ \((\d+) errors", ln) for ln in lines]
+        errs = [int(m.group(1)) for m in errs if m]
+        if (not lines or f"(this is rank {r} of 2)" not in lines[0] or len(errs) != 1
+                or errs[0] > 64 * 4096 * 16 * 1e-3):
+            raise AssertionError(f"[30 fleet] serve_decoder rank {r}: {text}")
+        for ln in lines:
+            log(f"[30 fleet] cli rank {r}: {ln}")
+    log(f"[30 fleet] {' '.join(cli[1:])} under two ranks: {time.perf_counter() - t0:.1f} s "
+        f"({power})")
 
 
 def ber_phases(torch, dev, counters, power: str) -> None:
@@ -3914,6 +4111,8 @@ def checked_main(torch, clock, dryruns) -> int:
     trained = train_phases(torch, dev, counters, power, clock)
     meshed = lm_mesh_phases(torch, dev, counters, power, clock)
     dryrun_phases(torch, dryruns, power, clock)
+    fleet_phases(torch, y, ref_bits, ys, power)
+    clock.lap("phase 30 fleet")
     # the flash launches on every LM path: StarCoder2-3B's prefill (its main path,
     # ``launches``), the enc-dec and VLM prefills, one training step and the Jamba mesh
     # prefill (the tensor-core body), and one float32 mesh train step (the CUDA-core body)
@@ -3998,4 +4197,6 @@ def checked_main(torch, clock, dryruns) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fleet-rank"]:  # one rank of phase 30, started by the phase
+        sys.exit(fleet_rank(Path(sys.argv[2])))
     sys.exit(main())

@@ -20,7 +20,9 @@ The counterpart of ``repro.core.engine``:
   ``shard_dispatch``): the lane axis is cut into equal slices, one per lane
   shard of a :class:`~repro_torch.launch.mesh.DecodeMesh`, each decoded on
   its shard's device (:func:`~repro_torch.sharding.smap.lane_split`) with
-  no communication between shards, and joined on the engine's device;
+  no communication between shards, and joined on the engine's device. A
+  mesh that spans processes has each rank launch only the shards its own
+  devices hold, and every rank end with the whole result;
 * **streaming** is :meth:`DecoderEngine.session`: a
   :class:`DecoderSession` carries the inter-block overlap tail (host-side,
   in an :class:`ArraySessionStore`) and the puncture phase across
@@ -31,7 +33,7 @@ The counterpart of ``repro.core.engine``:
 The engine runs on the GPU unless the caller asks for the CPU: ``device``
 defaults to ``"cuda"``, and with no CUDA device the engine refuses to start
 (:class:`DeviceUnavailableError`) instead of carrying on on the CPU. A
-mesh-bound engine's device is its mesh's first device.
+mesh-bound engine's device is its mesh's first device of this process.
 Inputs (numpy arrays or tensors) are moved to the engine's device; outputs
 are int32 tensors there.
 """
@@ -49,7 +51,7 @@ from repro_torch.kernels.ops import check_mesh_launch, pbvd_decode_blocks
 from repro_torch.launch.faults import SymbolError, check_finite_symbols
 from repro_torch.launch.mesh import canonical_device
 from repro_torch.sharding.rules import block_mesh_axes
-from repro_torch.sharding.smap import lane_shard_devices, lane_split
+from repro_torch.sharding.smap import lane_shard_devices, lane_shard_owners, lane_split
 
 from .codespec import CodeSpec
 from .pbvd import PBVDConfig, frame_stream
@@ -134,12 +136,16 @@ class DecoderEngine:
     ----------
     cfg: PBVDConfig — decode geometry (D, L), quantization, backend, code/spec.
     device: where the engine decodes; ``None`` means ``"cuda"``, or the
-        mesh's first device when a mesh is bound (another device is refused).
+        mesh's first device of this process when a mesh is bound (another
+        device is refused).
     mesh: optional :class:`~repro_torch.launch.mesh.DecodeMesh`; when given,
         the lane (flattened frames × blocks) axis of every decode is split
         over ``block_axes``, one equal slice per lane shard, each decoded on
         its shard's device. Blocks never interact, so the split needs no
-        communication and the bits equal the meshless decode.
+        communication and the bits equal the meshless decode. On a mesh
+        that spans processes every rank feeds the same streams, launches
+        the shards it holds and gets the whole result (sessions too, when
+        every rank feeds the same chunks in the same order).
     block_axes: mesh axes carrying the lane axis. ``None`` resolves the
         ``"blocks"`` rule of :mod:`repro_torch.sharding.rules` against the
         mesh (``("pod", "data")`` on a mesh with a ``pod`` axis, ``("data",)``
@@ -176,13 +182,16 @@ class DecoderEngine:
         self.n_shards = check_mesh_launch(
             mesh, self.block_axes, self.cfg.backend, dispatch=shard_dispatch
         )
-        self.device = mesh.devices.flat[0]
+        self.device = mesh.local_devices[0]
         if device is not None and canonical_device(device, "DecoderEngine") != self.device:
             raise ValueError(
                 f"DecoderEngine: device={str(device)!r} is not the mesh's first "
                 f"device {str(self.device)!r}; a mesh-bound engine decodes there"
             )
         self._shard_devices = lane_shard_devices(mesh, self.block_axes)
+        self._shard_owners = (
+            lane_shard_owners(mesh, self.block_axes) if mesh.spans_processes else None
+        )
 
     # ------------------------------------------------------------------ one-shot
     def decode(self, y, n_bits: int | None = None) -> torch.Tensor:
@@ -352,14 +361,14 @@ class DecoderEngine:
         if self.mesh is None:
             return launch(blocks, frame_counts=frame_counts)
         n_real = sum(frame_counts)
+        split = functools.partial(lane_split, launch, blocks, self._shard_devices,
+                                  out_device=self.device, owners=self._shard_owners,
+                                  rows=cfg.D)
         if self.shard_dispatch == "shard_map":
             # every lane of every slice, pad lanes included; the trim
             # happens once, on the joined result
-            bits = lane_split(launch, blocks, self._shard_devices, out_device=self.device)
-            return bits[:, :n_real]
-        return lane_split(
-            launch, blocks, self._shard_devices, out_device=self.device, n_real=n_real
-        )
+            return split()[:, :n_real]
+        return split(n_real=n_real)
 
 
 def _host_symbols(chunk) -> np.ndarray:

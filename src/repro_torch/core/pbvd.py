@@ -203,7 +203,8 @@ def decode_stream_sharded(
     """Sharded stream decode: thin wrapper over a mesh-bound engine.
 
     ``mesh`` is a :class:`~repro_torch.launch.mesh.DecodeMesh`; the bits
-    come back on its first device. ``block_axes=None`` resolves the
+    come back on its first device of this process (every rank's, on a mesh
+    that spans processes). ``block_axes=None`` resolves the
     ``"blocks"`` logical-axis rule against the mesh; ``shard_dispatch`` picks
     the lane dispatch (see :class:`~repro_torch.core.engine.DecoderEngine`).
     """

@@ -91,10 +91,14 @@ def check_mesh_launch(mesh, block_axes, backend: str, *, dispatch: str = "constr
 
     Every failure here is a clear ``ValueError`` (or ``KeyError`` for an
     unknown backend) raised before anything is framed: unknown dispatch
-    mode, empty/duplicate ``block_axes``, axes the mesh does not have, and a
-    backend name the registry does not know. Called by ``DecoderEngine`` at
+    mode, empty/duplicate ``block_axes``, axes the mesh does not have, a
+    backend name the registry does not know, and a mesh that spans
+    processes but leaves a rank without a position (every rank joins every
+    decode, so each must hold a device; ``DecodeMesh`` already refuses
+    ranks whose devices differ in type). Called by ``DecoderEngine`` at
     construction, so a bad mesh binding fails when the engine is built —
-    never inside a batched launch mid-stream.
+    never inside a batched launch mid-stream. Every rank sees the same
+    global mesh, so every rank refuses alike.
     """
     get_backend(backend)  # KeyError names the unknown backend
     if dispatch not in SHARD_DISPATCH:
@@ -111,6 +115,15 @@ def check_mesh_launch(mesh, block_axes, backend: str, *, dispatch: str = "constr
         raise ValueError(
             f"block_axes {missing} not in mesh axes {tuple(mesh.axis_names)}"
         )
+    if getattr(mesh, "spans_processes", False):  # a mesh without owners never spans
+        held = {int(r) for r in mesh.owners.flat}
+        idle = [r for r in range(mesh.process_count) if r not in held]
+        if idle:
+            raise ValueError(
+                f"the mesh spans {mesh.process_count} processes but rank(s) {idle} hold "
+                f"no position of it; every rank joins each decode, so each must hold "
+                f"a device of the mesh"
+            )
     n_shards = 1
     for a in axes:
         n_shards *= int(mesh.shape[a])

@@ -137,13 +137,22 @@ def rescale_decode_engine(engine, lost_chips: int):
     ``cfg``, ``shard_dispatch`` and the engine's device are kept. Either way
     the decode is bit-exact to the original engine, so a serving layer can
     swap engines under live sessions and replay their ready-but-undecoded
-    blocks from session state. A meshless engine is returned unchanged.
+    blocks from session state. A meshless engine is returned unchanged. A
+    mesh that spans processes is refused with ``ValueError``: a lost rank
+    ends the process group, so the mesh cannot shrink onto the survivors.
     """
     from repro_torch.core.engine import DecoderEngine
     from repro_torch.launch.mesh import shrink_mesh
 
     if engine.mesh is None:
         return engine
+    if engine.mesh.spans_processes:
+        raise ValueError(
+            f"rescale_decode_engine: the engine's mesh spans "
+            f"{engine.mesh.process_count} processes; a lost rank ends the process "
+            f"group, so the mesh cannot shrink onto the survivors (restart the fleet "
+            f"with fewer ranks)"
+        )
     plan = plan_decode_rescale(engine.mesh, engine.block_axes, lost_chips)
     if plan is None or plan.new_chip_count < 2:
         return DecoderEngine(

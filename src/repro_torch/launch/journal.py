@@ -31,6 +31,9 @@ writes, so a journal written by either package recovers under the other.
   (v+1)·R re-encoded symbols at once, so an agreement fraction below
   ``min_agreement`` flags corruption rather than noise. Punctured slots
   (exact 0.0) and the zero-padded flush tail are excluded.
+
+A journal serves engines of one process: :func:`check_journal_engine`
+refuses an engine whose mesh spans processes.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import numpy as np
 from repro_torch.core.encoder import encode_np
 from repro_torch.launch.faults import IntegrityError
 
-__all__ = ["ChunkJournal", "IntegritySentinel"]
+__all__ = ["ChunkJournal", "IntegritySentinel", "check_journal_engine"]
 
 _HDR = struct.Struct("<II")  # (payload length, crc32 of payload)
 
@@ -56,6 +59,20 @@ _HDR = struct.Struct("<II")  # (payload length, crc32 of payload)
 #   ("commit", dispatches)         — a coalesced dispatch completed
 #   ("finish", sid)                — sid flushed + fully delivered
 #   ("fail",   sid, message)       — sid quarantined (replay drops it)
+
+
+def check_journal_engine(engine) -> None:
+    """Refuse, with ``ValueError``, to journal the streams of an engine whose
+    mesh spans processes. Recovery rebuilds a crashed process's streams in a
+    fresh process from its journal; a fleet that loses a rank loses its
+    whole process group, so no rank could recover into it."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is not None and mesh.spans_processes:
+        raise ValueError(
+            f"ChunkJournal: the engine's mesh spans {mesh.process_count} processes; a "
+            f"journal recovers a crashed process into a fresh one, but a lost rank ends "
+            f"the whole process group, so there is no fleet to recover into"
+        )
 
 
 class ChunkJournal:

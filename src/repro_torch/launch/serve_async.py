@@ -53,6 +53,12 @@ ready blocks from session state (a meshless engine only replays); capacity
 exhaustion past ``shed_deadline_ms`` sheds the admission; and a dispatcher
 death propagates to every parked sender/finisher and resurfaces from
 :meth:`AsyncDecodeService.aclose` — nothing hangs.
+
+The service runs in one process: an engine whose mesh spans processes is
+refused at :meth:`AsyncDecodeService.open` and :meth:`~AsyncDecodeService.recover`
+with ``ValueError``. Its deadline trigger reads each process's own clock,
+so the ranks would fire different steps and wait in each other's joins; a
+fleet across processes serves through ``SessionPool.step``.
 """
 
 from __future__ import annotations
@@ -78,7 +84,7 @@ from repro_torch.launch.faults import (
     StreamError,
     nonfinite_error,
 )
-from repro_torch.launch.journal import ChunkJournal, IntegritySentinel
+from repro_torch.launch.journal import ChunkJournal, IntegritySentinel, check_journal_engine
 from repro_torch.launch.serve_decoder import SessionPool
 from repro_torch.launch.slab import SlabExhausted, SymbolSlab
 
@@ -434,6 +440,7 @@ class AsyncDecodeService:
             raise self._failure
         if self._closing:
             raise RuntimeError("service is closing")
+        self._check_engine(engine)
         store = self._slab.open_store() if self._slab is not None else None
         handle = self._pool.open(engine, store=store)
         stream = AsyncStream(self, handle)
@@ -449,6 +456,20 @@ class AsyncDecodeService:
             # contains them (the bisection protocol isolates it)
             self._poisoned.add(handle)
         return stream
+
+    def _check_engine(self, engine) -> None:
+        """Refuse an engine whose mesh spans processes (module docstring)."""
+        if self._journal is not None:
+            check_journal_engine(engine)
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None and mesh.spans_processes:
+            raise ValueError(
+                f"AsyncDecodeService: the engine's mesh spans {mesh.process_count} "
+                f"processes; the deadline trigger reads each process's own wall clock, "
+                f"so the ranks would dispatch different steps and wait in each other's "
+                f"joins; drive such a fleet through SessionPool.step, which every rank "
+                f"calls in the same order"
+            )
 
     # ---- dispatch ------------------------------------------------------------------
     def poll(self) -> bool:
@@ -835,6 +856,7 @@ class AsyncDecodeService:
         long replay never compounds.
         """
         svc = cls(journal=journal, **service_kwargs)
+        svc._check_engine(engine)
         svc._recovering = True
         try:
             ckpt, records = journal.load()

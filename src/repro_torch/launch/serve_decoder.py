@@ -22,6 +22,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve_decoder --mesh data=1 \\
         --shard-dispatch shard_map --streams 4
 
+    # the decode fleet across processes, one per host (torchrun sets RANK;
+    # two ranks on one card: --nproc-per-node 2 and --mesh data=2):
+    PYTHONPATH=src torchrun --nnodes N --nproc-per-node 1 --node-rank i \\
+        --master-addr host0 --master-port 29500 \\
+        -m repro_torch.launch.serve_decoder --mesh data=N --streams 64
+
 The counterpart of ``repro.launch.serve_decoder``. A long-lived session
 object carries the decoder state (the inter-block overlap tail + puncture
 phase) across chunks, so an unbounded symbol stream decodes chunk by chunk —
@@ -30,7 +36,12 @@ the card (``--device cuda``, the default, with ``--backend cuda``);
 ``--device cpu`` is a rehearsal with the kernels' plain versions, whose
 times are the CPU's. ``--mesh`` builds its mesh over every CUDA device torch
 finds (over the CPU with ``--device cpu``), so on one card it takes
-``--mesh data=1``.
+``--mesh data=1``. Under ``--mesh`` the CLI first starts the process group
+that torchrun's environment describes
+(:func:`~repro_torch.launch.mesh.maybe_init_distributed`), as the
+reference does; the mesh then spans every rank's devices, each rank
+launches the lane shards it holds, and every rank prints the whole run's
+result. The async modes refuse such a mesh.
 
 The :class:`SessionPool` is the multi-tenant layer on top: many concurrent
 :class:`~repro_torch.core.engine.DecoderSession`\\ s register with the pool,
@@ -64,7 +75,7 @@ from repro_torch.kernels.ops import (
 )
 from repro_torch.kernels.registry import resolve_tb_mode
 from repro_torch.launch.faults import StreamError
-from repro_torch.launch.mesh import make_decode_mesh
+from repro_torch.launch.mesh import make_decode_mesh, maybe_init_distributed
 
 __all__ = ["SessionPool", "PooledSession", "main"]
 
@@ -141,8 +152,9 @@ class SessionPool:
     radix under butterfly, k under matrix, resolved tb_mode, tb_chunk where
     it matters, window dtype, engine device or mesh identity)``: everything
     that shapes or parameterizes the launch. The mesh identity is
-    content-based — axis names, shape, devices as (type, index), the
-    engine's ``block_axes`` and shard dispatch — never ``id(mesh)``. Code
+    content-based — axis names, shape, devices as (owning rank, type,
+    index), the engine's ``block_axes`` and shard dispatch — never
+    ``id(mesh)``; the rank keeps two hosts' ``cuda:0`` apart. Code
     specs that share a mother code but differ in puncturing land in the
     same group (puncturing only affects ingest), as do sessions with
     different payload lengths or chunk cadences; a CPU engine and a CUDA
@@ -154,7 +166,10 @@ class SessionPool:
     (nothing without a mesh: the kernels mask the ragged lane edge; a
     multiple of the shard count with one), launches once, and hands the
     per-frame bits back to each session, which then advances its own
-    overlap tail exactly as a solo launch would have.
+    overlap tail exactly as a solo launch would have. On a mesh that spans
+    processes every rank opens, feeds and steps the same sessions in the
+    same order, so each step makes the same groups in the same order on
+    every rank, and each group's launch joins every rank's shards.
     """
 
     def __init__(self):
@@ -266,7 +281,8 @@ class SessionPool:
             placement = (
                 tuple(eng.mesh.axis_names),
                 tuple((a, int(n)) for a, n in eng.mesh.shape.items()),
-                tuple((d.type, d.index) for d in eng.mesh.devices.flat),
+                tuple((int(r), d.type, d.index)
+                      for r, d in zip(eng.mesh.owners.flat, eng.mesh.devices.flat)),
                 eng.block_axes,
                 eng.shard_dispatch,
             )
@@ -747,7 +763,7 @@ def main(argv: list[str] | None = None) -> None:
         metavar="AXIS=N[,AXIS=N]",
         help="split the lane (parallel-block) axis over a mesh of every CUDA "
         "device torch finds (of the CPU with --device cpu), e.g. data=1 on "
-        "one card; see repro_torch.launch.mesh",
+        "one card; under torchrun, of every rank's; see repro_torch.launch.mesh",
     )
     ap.add_argument(
         "--shard-dispatch",
@@ -847,9 +863,23 @@ def main(argv: list[str] | None = None) -> None:
         acs_impl=args.acs_impl,
         acs_k=args.acs_k,
     )
-    mesh = None
-    if args.mesh:
-        mesh = make_decode_mesh(args.mesh, devices=None if device.type == "cuda" else [device])
+    # under --mesh, torchrun's environment starts the process group first (a
+    # no-op without it); a group started here is destroyed here
+    started = bool(args.mesh) and maybe_init_distributed()
+    try:
+        mesh = None
+        if args.mesh:
+            mesh = make_decode_mesh(args.mesh,
+                                    devices=None if device.type == "cuda" else [device])
+        _serve(cfg, spec, device, mesh, args)
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve(cfg, spec, device, mesh, args) -> None:
     engine = DecoderEngine(
         cfg,
         device=device,
@@ -858,9 +888,15 @@ def main(argv: list[str] | None = None) -> None:
         shard_dispatch=args.shard_dispatch,
     )
     if mesh is not None:
+        ranks = (
+            f" of ranks {mesh.owners.flatten().tolist()} (this is rank "
+            f"{mesh.process_index} of {mesh.process_count})"
+            if mesh.spans_processes
+            else ""
+        )
         print(
             f"[serve_decoder] mesh {dict(mesh.shape)} over {mesh.size} device(s) "
-            f"[{', '.join(str(d) for d in mesh.devices.flat)}]; lane axis on "
+            f"[{', '.join(str(d) for d in mesh.devices.flat)}]{ranks}; lane axis on "
             f"{engine.block_axes} ({engine.n_shards} shards, "
             f"dispatch={engine.shard_dispatch})"
         )

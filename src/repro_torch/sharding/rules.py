@@ -155,6 +155,11 @@ class NamedSharding:
 
 class LogicalRules:
     def __init__(self, mesh, rules: Mapping[str, str | tuple[str, ...] | None]):
+        if getattr(mesh, "spans_processes", False):
+            raise ValueError(
+                "the LM's logical rules run in one process over a device list; this "
+                "mesh spans processes (only the decoder's lane split crosses them)"
+            )
         self.mesh = mesh
         self.rules = dict(rules)
         # drop mappings that reference axes the mesh doesn't have

@@ -289,10 +289,11 @@ Then the enc-dec card, the VLM stub and the training path:
     Jamba-v0.1 at full width, 8 layers (one pattern repeat), float32
     weights, served over data=1, model=4 of ``[cuda:0] * 4`` under
     ``axis_rules``: ``make_prefill_step`` on 2 x 2048 tokens (bf16; the
-    flash kernel's launches counted; MoE layers on the expert-parallel
-    path, 16 experts on 4 shards, each shard's routed tokens printed),
-    its last logits and next tokens against the same prefill over a
-    (1, 1) mesh; then ``make_decode_step`` at s_max = 32768 (context
+    flash kernel's launches counted, one per model position of the
+    attention layer; MoE layers on the expert-parallel path, 16 experts
+    on 4 shards, each shard's routed tokens printed), then the float32
+    prefill of the first 512 tokens, its last logits and next tokens
+    against the same over a (1, 1) mesh (atol 1e-3); then ``make_decode_step`` at s_max = 32768 (context
     parallel: the attention layer's cache as 4 sequence tiles of 8192),
     its first 30,000 positions seeded K/V (so every tile takes part),
     a 4-token prompt and 16 greedy steps in float32, logits allclose to
@@ -325,7 +326,23 @@ Then the enc-dec card, the VLM stub and the training path:
     rank; a ragged ``decode_batch`` of phase 5's 64 streams equal to the
     meshless one; each rank's decode ms and the gather's ms; then
     ``python -m repro_torch.launch.serve_decoder --mesh data=2 --streams 64``
-    under two ranks. A failing or late rank fails the phase.
+    under two ranks. A failing or late rank fails the phase;
+31. tensor parallelism over the ``model`` axis (``[31 tp]``), meshes of
+    the one card named n times: StarCoder2-3B at full width and depth,
+    bf16, in the serving layout (``lm.place_params``) over (1, 2):
+    ``make_prefill_step`` on 2 x 4096 tokens with 60 flash launches, each
+    on one position's heads at (Hkv_loc, G_loc) = (1, 12), ms per
+    position, the counted all-reduce bytes (meta) and no gathered weight;
+    ``greedy_generate`` for 4 requests (prompt 16, 32 new); at 2 layers
+    in float32 over (1, 2) and (1, 4) (the kv_heads fallback, G_loc = 6)
+    the last-position logits within 1e-3 of (1, 1) and equal greedy
+    tokens; the flash kernel against ``ref_mha`` at both per-position
+    shapes with its time, bound and SDPA's; the mesh train step over
+    (2, 2) against one device (loss 1e-4, parameters 2e-4); Mixtral-8x22B
+    at 2 layers, float32, over (1, 4) (experts at rest: views, memory
+    flat over decode steps, a counted step gathers nothing) and (1, 16)
+    (tensor parallel within each expert, d_ff_expert 16384 -> 1024, 3
+    heads a position) against (1, 1), logits and greedy tokens.
 
 Each phase prints its seconds (``[seconds]`` lines). The line before the
 last is the card's name and power limit; the last line is
@@ -400,10 +417,22 @@ MESH_SERVE_LAYERS, MESH_PREFILL = 8, (2, 2048)  # Jamba: one pattern repeat; 2 x
 MESH_S_MAX, MESH_PROMPT, MESH_NEW = 32768, 4, 16  # context-parallel decode from 32768
 MESH_CTX = 30000  # cache positions filled with seeded K/V before the prompt: all 4 tiles live
 MESH_LOGIT_ATOL = 1e-3  # float32: 4 sequence tiles' combine vs 1 tile, roundoff only
-MESH_PREFILL_ATOL = 0.25  # bf16 prefill logits, model=4 vs (1, 1) (bit-equal expected)
+# model=4 splits the layers' sums (tensor parallelism), which reorders bf16 roundings through
+# 8 layers of MoE routing: the prefill's parity with (1, 1) is held in float32, on the first
+# MESH_PARITY_SEQ tokens, at MESH_LOGIT_ATOL
+MESH_PARITY_SEQ = 512
 MESH_TRAIN = (4, 1024, 2)  # StarCoder2-3B: batch, sequence, steps
 MESH_LOSS_ATOL, MESH_PARAM_ATOL = 1e-4, 2e-4  # the reference's tests/test_distributed.py
 PIPE_ATOL = 1e-5
+# phase 31: tensor parallelism over the model axis, meshes over the one card named n times
+TP_PREFILL = (2, 4096)  # StarCoder2-3B's full-depth bf16 serving prefill over (1, 2)
+TP_GREEDY = (4, 16, 32)  # requests, prompt tokens, new tokens
+TP_LOGIT_ATOL = 1e-3  # float32: the sums over positions in model order vs one device
+TP_TRAIN = (4, 1024, 2)  # StarCoder2-3B at 2 layers over (2, 2): batch, sequence, steps
+TP_MOE = (2, 1024, 8)  # Mixtral-8x22B at 2 layers: prefill rows, sequence, greedy new tokens
+# allocated bytes may move by the loop's own token tensors across decode steps; one
+# expert's slice (6144 x 16384 x 3 float32) is 1.2 GB, so a per-step weight copy cannot hide
+TP_MEM_SLACK = 1 << 20
 # phase 27: REPRO_REMAT=dots keeps the products that full remat recomputes, so the losses
 # should agree as closely as the mesh step's do (the reference's tests/test_distributed.py)
 DOTS_LOSS_ATOL = 1e-4
@@ -2807,35 +2836,40 @@ def lm_mesh_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
     others = read()
     n_attn, n_moe = kinds.count("gqa/dense") + kinds.count("gqa/moe"), sum(
         k.endswith("moe") for k in kinds)
-    if pre_launches != (n_attn, n_attn) or others or len(loads) != n_moe:
+    # the 32 heads split over model=4: each position launches on its own 8
+    want_flash = 4 * n_attn
+    if pre_launches != (want_flash, want_flash) or others or len(loads) != n_moe:
         raise AssertionError(f"{tag} jamba mesh prefill: flash launches {pre_launches} (want "
-                             f"{n_attn} on the tensor-core body), decoder kernels {others}, "
-                             f"{len(loads)} MoE layers recorded (want {n_moe})")
+                             f"{want_flash} on the tensor-core body), decoder kernels "
+                             f"{others}, {len(loads)} MoE layers recorded (want {n_moe})")
     log(f"{tag} {power}: {cfg.name} ({full.source}) at full width, {cfg.n_layers} layers "
         f"{kinds}, {lm.count_params(params):,} float32 parameters, over data=1, model=4 of "
         f"[{card}] * 4: make_prefill_step, {B} x {S} tokens, bf16: {pre_ms:.1f} ms, flash "
-        f"launches {pre_launches[0]} ({pre_launches[1]} on the tensor-core body); EP routing "
+        f"launches {pre_launches[0]} ({pre_launches[1]} on the tensor-core body, one per model "
+        f"position of each attention layer); EP routing "
         f"group {B * S} tokens, capacity C = {loads[0][0]['capacity']} per expert, routed "
         f"entries kept per model shard (4 experts each) in each MoE layer "
         f"{[ld[0]['kept'] for ld in loads]}, dropped {[sum(ld[0]['dropped']) for ld in loads]}"
         f" of {B * S * cfg.top_k}")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    part = {"tokens": tokens[:, :MESH_PARITY_SEQ]}
     with torch.no_grad():
         with axis_rules(mesh4):
-            last4 = lm.apply_train(params, {"tokens": tokens}, cfg)[:, -1]
+            last4 = lm.apply_train(params, part, cfg32)[:, -1]
         with axis_rules(mesh1):
             next1 = prefill(params, {"tokens": tokens})
-            last1 = lm.apply_train(params, {"tokens": tokens}, cfg)[:, -1]
+            last1 = lm.apply_train(params, part, cfg32)[:, -1]
     pre_err = float((last4 - last1).abs().max())
-    if not (torch.equal(next4, next1) and pre_err <= MESH_PREFILL_ATOL
-            and bool(torch.isfinite(last4).all())):
-        raise AssertionError(f"{tag} jamba prefill model=4 vs (1, 1): tokens {next4.tolist()} "
-                             f"vs {next1.tolist()}, last logits differ by {pre_err}")
-    log(f"{tag} {cfg.name} prefill over model=4 vs (1, 1): next tokens equal "
-        f"{next4.tolist()}, last-position logits max abs diff {pre_err:.3e} (atol "
-        f"{MESH_PREFILL_ATOL})")
+    same = torch.equal(last4.argmax(-1), last1.argmax(-1))
+    if not (same and pre_err <= MESH_LOGIT_ATOL and bool(torch.isfinite(last4).all())):
+        raise AssertionError(f"{tag} jamba float32 prefill model=4 vs (1, 1): next tokens "
+                             f"equal {same}, last logits differ by {pre_err}")
+    log(f"{tag} {cfg.name} float32 prefill of {B} x {MESH_PARITY_SEQ} tokens over model=4 vs "
+        f"(1, 1): next tokens equal {last4.argmax(-1).tolist()}, last-position logits max abs "
+        f"diff {pre_err:.3e} (atol {MESH_LOGIT_ATOL}); the bf16 prefill's next tokens "
+        f"{next4.tolist()} over model=4, {next1.tolist()} over (1, 1)")
     del last4, last1
 
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     prompt = tokens[:, :MESH_PROMPT]
     # a long context: the attention cache's first MESH_CTX positions filled with seeded K/V,
     # the same in both runs, so that every sequence tile takes part in the combine
@@ -2849,8 +2883,8 @@ def lm_mesh_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
         real = lm.apply_decode
 
         def keep(*a, **k):
-            out = real(*a, **k)
-            logits.append(out[0][:, -1])
+            out = real(*a, **k)  # the step asks for the logits' vocab blocks
+            logits.append(torch.cat([s.to(dev) for s in out[0]], -1)[:, -1])
             return out
 
         lm.apply_decode = keep
@@ -2990,6 +3024,298 @@ def lm_mesh_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
         f"fraction {bubble_fraction(P, M):.4f}")
     clock.lap("phase 28 lm mesh train and pipeline")
     return {"mesh prefill": pre_launches[1], "mesh train step": m_launches[-1]}
+
+
+def position_ms(torch, fn):
+    """``fn()`` with each model position's work in ``sharding.place.model_parts``
+    (the computation of its slice, and on the first position the sum)
+    bracketed by CUDA events: (fn's result, {grid position: ms})."""
+    import contextlib
+
+    from repro_torch.sharding import place
+
+    real, marks = place.on_position, []
+
+    @contextlib.contextmanager
+    def timed(pos):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with real(pos):
+            yield
+        end.record()
+        marks.append((tuple(pos), start, end))
+
+    place.on_position = timed
+    try:
+        out = fn()
+    finally:
+        place.on_position = real
+    torch.cuda.synchronize()
+    ms: dict = {}
+    for pos, start, end in marks:
+        ms[pos] = ms.get(pos, 0.0) + start.elapsed_time(end)
+    return out, ms
+
+
+def tp_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
+    """Phase 31 (tp): tensor parallelism over the ``model`` axis, meshes of
+    the one card named n times (see the module docstring). Returns the
+    flash launches of the split StarCoder2-3B prefill and the flash kernel's
+    numbers at the per-position shapes."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch._unused import flash_attention as fa
+    from repro_torch._unused.models import attention, lm, moe
+    from repro_torch._unused.serve.serve_step import (greedy_generate, make_decode_step,
+                                                      make_prefill_step)
+    from repro_torch._unused.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch._unused.train.train_step import (make_mesh_train_step, make_train_step,
+                                                      place_train_state)
+    from repro_torch.launch.cost import WorkCounter
+    from repro_torch.launch.mesh import DecodeMesh, make_local_mesh
+    from repro_torch.sharding.rules import axis_rules
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    zero, read = counter_fns(torch, counters)
+    tag = "[31 tp]"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    shapes = []  # (Hkv_loc, G_loc) of each flash launch's queries
+    real_flash = attention.flash_attention
+
+    def seen(q, k, v, **kw):
+        shapes.append((int(q.shape[2]), int(q.shape[3])))
+        return real_flash(q, k, v, **kw)
+
+    def mesh_of(model, data=1):
+        return make_local_mesh(data=data, model=model, devices=[dev] * (data * model))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    attention.flash_attention = seen
+    try:
+        # ---- StarCoder2-3B at full depth, bf16, the serving layout over (1, 2) -----------
+        full = get_config("starcoder2-3b")
+        params = lm.init_params(full, generator=gen, device=dev)
+        B, S = TP_PREFILL
+        Bg, P, n_new = TP_GREEDY
+        tokens = torch.randint(0, full.vocab, (B, S), generator=gen, device=dev)
+        prompt = torch.randint(0, full.vocab, (Bg, P), generator=gen, device=dev)
+        prefill = make_prefill_step(full)
+        mesh2 = mesh_of(2)
+        G = full.n_heads // full.n_kv_heads  # 12: G_loc over (1, 2); half of it over (1, 4)
+        with axis_rules(mesh2):
+            lay = lm.place_params(params, full, mesh2)
+            views = (lay.groups[0][0]["l0"].mixer.wq.w.tiles[0, 1].data_ptr()
+                     == params.groups[0][0]["l0"].mixer.wq.w[:, full.n_heads // 2:].data_ptr())
+            prefill(lay, {"tokens": tokens[:, :256]})  # warm up
+            zero()
+            fa.launches = fa.tc_launches = 0
+            shapes.clear()
+            next2, pos_ms = position_ms(torch, lambda: prefill(lay, {"tokens": tokens}))
+            pre_launches, pre_shapes, others = ((fa.launches, fa.tc_launches), list(shapes),
+                                                read())
+            pre_ms = statistics.median(timed(lambda: prefill(lay, {"tokens": tokens}))[1]
+                                       for _ in range(3))
+        prefill(params, {"tokens": tokens[:, :256]})
+        next1 = prefill(params, {"tokens": tokens})
+        one_ms = statistics.median(timed(lambda: prefill(params, {"tokens": tokens}))[1]
+                                   for _ in range(3))
+        want = 2 * full.n_layers
+        if (pre_launches != (want, want) or pre_shapes != [(1, G)] * want or others
+                or not views):
+            raise AssertionError(f"{tag} starcoder2 split prefill: flash launches "
+                                 f"{pre_launches} (want {want} on the tensor-core body), "
+                                 f"(Hkv_loc, G_loc) {sorted(set(pre_shapes))}, decoder kernels "
+                                 f"{others}, tiles are views {views}")
+        meta_mesh = DecodeMesh([torch.device("meta")] * 2, (1, 2), ("data", "model"))
+        meta = lm.init_params(full, device="meta")
+        with axis_rules(meta_mesh), WorkCounter() as count:
+            make_prefill_step(full)(lm.place_params(meta, full, meta_mesh), {
+                "tokens": torch.empty((B, S), dtype=torch.int64, device="meta")})
+        reduced = {pos: dict(t.collective_bytes) for pos, t in sorted(count.tallies.items())}
+        flops = {pos: sum(t.flops.values()) for pos, t in sorted(count.tallies.items())}
+        if any(set(c) != {"all-reduce"} for c in reduced.values()):
+            raise AssertionError(f"{tag} counted collectives of the split prefill {reduced}: "
+                                 f"want all-reduce only (no weight gathered)")
+        log(f"{tag} {power}: {full.name} at full width and depth ({full.n_layers} layers), "
+            f"random float32 weights, bf16 compute, the serving layout over data=1, model=2 of "
+            f"[{dev}] * 2 (tiles are views of the weights: {views}): make_prefill_step on {B} x "
+            f"{S} tokens, median of 3: {pre_ms:.1f} ms (one device {one_ms:.1f} ms); ms per "
+            f"position (CUDA events around each position's slice, the first's sums included) "
+            f"{ {k: round(v, 3) for k, v in pos_ms.items()} }; flash launches {pre_launches[0]} "
+            f"({pre_launches[1]} on the tensor-core body), every one at (Hkv_loc, G_loc) = "
+            f"{pre_shapes[0]}; counted per position on meta: FLOP "
+            f"{ {k: f'{v:.6e}' for k, v in flops.items()} }, collective bytes {reduced}; next "
+            f"tokens {next2.tolist()} (one device {next1.tolist()})")
+        with axis_rules(mesh2):
+            g2, g2_ms = timed(lambda: greedy_generate(lay, full, prompt, n_new))
+        g1, g1_ms = timed(lambda: greedy_generate(params, full, prompt, n_new))
+        steps = P + n_new
+        log(f"{tag} {power}: {full.name} greedy_generate over (1, 2), bf16, {Bg} requests, "
+            f"prompt {P}, {n_new} new tokens, the cache as kv_heads tiles: "
+            f"{g2_ms / steps:.1f} ms a step (one device {g1_ms / steps:.1f} ms); "
+            f"{int((g2 != g1).sum())} of {g2.numel()} tokens differ from one device's (bf16)")
+        del lay, params, next1, next2, meta
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.lap("phase 31 starcoder2 serving")
+
+        # ---- 2 layers, float32, over (1, 2) and (1, 4) against (1, 1) ----------------------
+        cfg2 = dataclasses.replace(full, n_layers=2, compute_dtype="float32")
+        p2 = lm.init_params(cfg2, generator=gen, device=dev)
+        with torch.no_grad():
+            last1 = lm.apply_train(p2, {"tokens": tokens}, cfg2)[:, -1]
+        gen1 = greedy_generate(p2, cfg2, prompt, n_new)
+        for model in (2, 4):
+            shapes.clear()
+            with axis_rules(mesh_of(model)), torch.no_grad():
+                lay2 = lm.place_params(p2, cfg2, mesh_of(model))
+                lastm, m_ms = timed(lambda: lm.apply_train(lay2, {"tokens": tokens},
+                                                           cfg2)[:, -1])
+                genm = greedy_generate(lay2, cfg2, prompt, n_new)
+            err = float((lastm - last1).abs().max())
+            g_loc = G * 2 // model
+            if not (shapes == [(1, g_loc)] * (model * cfg2.n_layers) and err <= TP_LOGIT_ATOL
+                    and torch.equal(genm, gen1) and bool(torch.isfinite(lastm).all())):
+                raise AssertionError(f"{tag} {cfg2.name} float32 over (1, {model}): flash "
+                                     f"(Hkv_loc, G_loc) {shapes}, last logits differ by {err}, "
+                                     f"greedy tokens equal {torch.equal(genm, gen1)}")
+            how = ("kv heads split" if model == 2 else
+                   "kv_heads 2 whole over 4 positions: each takes the kv head of its q heads")
+            log(f"{tag} {power}: {cfg2.name} at full width, {cfg2.n_layers} layers, float32, "
+                f"over (1, {model}) ({how}): flash launched per position at (Hkv_loc, G_loc) "
+                f"= (1, {g_loc}), {len(shapes)} launches; last-position logits of {B} x {S} "
+                f"tokens max abs diff {err:.3e} from (1, 1) (atol {TP_LOGIT_ATOL}), forward "
+                f"{m_ms:.1f} ms; greedy tokens ({Bg} x {n_new}) equal to (1, 1)")
+        del p2, lay2, last1, lastm
+        gc.collect()
+        torch.cuda.empty_cache()
+        flash_split = [flash_at_prefill(torch, dev, gen, tag, f"{full.name} per position of "
+                                        f"(1, {m})", power, B, S, 1, G * 2 // m,
+                                        full.head_dim, full.sliding_window, want)
+                       for m in (2, 4)]
+        clock.lap("phase 31 starcoder2 float32 meshes")
+
+        # ---- the mesh train step over (2, 2) against one device ---------------------------
+        tcfg = dataclasses.replace(full, n_layers=2, compute_dtype="float32")
+        Bt, St, n_steps = TP_TRAIN
+        opt_cfg = AdamWConfig()  # lr 3e-6 at step 1 (warmup 100)
+        single = lm.init_params(tcfg, generator=gen, device=dev).requires_grad_(True)
+        mesh22 = mesh_of(2, data=2)
+        placed, popt = place_train_state(single, tcfg, opt_cfg, mesh22)
+        sopt = adamw_init(dict(single.named_parameters()), opt_cfg)
+        s_step = make_train_step(tcfg, opt_cfg)
+        m_step = make_mesh_train_step(tcfg, opt_cfg, mesh22)
+        losses, m_ms, s_ms, m_launches = [], [], [], []
+        for _ in range(n_steps):
+            batch = {k: torch.randint(0, tcfg.vocab, (Bt, St), generator=gen, device=dev)
+                     for k in ("tokens", "labels")}
+            fa.launches = 0
+            (placed, popt, mm), ms = timed(lambda: m_step(placed, popt, batch))
+            m_ms.append(ms)
+            m_launches.append(fa.launches)
+            (single, sopt, sm), ms = timed(lambda: s_step(single, sopt, batch))
+            s_ms.append(ms)
+            losses.append((float(mm["loss"]), float(sm["loss"])))
+        p_err = max(float((placed[k].full().detach() - p.detach()).abs().max())
+                    for k, p in single.named_parameters())
+        l_err = max(abs(a - b) for a, b in losses)
+        want_launches = 2 * 2 * 2 * tcfg.n_layers  # data shards x positions x (forward, remat)
+        if not (l_err <= MESH_LOSS_ATOL and p_err <= MESH_PARAM_ATOL
+                and all(n == want_launches for n in m_launches)):
+            raise AssertionError(f"{tag} mesh train step over (2, 2): losses {losses}, params "
+                                 f"differ by {p_err}, flash launches {m_launches}")
+        log(f"{tag} {power}: {tcfg.name} at full width, {tcfg.n_layers} layers, float32, "
+            f"make_mesh_train_step over data=2, model=2 of [{dev}] * 4 (each data shard's "
+            f"positions on their heads, MLP columns and vocabulary, tiles gathered along fsdp "
+            f"only) vs make_train_step on one device, {n_steps} steps of {Bt} x {St}: losses "
+            f"{[(round(a, 6), round(b, 6)) for a, b in losses]}, max diff {l_err:.3e} (atol "
+            f"{MESH_LOSS_ATOL}); parameters max abs diff {p_err:.3e} (atol {MESH_PARAM_ATOL}); "
+            f"flash launches per mesh step {m_launches[-1]}; step ms (2, 2) "
+            f"{[round(x, 1) for x in m_ms]}, one device {[round(x, 1) for x in s_ms]}")
+        del single, sopt, placed, popt, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.lap("phase 31 train step")
+
+        # ---- Mixtral-8x22B at 2 layers: experts at rest (1, 4), TP within experts (1, 16) --
+        mix = get_config("mixtral-8x22b")
+        # capacity E/k: neither routing group (EP's whole batch, the dense path's rows)
+        # drops an entry, so both paths compute the same function
+        mcfg = dataclasses.replace(mix, n_layers=2, compute_dtype="float32",
+                                   capacity_factor=mix.n_experts / mix.top_k)
+        mp = lm.init_params(mcfg, generator=gen, device=dev)
+        Bm, Sm, m_new = TP_MOE
+        mtok = torch.randint(0, mcfg.vocab, (Bm, Sm), generator=gen, device=dev)
+        prompt = torch.randint(0, mcfg.vocab, (Bg, P), generator=gen, device=dev)
+        with axis_rules(mesh_of(1)), torch.no_grad():
+            mlast1 = lm.apply_train(mp, {"tokens": mtok}, mcfg)[:, -1]
+            mgen1 = greedy_generate(mp, mcfg, prompt, m_new)
+        w1 = mp.groups[0][0]["l0"].ffn.wi
+        for model in (4, 16):
+            mesh = mesh_of(model)
+            with axis_rules(mesh), torch.no_grad():
+                mlay = lm.place_params(mp, mcfg, mesh)
+                ep = moe._ep_enabled(mcfg)
+                wi = mlay.groups[0][0]["l0"].ffn.wi
+                f_loc = wi.tiles[0, 0].shape[-1]
+                at_rest = all(wi.tiles[0, m].data_ptr() == (
+                    w1[m * mcfg.n_experts // model] if ep else w1[:, :, m * f_loc:]).data_ptr()
+                    for m in range(model))
+                lastm, pre_ms = timed(lambda: lm.apply_train(mlay, {"tokens": mtok},
+                                                             mcfg)[:, -1])
+                step = make_decode_step(mcfg, P + m_new)
+                cache = lm.init_cache(mcfg, Bg, P + m_new, torch.float32, device=dev)
+                nxt, mem, step_ms = None, [], []
+                for t in range(P + m_new):
+                    tok = prompt[:, t:t + 1] if t < P else nxt[:, None]
+                    (nxt, cache), ms = timed(lambda: step(mlay, tok, cache, t))
+                    mem.append(torch.cuda.memory_allocated())
+                    step_ms.append(ms)
+                with WorkCounter() as count:
+                    step(mlay, nxt[:, None], cache, P + m_new - 1)
+                genm = greedy_generate(mlay, mcfg, prompt, m_new)
+            gathered = sum(t.collective_bytes.get("all-gather", 0)
+                           for t in count.tallies.values())
+            err = float((lastm - mlast1).abs().max())
+            grew = max(mem[1:]) - min(mem[1:])
+            if not (bool(ep) == (model == 4) and at_rest and err <= TP_LOGIT_ATOL
+                    and torch.equal(genm, mgen1) and grew <= TP_MEM_SLACK and gathered == 0):
+                raise AssertionError(f"{tag} {mcfg.name} over (1, {model}): EP {ep}, tiles at "
+                                     f"rest {at_rest}, last logits differ by {err}, greedy "
+                                     f"tokens equal {torch.equal(genm, mgen1)}, allocated "
+                                     f"bytes per step {sorted(set(mem))}, gathered {gathered}")
+            how = (f"expert parallel, experts at rest ({mcfg.n_experts // model} a position, "
+                   f"views of the weights)" if ep else
+                   f"{mcfg.n_experts} experts do not divide {model}: tensor parallel within "
+                   f"each expert, d_ff_expert {mcfg.d_ff_expert} -> {f_loc}, "
+                   f"{mcfg.n_heads // model} heads a position, kv_heads {mcfg.n_kv_heads} whole")
+            log(f"{tag} {power}: {mcfg.name} at full width, {mcfg.n_layers} layers, float32, "
+                f"capacity factor {mcfg.capacity_factor} (no drops), over (1, {model}), {how}: "
+                f"forward of {Bm} x {Sm} tokens {pre_ms:.1f} ms, last-position logits max abs "
+                f"diff {err:.3e} from (1, 1) (atol {TP_LOGIT_ATOL}); {Bg} requests, {P} + "
+                f"{m_new} decode steps, median {statistics.median(step_ms):.1f} ms a step, "
+                f"{mem[-1] / 1e9:.3f} GB allocated, {grew} B apart over the steps from the "
+                f"second (at most {TP_MEM_SLACK}); a counted step gathers {gathered} bytes; "
+                f"greedy tokens equal to (1, 1)")
+            del mlay, cache, lastm
+            gc.collect()
+            torch.cuda.empty_cache()
+        del mp, w1, mlast1
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.lap("phase 31 mixtral")
+    finally:
+        attention.flash_attention = real_flash
+    return {"prefill": pre_launches[0], "flash": flash_split}
 
 
 class DryRuns:
@@ -4113,6 +4439,7 @@ def checked_main(torch, clock, dryruns) -> int:
     dryrun_phases(torch, dryruns, power, clock)
     fleet_phases(torch, y, ref_bits, ys, power)
     clock.lap("phase 30 fleet")
+    split = tp_phases(torch, dev, counters, power, clock)
     # the flash launches on every LM path: StarCoder2-3B's prefill (its main path,
     # ``launches``), the enc-dec and VLM prefills, one training step and the Jamba mesh
     # prefill (the tensor-core body), and one float32 mesh train step (the CUDA-core body)
@@ -4123,7 +4450,10 @@ def checked_main(torch, clock, dryruns) -> int:
                                          "jamba-v0.1 mesh prefill (model=4)":
                                              meshed["mesh prefill"],
                                          "starcoder2-3b mesh train step (data=2, float32)":
-                                             meshed["mesh train step"]}
+                                             meshed["mesh train step"],
+                                         "starcoder2-3b tp prefill (1, 2), per position":
+                                             split["prefill"]}
+    flash_rows[0]["tp_shapes"] = split["flash"]
     flash_rows[0]["seamless_shapes"] = encdec["seamless"]
 
     for mod in list(sys.modules):

@@ -43,14 +43,16 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dispatch_type
 from repro_torch.launch import cost
-from repro_torch.sharding.place import Placed
-from repro_torch.sharding.rules import on_position, shard
+from repro_torch.sharding.place import Placed, model_parts
+from repro_torch.sharding.rules import (batch_shards, model_positions, model_size, model_split,
+                                        on_position, shard)
 from repro_torch._unused.flash_attention import flash_attention
-from .layers import (Dense, Norm, apply_rope, cdtype, dense_apply, dense_axes, dense_init,
-                     norm_apply, norm_axes, norm_init, rope_sin_cos)
+from .layers import (Dense, DenseTile, Norm, apply_rope, cdtype, dense_apply, dense_axes,
+                     dense_init, dense_tile, dense_tp, norm_apply, norm_axes, norm_init,
+                     rope_sin_cos)
 
-__all__ = ["GQA", "gqa_init", "gqa_axes", "gqa_apply", "MLA", "mla_init", "mla_axes",
-           "mla_apply", "KVCache", "flash_enabled"]
+__all__ = ["GQA", "gqa_init", "gqa_axes", "gqa_apply", "gqa_heads_split", "MLA", "mla_init",
+           "mla_axes", "mla_apply", "KVCache", "flash_enabled"]
 
 NEG_INF = -1e30
 
@@ -300,6 +302,34 @@ def gqa_axes(cfg: ModelConfig) -> dict:
     }
 
 
+def gqa_heads_split(cfg: ModelConfig) -> bool:
+    """Whether the active rules split the heads over ``model`` (``wq``'s
+    ``heads`` axis divides the model axis): then :func:`gqa_apply` computes
+    each model position's heads on it (:func:`_gqa_heads`) and
+    ``lm.init_cache`` lays the decode cache as ``kv_heads`` tiles."""
+    return model_split(("fsdp", "heads", "head_dim"),
+                       (cfg.d_model, cfg.n_heads, cfg.head_dim))[1] > 1
+
+
+def _kv_heads_of(cfg: ModelConfig, m: int, n: int) -> tuple[slice, int, bool]:
+    """(the kv heads model position ``m`` of ``n`` attends with, G_loc,
+    whether the rules split ``kv_heads`` as they split the heads). Split:
+    the position's own kv tile, G_loc = G. Else, the fallback that keeps
+    ``kv_heads`` whole: the kv heads its q heads [m·H/n, (m+1)·H/n) belong
+    to, whole groups (G_loc = G) or one kv head (G_loc = H/n)."""
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G, h_loc = H // Hkv, H // n
+    lo = m * h_loc
+    if model_split(("fsdp", "kv_heads", "head_dim"), (cfg.d_model, Hkv, dh))[1] == n:
+        return slice(lo // G, (lo + h_loc) // G), G, True
+    if h_loc % G == 0:
+        return slice(lo // G, (lo + h_loc) // G), G, False
+    if G % h_loc == 0:
+        return slice(lo // G, lo // G + 1), h_loc, False
+    raise ValueError(f"{n} model positions of {h_loc} heads each do not align with kv "
+                     f"groups of {G}: no kv head layout for position {m}")
+
+
 def gqa_apply(
     p: GQA,
     x: torch.Tensor,  # (B, S, d)
@@ -311,17 +341,34 @@ def gqa_apply(
     cache_len: Optional[int] = None,  # tokens already in cache
     xa: Optional[torch.Tensor] = None,  # cross-attention context (B, Sx, d)
     ctx_parallel: bool = False,
+    kv_cached: bool = False,  # decode against a prefilled cross cache (read only)
 ):
-    """Returns (out (B,S,d), new_cache)."""
+    """Returns (out (B,S,d), new_cache). With ``kv_cached`` the cache holds
+    the encoder's K/V (``lm.prefill_cross``): every key attends, nothing is
+    written. Under a ``model`` axis that splits the heads, each position
+    computes its own (:func:`_gqa_heads`), the context-parallel decode
+    excepted; otherwise the projections run through ``dense_tp``
+    (column-parallel, joined on the first position), the attention there,
+    and ``wo`` row-parallel."""
     B, S, d = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // Hkv
     scale = 1.0 / math.sqrt(dh)
+    seq_tiles = cache is not None and isinstance(cache.k, Placed) and ctx_parallel
+    if gqa_heads_split(cfg) and not seq_tiles:
+        return _gqa_heads(p, x, cfg, positions=positions, causal=causal, cache=cache,
+                          cache_len=cache_len, xa=xa, kv_cached=kv_cached)
 
-    q = dense_apply(p.wq, x, cfg)  # (B,S,H,dh)
+    q = dense_tp(p.wq, x, cfg, "fsdp", ("heads", "head_dim"))  # (B,S,H,dh)
+    if kv_cached:
+        valid = torch.ones((B, cache.k.shape[1]), dtype=torch.bool, device=x.device)
+        out = _attend_decode(q.reshape(B, S, Hkv, G, dh), cache.k, cache.v, scale=scale,
+                             valid=valid)
+        out = out.reshape(B, S, H * dh).to(cdtype(cfg))
+        return dense_tp(p.wo, out, cfg, "mlp", ("fsdp",)), cache
     kv_src = x if xa is None else xa
-    k = dense_apply(p.wk, kv_src, cfg)
-    v = dense_apply(p.wv, kv_src, cfg)
+    k = dense_tp(p.wk, kv_src, cfg, "fsdp", ("kv_heads", "head_dim"))
+    v = dense_tp(p.wv, kv_src, cfg, "fsdp", ("kv_heads", "head_dim"))
     q = shard(q, ("batch", "seq", "heads", "head_dim"))
     k = shard(k, ("batch", "seq", "kv_heads", "head_dim"))
     v = shard(v, ("batch", "seq", "kv_heads", "head_dim"))
@@ -334,38 +381,119 @@ def gqa_apply(
 
     if cache is not None:
         # decode: write k,v at the cache cursor, attend to the whole cache
-        cache_len = int(cache_len)
-        S_max = cache.k.shape[1]
-        ring = bool(cfg.sliding_window) and S_max == cfg.sliding_window
-        slot = cache_len % cfg.sliding_window if ring else cache_len
+        slot, valid = _decode_slot(cfg, cache, cache_len, x.device)
         ck = _cache_write(cache.k, k, slot, ctx_parallel)
         cv = _cache_write(cache.v, v, slot, ctx_parallel)
         new_cache = KVCache(ck, cv)
-        t_idx = torch.arange(S_max, device=x.device)
-        if ring:
-            valid = t_idx <= min(cache_len, S_max - 1)
-        else:
-            valid = t_idx <= cache_len
-            if cfg.sliding_window:
-                valid &= t_idx > cache_len - cfg.sliding_window
         axes = ("batch", "seq_ctx" if ctx_parallel else None, "kv_heads", "head_dim")
         ck, cv = shard(ck, axes), shard(cv, axes)
         attend = _attend_decode_tiles if isinstance(ck, Placed) else _attend_decode
-        out = attend(qg, ck, cv, scale=scale, valid=valid.expand(B, S_max),
+        out = attend(qg, ck, cv, scale=scale, valid=valid.expand(B, -1),
                      softcap=cfg.attn_logit_softcap)
     else:
-        is_causal = causal and xa is None
-        win = cfg.sliding_window if xa is None else None
-        if _use_flash(x) and cfg.attn_logit_softcap is None:
-            out = _flash_with_plain_bwd(qg, k, v, causal=is_causal, window=win, scale=scale)
-        else:
-            out = _attend_chunked(
-                qg, k, v, causal=is_causal, window=win, scale=scale,
-                softcap=cfg.attn_logit_softcap, p_dtype=cdtype(cfg),
-            )
+        out = _attend_full(qg, k, v, cfg, causal=causal and xa is None, cross=xa is not None,
+                           scale=scale)
 
     out = shard(out.reshape(B, S, H * dh).to(cdtype(cfg)), ("batch", "seq", "mlp"))
-    return dense_apply(p.wo, out, cfg), new_cache
+    return dense_tp(p.wo, out, cfg, "mlp", ("fsdp",)), new_cache
+
+
+def _decode_slot(cfg: ModelConfig, cache: KVCache, cache_len, device):
+    """(the cache slot this step writes, the valid slots (S_max,) bool)."""
+    cache_len = int(cache_len)
+    S_max = cache.k.shape[1]
+    ring = bool(cfg.sliding_window) and S_max == cfg.sliding_window
+    slot = cache_len % cfg.sliding_window if ring else cache_len
+    t_idx = torch.arange(S_max, device=device)
+    if ring:
+        valid = t_idx <= min(cache_len, S_max - 1)
+    else:
+        valid = t_idx <= cache_len
+        if cfg.sliding_window:
+            valid &= t_idx > cache_len - cfg.sliding_window
+    return slot, valid
+
+
+def _attend_full(qg, k, v, cfg: ModelConfig, *, causal: bool, cross: bool, scale: float):
+    """Full-sequence attention: the flash kernel where :func:`_use_flash`
+    says so (and no softcap), else the streaming softmax; cross-attention
+    has no window."""
+    win = None if cross else cfg.sliding_window
+    if _use_flash(qg) and cfg.attn_logit_softcap is None:
+        return _flash_with_plain_bwd(qg, k, v, causal=causal, window=win, scale=scale)
+    return _attend_chunked(qg, k, v, causal=causal, window=win, scale=scale,
+                           softcap=cfg.attn_logit_softcap, p_dtype=cdtype(cfg))
+
+
+def _gqa_heads(p: GQA, x: torch.Tensor, cfg: ModelConfig, *, positions, causal, cache,
+               cache_len, xa, kv_cached):
+    """:func:`gqa_apply` with the heads over ``model``: model position m
+    projects x onto its heads (column-parallel ``wq``, and ``wk``/``wv`` on
+    its kv tile, or on the kv heads its q heads belong to where the rules
+    keep ``kv_heads`` whole), applies RoPE, attends with (B, S, Hkv_loc,
+    G_loc, dh) queries (the flash kernel, launched on its heads, or the
+    streaming softmax; in decode against its tile of the cache) and
+    multiplies its rows of ``wo``; the partials are summed once."""
+    B, S, _ = x.shape
+    H, dh = cfg.n_heads, cfg.head_dim
+    n = model_size()
+    h_loc = H // n
+    scale = 1.0 / math.sqrt(dh)
+    q_axes, kv_axes = ("heads", "head_dim"), ("kv_heads", "head_dim")
+    if cache is not None and not kv_cached:
+        slot, valid = _decode_slot(cfg, cache, cache_len, x.device)
+    sin_cos = None if xa is not None else rope_sin_cos(positions, dh, cfg.rope_theta)
+
+    rows_of = {tuple(c.items()): r for c, r in batch_shards(x.shape)}
+
+    def kv_dense(d: Dense, m, coords, ks, split) -> DenseTile:
+        t = dense_tile(d, "fsdp", kv_axes, m, coords)
+        return t if split else DenseTile(t.w[:, ks], None if t.b is None else t.b[ks])
+
+    def cache_tile(buf, m, coords, ks, split, dev):
+        """This position's view of a cache leaf: its ``kv_heads`` tile (in a
+        replica the rules keep whole, the kv heads it reads); of a whole
+        cache (the cross cache), its rows and kv heads."""
+        if isinstance(buf, Placed):
+            t = buf.tiles[model_positions(coords)[m]]
+            return t if split else t[:, :, ks]
+        t = buf[rows_of[tuple(coords.items())]][:, :, ks]
+        if t.device != dev and not kv_cached:
+            raise ValueError("a decode cache under a model axis must be laid by "
+                             "lm.init_cache under the same rules (kv_heads tiles)")
+        return t.to(dev)
+
+    def one(m, xm, coords):
+        dev = xm.device
+        ks, g_loc, split = _kv_heads_of(cfg, m, n)
+        q = dense_apply(dense_tile(p.wq, "fsdp", q_axes, m, coords), xm, cfg)  # (B,S,H_loc,dh)
+        if kv_cached:
+            ck, cv = (cache_tile(c, m, coords, ks, split, dev) for c in (cache.k, cache.v))
+            valid_all = torch.ones((xm.shape[0], ck.shape[1]), dtype=torch.bool, device=dev)
+            out = _attend_decode(q.reshape(*xm.shape[:2], -1, g_loc, dh), ck, cv, scale=scale,
+                                 valid=valid_all)
+        else:
+            src = xm if xa is None else xa[rows_of[tuple(coords.items())]].to(dev)
+            k = dense_apply(kv_dense(p.wk, m, coords, ks, split), src, cfg)
+            v = dense_apply(kv_dense(p.wv, m, coords, ks, split), src, cfg)
+            if sin_cos is not None:
+                sin, cos = (t.to(dev)[None] for t in sin_cos)
+                q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+            qg = q.reshape(*q.shape[:2], k.shape[2], g_loc, dh)
+            if cache is not None:
+                ck, cv = (cache_tile(c, m, coords, ks, split, dev) for c in (cache.k, cache.v))
+                _cache_write(ck, k, slot)
+                _cache_write(cv, v, slot)
+                out = _attend_decode(qg, ck, cv, scale=scale,
+                                     valid=valid.to(dev).expand(qg.shape[0], -1),
+                                     softcap=cfg.attn_logit_softcap)
+            else:
+                out = _attend_full(qg, k, v, cfg, causal=causal and xa is None,
+                                   cross=xa is not None, scale=scale)
+        out = out.reshape(*xm.shape[:2], h_loc * dh).to(cdtype(cfg))
+        return dense_apply(dense_tile(p.wo, "mlp", ("fsdp",), m, coords), out, cfg)
+
+    return model_parts(x, one, n), cache
 
 
 # =====================================================================================

@@ -13,11 +13,19 @@ block's cache (``"cross"``, every key valid) in decode.
 RWKV's token shifts: in prefill the channel mix's ``x_prev`` is the padded
 shift of its normed input; in decode it is the cache's ``x_cm``, which then
 becomes this step's normed input (the time mix writes ``x_tm`` itself).
+
+Under a ``model`` axis of more than one position (``sharding.rules``), the
+GQA mixer and cross-attention, the dense FFN, the RWKV channel mix and the
+MoE compute on each position's slice of their split dimensions and end in
+one sum (``gqa_apply``, ``ffn_apply``, ``moe_apply``); the norms and the
+residual adds run once per data shard, on the reduced output, on its
+first position. MLA, Mamba and RWKV-6's time mix keep the whole-layer
+path: the whole layer computed on the data shard's first model position
+(their tensor-parallel forms are later work, ROADMAP A.4).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -25,10 +33,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import LayerDesc, ModelConfig
-from .attention import (GQA, MLA, KVCache, _attend_decode, gqa_apply, gqa_axes, gqa_init,
-                        mla_apply, mla_axes, mla_init)
-from .layers import (FFN, ChannelMix, Norm, dense_apply, ffn_apply, ffn_axes, ffn_init,
-                     norm_apply, norm_axes, norm_init)
+from .attention import (GQA, MLA, KVCache, gqa_apply, gqa_axes, gqa_init, mla_apply, mla_axes,
+                        mla_init)
+from .layers import (FFN, ChannelMix, Norm, ffn_apply, ffn_axes, ffn_init, norm_apply,
+                     norm_axes, norm_init)
 from .moe import MoE, moe_apply, moe_axes, moe_init
 from .ssm import (RWKV, Mamba, MambaCache, RwkvCache, mamba_apply, mamba_axes, mamba_init,
                   rwkv_apply, rwkv_axes, rwkv_init)
@@ -177,14 +185,8 @@ def block_apply(
         xn = norm_apply(p.norm_x, h, cfg)
         cross_cache = (cache or {}).get("cross")
         if cross_cache is not None and xa is None:  # decode: the prefilled encoder K/V
-            B, S, _ = xn.shape
-            H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-            q = dense_apply(p.cross.wq, xn, cfg).reshape(B, S, Hkv, H // Hkv, dh)
-            T = cross_cache.k.shape[1]
-            valid = torch.ones((B, T), dtype=torch.bool, device=x.device)
-            out = _attend_decode(q, cross_cache.k, cross_cache.v, scale=1.0 / math.sqrt(dh),
-                                 valid=valid)
-            out = dense_apply(p.cross.wo, out.reshape(B, S, H * dh).to(x.dtype), cfg)
+            out, _ = gqa_apply(p.cross, xn, cfg, positions=positions, causal=False,
+                               cache=cross_cache, kv_cached=True)
             new_cache["cross"] = cross_cache
         else:
             out, _ = gqa_apply(p.cross, xn, cfg, positions=positions, causal=False, xa=xa)

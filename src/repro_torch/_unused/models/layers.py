@@ -15,12 +15,24 @@ with :func:`repro_torch.interop.convert_lm_params`. The RWKV channel mix
 (``ffn_act="rwkv_cm"``) is a :class:`ChannelMix` with ``mu``, ``wk``, ``wv``
 and ``wr``. The ``*_axes`` functions give each module's leaves their
 logical axes, keyed as its parameters are (``sharding.rules``).
+
+Tensor parallelism (a rule context whose ``model`` axis has more than one
+position): :func:`dense_tp` is the dense layer over the model positions,
+column-parallel where the rules split its output axis (the positions'
+columns joined), row-parallel where they split its input axis (each
+position's partial product of its columns of x, then the sum); whole on
+the first position otherwise. :func:`ffn_apply` splits the hidden
+dimension over ``mlp``: each position computes its columns of ``wi``
+(``wg``) and its rows of ``wo``, and the partials are summed once per FFN.
+The RWKV channel mix splits ``wk``'s columns and ``wv``'s rows the same
+way; its token-shift mixes and its receptance (``wr``, unsplit) run once
+on the first position, which multiplies the sum.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -28,9 +40,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.place import join_model_parts, model_parts, model_tile
+from repro_torch.sharding.rules import model_size, model_split
 
 __all__ = [
-    "Dense", "dense_init", "dense_axes", "dense_apply",
+    "Dense", "DenseTile", "dense_init", "dense_axes", "dense_apply", "dense_tile", "dense_tp",
     "Norm", "norm_init", "norm_axes", "norm_apply",
     "Embed", "round_vocab", "embed_init", "embed_axes",
     "rope_sin_cos", "apply_rope",
@@ -85,7 +99,7 @@ def dense_axes(in_axis, out_axes, *, bias=False) -> dict:
     return a
 
 
-def dense_apply(p: Dense, x: torch.Tensor, cfg) -> torch.Tensor:
+def dense_apply(p: Dense | DenseTile, x: torch.Tensor, cfg) -> torch.Tensor:
     """x (..., in_dim) → (..., *out_dims) in the compute dtype: the
     reference's ``"...d,dh->...h"`` and ``"bsd,dhe->bshe"`` contractions.
     An x of another dtype (a cached MLA latent) promotes as JAX's einsum
@@ -99,6 +113,49 @@ def dense_apply(p: Dense, x: torch.Tensor, cfg) -> torch.Tensor:
     if p.b is not None:
         y = y + p.b.to(cdtype(cfg))
     return y
+
+
+class DenseTile(NamedTuple):
+    """A model position's ``w`` and ``b`` tiles, which :func:`dense_apply`
+    takes as it takes a :class:`Dense` (no module built per step)."""
+
+    w: torch.Tensor
+    b: torch.Tensor | None = None
+
+
+def dense_tile(p: Dense, in_axis, out_axes, m: int, coords=None) -> DenseTile:
+    """What model position ``m`` (of the data shard at ``coords``) computes
+    with: the tiles of ``w`` and ``b``
+    (:func:`~repro_torch.sharding.place.model_tile`)."""
+    b = None if p.b is None else model_tile(p.b, tuple(out_axes), m, coords)
+    return DenseTile(model_tile(p.w, (in_axis, *out_axes), m, coords), b)
+
+
+def dense_tp(p: Dense, x: torch.Tensor, cfg, in_axis, out_axes) -> torch.Tensor:
+    """:func:`dense_apply` over the model positions of each data shard:
+    row-parallel where the rules split ``w``'s input axis (each position
+    multiplies its columns of x by its rows of ``w``; the partials are
+    summed, then the bias added), column-parallel where they split an
+    output axis (the positions' outputs joined on the first), on the first
+    position where ``w`` is whole; :func:`dense_apply` itself without a
+    ``model`` axis."""
+    if model_size() == 1:
+        return dense_apply(p, x, cfg)
+    axes = (in_axis, *out_axes)
+    dim, n = model_split(axes, p.w.shape)
+    if dim == 0:
+        cols = p.w.shape[0] // n
+
+        def partial(m, xm, coords):
+            w = model_tile(p.w, axes, m, coords)
+            return dense_apply(DenseTile(w), xm[..., m * cols:(m + 1) * cols], cfg)
+
+        y = model_parts(x, partial, n)
+        return y if p.b is None else y + model_tile(p.b, tuple(out_axes), 0).to(cdtype(cfg))
+    out_dim = x.dim() - 2 + (dim or 1)  # the split output axis of y (..., *out_dims)
+    return model_parts(x, lambda m, xm, c: dense_apply(dense_tile(p, in_axis, out_axes, m, c),
+                                                       xm, cfg),
+                       n, join=lambda parts, _: join_model_parts(parts, out_dim))
 
 
 # ---- norms ---------------------------------------------------------------------
@@ -234,7 +291,10 @@ def ffn_apply(p: FFN | ChannelMix, x: torch.Tensor, cfg: ModelConfig, *,
               x_prev: torch.Tensor | None = None) -> torch.Tensor:
     """x (B, S, d) → (B, S, d). GELU is the tanh approximation, as
     ``jax.nn.gelu``'s default. ``x_prev`` is the token-shifted input of the
-    RWKV channel mix (``None``: x itself); the other variants ignore it."""
+    RWKV channel mix (``None``: x itself); the other variants ignore it.
+    Under a ``model`` axis: :func:`_ffn_tp`."""
+    if model_size() > 1:
+        return _ffn_tp(p, x, cfg, x_prev)
     if cfg.ffn_act == "swiglu":
         h = F.silu(dense_apply(p.wg, x, cfg)) * dense_apply(p.wi, x, cfg)
         return dense_apply(p.wo, h, cfg)
@@ -252,3 +312,40 @@ def ffn_apply(p: FFN | ChannelMix, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         h = F.gelu(h, approximate="tanh")
     return dense_apply(p.wo, h, cfg)
+
+
+def _ffn_tp(p: FFN | ChannelMix, x: torch.Tensor, cfg: ModelConfig,
+            x_prev: torch.Tensor | None) -> torch.Tensor:
+    """:func:`ffn_apply` with the hidden dimension over ``mlp``: each model
+    position's columns of ``wi`` (``wg``, the channel mix's ``wk``) and rows
+    of ``wo`` (``wv``), one sum of the partials (on the first position, in
+    model order); on the first position alone where the rules leave the
+    hidden dimension whole."""
+    rwkv = cfg.ffn_act == "rwkv_cm"
+    w_in = p.wk if rwkv else p.wi
+    n = model_split(("fsdp", "mlp"), w_in.w.shape)[1]
+
+    if rwkv:
+        xp = x if x_prev is None else x_prev
+        mu = p.mu.to(x.dtype)
+        xk = x * mu[0] + xp * (1 - mu[0])
+        xr = x * mu[1] + xp * (1 - mu[1])
+
+        def partial(m, xm, c):
+            k = torch.square(F.relu(dense_apply(dense_tile(p.wk, "fsdp", ("mlp",), m, c), xm, cfg)))
+            return dense_apply(dense_tile(p.wv, "mlp", ("fsdp",), m, c), k, cfg)
+
+        r = torch.sigmoid(dense_apply(p.wr, xr, cfg))
+        return r * model_parts(xk, partial, n)
+
+    def partial(m, xm, c):
+        h = dense_apply(dense_tile(p.wi, "fsdp", ("mlp",), m, c), xm, cfg)
+        if cfg.ffn_act == "swiglu":
+            h = F.silu(dense_apply(dense_tile(p.wg, "fsdp", ("mlp",), m, c), xm, cfg)) * h
+        elif cfg.ffn_act == "relu2":
+            h = torch.square(F.relu(h))
+        else:
+            h = F.gelu(h, approximate="tanh")
+        return dense_apply(dense_tile(p.wo, "mlp", ("fsdp",), m, c), h, cfg)
+
+    return model_parts(x, partial, n)

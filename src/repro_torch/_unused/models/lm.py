@@ -37,11 +37,23 @@ the GQA and MLA caches as sequence tiles on the ``model`` devices, and
 :func:`apply_decode` attends over them tile by tile. A layer may also be an
 object with ``gather()`` (the mesh train step's tiles): it is gathered into
 a module inside the layer's remat, so that the backward gathers it again.
+
+Tensor parallelism: under a rule context whose ``model`` axis has more than
+one position, the layers split their work over it (``blocks.py``), the
+embedding lookup is vocab-parallel (each position looks up the rows of the
+table it holds, zeros elsewhere, then one sum) and so are the logits
+(``vocab_shards=True`` returns each position's columns of them, on its
+device; otherwise they are joined). :func:`init_cache` then lays the GQA
+caches as ``kv_heads`` tiles. :func:`place_params` is the serving layout:
+the weights of the split layers laid over the mesh once, per
+:func:`param_axes` under the rules with ``fsdp`` whole, so that each data
+shard serves from its own replica and gathers nothing per step.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import os
 
@@ -52,13 +64,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import LayerDesc, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.sharding.place import place_zeros, zip_tree
-from repro_torch.sharding.rules import (NamedSharding, context_state, current_rules,
-                                        restored_context, shard)
-from .attention import KVCache
+from repro_torch.sharding.place import (join_model_parts, model_parts, model_tile, place,
+                                        place_zeros, zip_tree)
+from repro_torch.sharding.rules import (DEFAULT_RULES, SINGLE_POD_RULES, LogicalRules,
+                                        NamedSharding, context_state, current_rules,
+                                        model_size, model_split, restored_context, shard)
+from .attention import GQA, KVCache, gqa_heads_split
 from .blocks import block_apply, block_axes, block_cache_axes, block_cache_init, block_init
-from .layers import (Dense, Embed, Norm, cdtype, dense_apply, embed_axes, embed_init,
-                     norm_apply, norm_axes, norm_init, pdtype, round_vocab)
+from .layers import (FFN, ChannelMix, Dense, Embed, Norm, cdtype, dense_tp, embed_axes,
+                     embed_init, norm_apply, norm_axes, norm_init, pdtype, round_vocab)
+from .moe import MoE
 
 __all__ = [
     "LM",
@@ -72,6 +87,9 @@ __all__ = [
     "apply_decode",
     "count_params",
     "param_count",
+    "module_view",
+    "tp_leaf_names",
+    "place_params",
 ]
 
 #: the encoder's one layer kind
@@ -192,12 +210,34 @@ def param_count(cfg: ModelConfig) -> int:
     return cfg.n_params_estimate + norms + biases + pad + extra
 
 
+def _embed_tokens(params: LM, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The table's rows of ``tokens`` in the compute dtype (rows are gathered
+    before the cast; the cast is elementwise, so the values are the
+    reference's). Under a ``model`` axis that splits the vocab, each
+    position looks up the tokens in the rows it holds and puts zeros
+    elsewhere; one sum joins them (exact: one term is not zero)."""
+    table = params.embed.table
+    if model_size() == 1:
+        return table[tokens].to(cdtype(cfg))
+    axes = embed_axes()["table"]
+    n = model_split(axes, table.shape)[1]
+
+    def lookup(m, tok, coords):
+        rows = model_tile(table, axes, m, coords)
+        local = tok - m * rows.shape[0]
+        hit = (local >= 0) & (local < rows.shape[0])
+        emb = rows[local.clamp(0, rows.shape[0] - 1)].to(cdtype(cfg))
+        return torch.where(hit[..., None], emb, torch.zeros((), dtype=emb.dtype,
+                                                             device=emb.device))
+
+    return model_parts(tokens, lookup, n)
+
+
 def _embed_input(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Token / frontend-stub embedding → (B, S, d) in the compute dtype (rows
-    are gathered before the cast; the cast is elementwise, so the values are
-    the reference's). The vision stub's ``patch_embeds`` (B, P, d) replace
-    the first P = ``n_patches`` positions."""
-    emb = params.embed.table[batch["tokens"]].to(cdtype(cfg))
+    """Token / frontend-stub embedding → (B, S, d) in the compute dtype
+    (:func:`_embed_tokens`). The vision stub's ``patch_embeds`` (B, P, d)
+    replace the first P = ``n_patches`` positions."""
+    emb = _embed_tokens(params, batch["tokens"], cfg)
     if cfg.frontend == "vision_patches":
         P = cfg.n_patches
         emb = torch.cat([batch["patch_embeds"].to(emb.dtype), emb[:, P:]], dim=1)
@@ -280,13 +320,30 @@ def _run_groups(groups: nn.ModuleList, x, cfg: ModelConfig, *, positions, causal
     return x
 
 
-def _logits(params: LM, x, cfg: ModelConfig) -> torch.Tensor:
+def _logits(params: LM, x, cfg: ModelConfig, vocab_shards: bool = False):
+    """The final norm, then the logits (B, S, Vp) float32. Under a ``model``
+    axis that splits the vocab, each position multiplies by its columns of
+    the head (its rows of the tied table); ``vocab_shards`` returns those
+    column blocks, in vocab order, each on its position's device, else
+    they are joined on the first. Without a split: one block."""
     x = norm_apply(params.final_norm, x, cfg)
-    if cfg.tie_embeddings:
-        w = params.embed.table.to(cdtype(cfg)).T
-    else:
-        w = params.lm_head.w.to(cdtype(cfg))
-    return shard((x @ w).float(), ("batch", "seq", "vocab"))
+    if model_size() == 1:
+        if cfg.tie_embeddings:
+            w = params.embed.table.to(cdtype(cfg)).T
+        else:
+            w = params.lm_head.w.to(cdtype(cfg))
+        out = shard((x @ w).float(), ("batch", "seq", "vocab"))
+        return [out] if vocab_shards else out
+    leaf, axes = ((params.embed.table, embed_axes()["table"]) if cfg.tie_embeddings
+                  else (params.lm_head.w, ("fsdp", "vocab")))
+    n = model_split(axes, leaf.shape)[1]
+
+    def block(m, xm, coords):
+        w = model_tile(leaf, axes, m, coords).to(cdtype(cfg))
+        return (xm @ (w.T if cfg.tie_embeddings else w)).float()
+
+    parts = model_parts(x, block, n, join=None)
+    return parts if vocab_shards else join_model_parts(parts, -1)
 
 
 def encode(params: LM, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -300,14 +357,16 @@ def encode(params: LM, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return norm_apply(params.enc_norm, x, cfg)
 
 
-def apply_train(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence forward → logits (B, S, vocab_padded) f32. Enc-dec
-    cards take ``batch["frames"]``, the VLM stub ``batch["patch_embeds"]``."""
+def apply_train(params: LM, batch: dict, cfg: ModelConfig, *, vocab_shards: bool = False):
+    """Full-sequence forward → logits (B, S, vocab_padded) f32 (with
+    ``vocab_shards``: the list of their vocab-parallel column blocks,
+    :func:`_logits`). Enc-dec cards take ``batch["frames"]``, the VLM stub
+    ``batch["patch_embeds"]``."""
     xa = encode(params, batch["frames"], cfg) if cfg.encdec else None
     x = _embed_input(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     x = _run_groups(params.groups, x, cfg, positions=positions, causal=True, xa=xa)
-    return _logits(params, x, cfg)
+    return _logits(params, x, cfg, vocab_shards)
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16, *,
@@ -318,10 +377,14 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16, *
     with ``ctx_parallel``, every leaf whose :func:`cache_axes` sequence axis
     the rules map to a mesh axis (``seq_ctx`` → ``model``, where it divides
     the length) is laid as zero tiles on the mesh's devices; the rest stay
-    on ``device``."""
+    on ``device``. Without ``ctx_parallel``, under rules that split the
+    heads over ``model`` (``attention.gqa_heads_split``), the GQA
+    self-attention caches are laid as ``kv_heads`` tiles, one per position
+    (a replica per position where the rules keep ``kv_heads`` whole), each
+    written and read by its position only."""
     dev = resolve_device(device, user="the LM")
     cross_len = cross_len if cfg.encdec else 0
-    rules = current_rules() if ctx_parallel else None
+    rules = current_rules() if ctx_parallel or gqa_heads_split(cfg) else None
 
     def build(device_):
         return {"groups": [
@@ -336,12 +399,21 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16, *
 
     def leaf(t, axes):
         spec = rules.spec(axes, shape=tuple(t.shape))
-        if "seq_ctx" in axes and spec[axes.index("seq_ctx")] is not None:
+        tiled = ("seq_ctx" in axes and spec[axes.index("seq_ctx")] is not None
+                 if ctx_parallel else "kv_heads" in axes)
+        if tiled:
             return place_zeros(t.shape, t.dtype, NamedSharding(rules.mesh, spec))
         return torch.zeros(t.shape, dtype=t.dtype, device=dev)
 
-    axes = cache_axes(cfg, ctx_parallel=True, cross=bool(cross_len))
-    return zip_tree(leaf, build("meta"), axes)
+    tree = zip_tree(leaf, build("meta"), cache_axes(cfg, ctx_parallel=ctx_parallel,
+                                                    cross=bool(cross_len)))
+    for layers in tree["groups"]:  # the cross K/V stay whole (lm.prefill_cross writes them)
+        for layer in layers:
+            for c in layer.values():
+                if "cross" in c:
+                    c["cross"] = KVCache(*(torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                                           for t in c["cross"]))
+    return tree
 
 
 def cache_axes(cfg: ModelConfig, *, ctx_parallel: bool = False, cross: bool = False) -> dict:
@@ -364,8 +436,8 @@ def prefill_cross(params: LM, enc_out: torch.Tensor, cfg: ModelConfig, cache: di
             new_c = {}
             for key, c in c_layer.items():
                 cross, cc = layer[key].cross, c["cross"]
-                k = dense_apply(cross.wk, enc_out, cfg).to(cc.k.dtype)
-                v = dense_apply(cross.wv, enc_out, cfg).to(cc.v.dtype)
+                k, v = (dense_tp(w, enc_out, cfg, "fsdp", ("kv_heads", "head_dim")).to(t.dtype)
+                        for w, t in ((cross.wk, cc.k), (cross.wv, cc.v)))
                 new_c[key] = {**c, "cross": KVCache(k, v)}
             new_g.append(new_c)
         groups.append(new_g)
@@ -374,13 +446,16 @@ def prefill_cross(params: LM, enc_out: torch.Tensor, cfg: ModelConfig, cache: di
 
 @torch.no_grad()
 def apply_decode(params: LM, tokens: torch.Tensor, cache: dict, cache_len, cfg: ModelConfig, *,
-                 ctx_parallel: bool = False):
-    """One decode step. tokens (B, 1) → (logits (B, 1, V), cache). The KV
-    and MLA caches are written in place (with ``ctx_parallel``, the masked
-    write into sequence tiles); the Mamba and RWKV states are replaced in
-    the returned cache; the cross K/V entries are kept as they are."""
+                 ctx_parallel: bool = False, vocab_shards: bool = False):
+    """One decode step. tokens (B, 1) → (logits (B, 1, V), cache) (with
+    ``vocab_shards``: the list of the logits' vocab-parallel column
+    blocks). The KV and MLA caches are written in place (with
+    ``ctx_parallel``, the masked write into sequence tiles; under a split of
+    the heads, each position into its ``kv_heads`` tile); the Mamba and
+    RWKV states are replaced in the returned cache; the cross K/V entries
+    are kept as they are."""
     cache_len = int(cache_len)
-    x = shard(params.embed.table[tokens].to(cdtype(cfg)), ("batch", None, "embed"))
+    x = shard(_embed_tokens(params, tokens, cfg), ("batch", None, "embed"))
     positions = torch.full((1,), cache_len, device=x.device)
     new_groups = []
     for (pattern, _repeat), layers, c_g in zip(cfg.layer_list, params.groups, cache["groups"]):
@@ -394,4 +469,62 @@ def apply_decode(params: LM, tokens: torch.Tensor, cache: dict, cache_len, cfg: 
                 new_c[f"l{i}"] = {**c_layer[f"l{i}"], **(nc or {})}
             new_g.append(new_c)
         new_groups.append(new_g)
-    return _logits(params, x, cfg), {"groups": new_groups}
+    return _logits(params, x, cfg, vocab_shards), {"groups": new_groups}
+
+
+# ---- the serving layout ------------------------------------------------------------------
+def module_view(module: nn.Module, leaves: dict, prefix: str = "") -> nn.Module:
+    """A shallow copy of ``module`` whose parameters are
+    ``leaves[prefix + name]`` (tensors, :class:`~repro_torch.sharding.place.Placed`
+    tiles, ``None``)."""
+    view = copy.copy(module)
+    view._parameters = {k: None if p is None else leaves[f"{prefix}{k}"]
+                        for k, p in module._parameters.items()}
+    view._modules = {k: None if m is None else module_view(m, leaves, f"{prefix}{k}.")
+                     for k, m in module._modules.items()}
+    return view
+
+
+def tp_leaf_names(params: nn.Module) -> set[str]:
+    """The parameters of ``params`` (an :class:`LM` or one of its modules)
+    that the split layers read per model position (the
+    rest are read whole, on a data shard's first position): every leaf of
+    a GQA mixer or cross-attention and of a dense FFN, the channel mix's
+    ``wk`` and ``wv``, a MoE's experts and shared experts (not its router),
+    the embedding table and the untied head."""
+    out = set()
+    for name, mod in params.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(mod, (GQA, FFN)):
+            out |= {pre + k for k, _ in mod.named_parameters()}
+        elif isinstance(mod, ChannelMix):
+            out |= {pre + "wk.w", pre + "wv.w"}
+        elif isinstance(mod, MoE):
+            out |= {pre + k for k, _ in mod.named_parameters() if not k.startswith("router.")}
+        elif isinstance(mod, Embed):
+            out.add(pre + "table")
+    if getattr(params, "lm_head", None) is not None:
+        out.add("lm_head.w")
+    return out
+
+
+def place_params(params: LM, cfg: ModelConfig, mesh, rules=None) -> LM:
+    """The serving layout of ``params`` on ``mesh``: each leaf of
+    :func:`tp_leaf_names` laid once by :func:`param_axes` under ``rules``
+    (``None``: the mesh's default rules) with ``fsdp`` whole, so that every
+    data shard holds a replica and its model positions their slices (on a
+    device list that repeats one device, views of ``params``); the other
+    leaves stay as they are. ``params`` itself where the mesh has no
+    ``model`` axis of more than one position. Run the steps on it under
+    ``axis_rules(mesh, rules)``."""
+    if "model" not in mesh.axis_names or int(mesh.shape["model"]) == 1:
+        return params
+    if rules is None:
+        rules = DEFAULT_RULES if "pod" in mesh.axis_names else SINGLE_POD_RULES
+    r = LogicalRules(mesh, dict(rules, fsdp=None))
+    axes, tp = param_axes(cfg), tp_leaf_names(params)
+    leaves = {}
+    for name, t in params.named_parameters(remove_duplicate=False):
+        leaves[name] = (place(t, NamedSharding(mesh, r.spec(axes[name], shape=tuple(t.shape))))
+                        if name in tp else t)
+    return module_view(params, leaves)

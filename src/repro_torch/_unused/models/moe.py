@@ -23,11 +23,20 @@ axis divides ``n_experts``, ``moe_apply`` takes the expert-parallel path
 included. Its routing group is a data shard's local tokens, all rows
 together, with capacity ``C = clip(ceil(cf·T·k/E), 1, T)``, so it drops
 other entries than the dense path, whose groups are the rows. Each model
-shard computes its ``E/ep`` experts on its own device of the mesh; their
-sum (the reference's ``psum``) lands on the data shard's first device, and
-the shared experts are added after it. ``dropped`` counts the entries that
-the dense path drops by capacity on an input; ``ep_load`` gives each
-shard's kept and dropped entries on the expert-parallel path.
+shard computes its ``E/ep`` experts on its own device of the mesh, with
+the expert slice that rests there (``sharding.place.model_tile``: the
+tile of the serving layout or of the mesh train step, never a per-step
+copy of the weights); their sum (the reference's ``psum``) lands on the
+data shard's first device, and the shared experts are added after it.
+Where ``experts`` does not divide a ``model`` axis of more than one
+position, the dense path runs with the expert hidden dimension over
+``expert_mlp`` (the reference's GSPMD split): routing, dispatch and
+combine once on the first position, each position's slice of
+``d_ff_expert`` in the expert SwiGLU, one sum of the expert outputs. The
+shared experts split ``mlp`` the same way under a ``model`` axis.
+``dropped`` counts the entries that the dense path drops by capacity on
+an input; ``ep_load`` gives each shard's kept and dropped entries on the
+expert-parallel path.
 """
 
 from __future__ import annotations
@@ -40,8 +49,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import cost
-from repro_torch.sharding.rules import (batch_shards, current_rules, mesh_position, on_position,
-                                        shard)
+from repro_torch.sharding.place import model_parts, model_tile
+from repro_torch.sharding.rules import (batch_shards, current_rules, mesh_position, model_size,
+                                        model_split, on_position, shard)
 from .layers import FFN, Dense, cdtype, dense_axes, dense_init, pdtype
 
 __all__ = ["MoE", "moe_init", "moe_axes", "moe_apply", "moe_capacity", "dropped", "ep_load"]
@@ -89,6 +99,12 @@ def moe_init(cfg: ModelConfig, *, gen=None, device=None) -> MoE:
         shared = FFN(dense_init(d, (fs,), cfg, **kw), dense_init(fs, (d,), cfg, **kw),
                      dense_init(d, (fs,), cfg, **kw))
     return MoE(router, wi, wg, wo, shared)
+
+
+#: the logical axes of the routed experts' weights
+_EXPERT_AXES = {"wi": ("experts", "fsdp", "expert_mlp"), "wg": ("experts", "fsdp", "expert_mlp"),
+                "wo": ("experts", "expert_mlp", "fsdp")}
+_SHARED_AXES = {"wi": ("fsdp", "mlp"), "wg": ("fsdp", "mlp"), "wo": ("mlp", "fsdp")}
 
 
 def moe_axes(cfg: ModelConfig) -> dict:
@@ -150,11 +166,39 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     ep_axis = _ep_enabled(cfg)
     if ep_axis is not None:
         return _moe_apply_ep(p, x, cfg, ep_axis)
+    if model_size() > 1:
+        return _moe_apply_dense(p, x, cfg, experts=_experts_tp)
     return _moe_apply_dense(p, x, cfg)
 
 
-def _moe_apply_dense(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x (B, S, d) → (B, S, d). Routing groups = batch rows."""
+def _expert_swiglu(buf: torch.Tensor, wi, wg, wo) -> torch.Tensor:
+    """The expert SwiGLU on the dispatch buffer (B, E, C, d), batched over
+    the expert axis."""
+    h = F.silu(torch.einsum("becd,edf->becf", buf, wg)) * torch.einsum("becd,edf->becf", buf, wi)
+    h = shard(h, ("batch", "experts", None, "expert_mlp"))
+    return torch.einsum("becf,efd->becd", h, wo)
+
+
+def _experts_whole(p: MoE, buf: torch.Tensor, dtype) -> torch.Tensor:
+    return _expert_swiglu(buf, *(w.to(dtype) for w in (p.wi, p.wg, p.wo)))
+
+
+def _experts_tp(p: MoE, buf: torch.Tensor, dtype) -> torch.Tensor:
+    """:func:`_expert_swiglu` with ``d_ff_expert`` over ``expert_mlp``: each
+    model position's columns of ``wi``/``wg`` and rows of ``wo``, the
+    partial outputs summed once (on the first position where the rules
+    leave the hidden dimension whole)."""
+    def partial(m, bm, coords):
+        return _expert_swiglu(bm, *(model_tile(getattr(p, k), _EXPERT_AXES[k], m, coords)
+                                    .to(dtype) for k in ("wi", "wg", "wo")))
+
+    return model_parts(buf, partial, model_split(_EXPERT_AXES["wi"], p.wi.shape)[1])
+
+
+def _moe_apply_dense(p: MoE, x: torch.Tensor, cfg: ModelConfig,
+                     experts=_experts_whole) -> torch.Tensor:
+    """x (B, S, d) → (B, S, d). Routing groups = batch rows. ``experts``
+    computes the expert outputs (B, E, C, d) from the dispatch buffer."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = moe_capacity(cfg, S)
@@ -175,10 +219,7 @@ def _moe_apply_dense(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     buf = shard(buf[:, : E * C].reshape(B, E, C, d), ("batch", "experts", None, None))
 
     # ---- the experts (SwiGLU), batched over the expert axis -------------------------
-    wi, wg, wo = (w.to(dtype) for w in (p.wi, p.wg, p.wo))
-    h = F.silu(torch.einsum("becd,edf->becf", buf, wg)) * torch.einsum("becd,edf->becf", buf, wi)
-    h = shard(h, ("batch", "experts", None, "expert_mlp"))
-    y = shard(torch.einsum("becf,efd->becd", h, wo), ("batch", "experts", None, None))
+    y = shard(experts(p, buf, dtype), ("batch", "experts", None, None))
 
     # ---- combine: gather back, weight by gate, add to the token rows ---------------
     y_flat = torch.cat([y.reshape(B, E * C, d), y.new_zeros((B, 1, d))], dim=1)
@@ -190,14 +231,22 @@ def _moe_apply_dense(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _add_shared(p: MoE, x: torch.Tensor, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Shared experts as a dense SwiGLU on every token, in the promoted dtype
-    of x and the compute dtype (the reference's einsum promotion)."""
+    of x and the compute dtype (the reference's einsum promotion); under a
+    ``model`` axis with the hidden dimension over ``mlp``, one sum."""
     if p.shared is None:
         return out
     dtype = torch.promote_types(x.dtype, cdtype(cfg))
     sh = p.shared
     xs = x.to(dtype)
-    h = F.silu(xs @ sh.wg.w.to(dtype)) * (xs @ sh.wi.w.to(dtype))
-    return out + h @ sh.wo.w.to(dtype)
+
+    def swiglu(xm, wi, wg, wo):
+        return (F.silu(xm @ wg.to(dtype)) * (xm @ wi.to(dtype))) @ wo.to(dtype)
+
+    if model_size() == 1:
+        return out + swiglu(xs, sh.wi.w, sh.wg.w, sh.wo.w)
+    return out + model_parts(xs, lambda m, xm, c: swiglu(xm, *(
+        model_tile(getattr(sh, k).w, _SHARED_AXES[k], m, c) for k in ("wi", "wg", "wo"))),
+        model_split(_SHARED_AXES["wi"], sh.wi.w.shape)[1])
 
 
 # ---- expert parallelism ---------------------------------------------------------------
@@ -274,8 +323,8 @@ def _moe_apply_ep(p: MoE, x: torch.Tensor, cfg: ModelConfig, ep_axis: str) -> to
                 sent = xt[tok_s].to(dev, dtype)
                 buf[dest] = sent
                 buf = buf[: E_loc * C].reshape(E_loc, C, d)
-                wi, wg, wo = (w[m * E_loc:(m + 1) * E_loc].to(dev, dtype)
-                              for w in (p.wi, p.wg, p.wo))
+                wi, wg, wo = (model_tile(getattr(p, k), _EXPERT_AXES[k], m, coords).to(dtype)
+                              for k in ("wi", "wg", "wo"))
                 h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) * torch.einsum(
                     "ecd,edf->ecf", buf, wi)
                 y = torch.einsum("ecf,efd->ecd", h, wo).reshape(E_loc * C, d)

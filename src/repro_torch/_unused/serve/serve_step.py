@@ -16,6 +16,12 @@ one cache. The prefill is the full-sequence forward under
 streaming softmax and Mamba and RWKV their chunked scans. Its batch holds
 ``tokens`` and, as the card needs, ``frames`` (enc-dec) or
 ``patch_embeds`` (the VLM stub).
+
+Under a rule context whose ``model`` axis has more than one position, both
+steps take the serving layout (``lm.place_params``) and the logits stay
+split over the vocab: :func:`vocab_argmax` takes each position's (max,
+first index) and keeps the largest max, the lowest index on a tie, which is
+``torch.argmax``'s answer on the joined logits.
 """
 
 from __future__ import annotations
@@ -26,11 +32,33 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch._unused.models import lm
 
 __all__ = ["CTX_PARALLEL_THRESHOLD", "make_decode_step", "make_prefill_step",
-           "greedy_generate"]
+           "greedy_generate", "vocab_argmax"]
 
 #: shard the cache's sequence axis over the ``model`` mesh axis from this
 #: length up (context-parallel decode), as the reference does
 CTX_PARALLEL_THRESHOLD = 1 << 15  # 32768
+
+
+def vocab_argmax(shards: list[torch.Tensor]) -> torch.Tensor:
+    """``argmax`` over the last axis of logits split into column blocks (in
+    vocab order, each on its own device) → int32 on the first block's
+    device: each block's (max, first index), then the largest max, the
+    earliest block on a tie."""
+    if len(shards) == 1:
+        return torch.argmax(shards[0], dim=-1).to(torch.int32)
+    dev = shards[0].device
+    best = idx = None
+    offset = 0
+    for s in shards:
+        v, i = torch.max(s, dim=-1)
+        v, i = v.to(dev), i.to(dev) + offset
+        if best is None:
+            best, idx = v, i
+        else:
+            take = v > best
+            best, idx = torch.where(take, v, best), torch.where(take, i, idx)
+        offset += s.shape[-1]
+    return idx.to(torch.int32)
 
 
 def make_decode_step(cfg: ModelConfig, s_max: int):
@@ -40,10 +68,9 @@ def make_decode_step(cfg: ModelConfig, s_max: int):
     ctx_parallel = s_max >= CTX_PARALLEL_THRESHOLD
 
     def step(params, tokens: torch.Tensor, cache, cache_len: int):
-        logits, new_cache = lm.apply_decode(params, tokens, cache, cache_len, cfg,
-                                            ctx_parallel=ctx_parallel)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return next_tok, new_cache
+        shards, new_cache = lm.apply_decode(params, tokens, cache, cache_len, cfg,
+                                            ctx_parallel=ctx_parallel, vocab_shards=True)
+        return vocab_argmax([s[:, -1] for s in shards]), new_cache
 
     step.ctx_parallel = ctx_parallel
     return step
@@ -54,8 +81,8 @@ def make_prefill_step(cfg: ModelConfig):
 
     @torch.no_grad()
     def step(params, batch: dict):
-        logits = lm.apply_train(params, batch, cfg)
-        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        shards = lm.apply_train(params, batch, cfg, vocab_shards=True)
+        return vocab_argmax([s[:, -1] for s in shards])
 
     return step
 

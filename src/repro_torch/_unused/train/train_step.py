@@ -23,17 +23,22 @@ the backward gathers it again), and the backward sends each slice's
 gradient back to its tile, where the data shards' gradients add up. The
 shard losses are weighted by the global batch's token count (its
 ``loss_mask`` where it has one), so that their sum is ``loss_fn`` of the
-whole batch. With ``compress_grads`` the int8 round trip runs on each
+whole batch. Over a ``model`` axis of more than one position the step is
+tensor-parallel (the reference's "TP over ``model``"): the leaves that the
+split layers read per position (``lm.tp_leaf_names``) are gathered only
+along ``fsdp``, onto each model position of the data shard, inside the
+layer's remat (``Placed.model_tile``), and the position computes its
+slice of the heads, MLP columns, experts and vocabulary with them; the
+other leaves are gathered whole onto the shard's first position. The
+loss is vocab-parallel (:func:`loss_fn`). Each tile's gradient is the sum
+of what its holders received (the replicas along the mesh axes its spec
+leaves out). With ``compress_grads`` the int8 round trip runs on each
 summed gradient leaf, as the reference's does on its global gradients.
-Then one AdamW update runs per tile. A ``model`` axis larger than one
-places tiles only: each data shard computes with whole gathered layers,
-which gives the reference's values (splitting heads and MLP columns over
-model devices is later work, ROADMAP).
+Then one AdamW update runs per tile.
 """
 
 from __future__ import annotations
 
-import copy
 import functools
 import types
 
@@ -42,10 +47,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.place import Placed, place, place_zeros
+from repro_torch.sharding.place import Placed, model_reduce, place, place_zeros
 from repro_torch.sharding.rules import (DEFAULT_RULES, SINGLE_POD_RULES, LogicalRules,
-                                        axis_rules, batch_shards, mesh_position, on_shard,
-                                        tree_shardings)
+                                        axis_rules, batch_shards, mesh_position, model_positions,
+                                        model_size, on_position, on_shard, tree_shardings)
 from repro_torch._unused.models import lm
 from .optimizer import AdamWConfig, OptState, adamw_update, adamw_update_tiles
 
@@ -57,10 +62,17 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, denom=None) -> torch.Tenso
     """Next-token cross-entropy over the (padded) vocab, mean over tokens
     (over ``loss_mask`` where the batch has one). ``denom`` replaces the
     batch's own token count (a data shard's loss weighted by the global
-    batch's)."""
-    logits = lm.apply_train(params, batch, cfg)  # (B,S,Vp) f32
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
+    batch's). Over logits split by vocab (a ``model`` axis), the
+    log-sum-exp is vocab-parallel: the max over the positions' column
+    blocks, then the sum of their ``exp(logit - max)``, and the label's
+    logit from the block that holds it (zeros from the others, summed)."""
+    shards = lm.apply_train(params, batch, cfg, vocab_shards=True)  # (B,S,Vp/n) f32 each
+    if len(shards) == 1:
+        logits = shards[0]
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
+    else:
+        lse, ll = _vocab_parallel_lse(shards, batch["labels"].long())
     nll = lse - ll
     mask = batch.get("loss_mask")
     if mask is not None:
@@ -70,14 +82,28 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, denom=None) -> torch.Tenso
     return nll.sum() / denom
 
 
-def _view(module: nn.Module, leaves: dict, prefix: str = "") -> nn.Module:
-    """A shallow copy of ``module`` whose parameters are ``leaves[prefix + name]``."""
-    view = copy.copy(module)
-    view._parameters = {k: None if p is None else leaves[f"{prefix}{k}"]
-                        for k, p in module._parameters.items()}
-    view._modules = {k: None if m is None else _view(m, leaves, f"{prefix}{k}.")
-                     for k, m in module._modules.items()}
-    return view
+def _vocab_parallel_lse(shards: list[torch.Tensor], labels: torch.Tensor):
+    """(log-sum-exp, the label's logit), each (B, S) on the first block's
+    device, of logits split into column blocks over the model positions:
+    each position's max and sum of exps and its share of the label's logit,
+    reduced over the positions (``model_reduce``)."""
+    positions = model_positions()[:len(shards)]
+    maxes, offset, lls = [], 0, []
+    for s, pos in zip(shards, positions):
+        with on_position(pos):
+            maxes.append(s.detach().amax(-1))
+            local = labels.to(s.device) - offset
+            hit = (local >= 0) & (local < s.shape[-1])
+            got = s.gather(-1, local.clamp(0, s.shape[-1] - 1)[..., None])[..., 0]
+            lls.append(torch.where(hit, got, torch.zeros((), dtype=s.dtype, device=s.device)))
+        offset += s.shape[-1]
+    top = model_reduce(maxes, positions, torch.maximum)
+    sums = []
+    for s, pos in zip(shards, positions):
+        with on_position(pos):
+            sums.append(torch.exp(s - top.to(s.device)[..., None]).sum(-1))
+    lse = top + torch.log(model_reduce(sums, positions))
+    return lse, model_reduce(lls, positions)
 
 
 def _compute_cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -93,7 +119,7 @@ def cast_params_for_compute(params: nn.Module, cfg: ModelConfig) -> nn.Module:
     cd = getattr(torch, cfg.compute_dtype)
     if cd == torch.float32:
         return params
-    return _view(params, {k: _compute_cast(p, cd)
+    return lm.module_view(params, {k: _compute_cast(p, cd)
                           for k, p in params.named_parameters(remove_duplicate=False)})
 
 
@@ -143,13 +169,17 @@ def place_train_state(params: nn.Module, cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 
 class _LayerTiles:
-    """One layer's placed parameters, gathered onto ``device`` (and cast for
-    compute) when ``lm`` runs the layer, inside its remat."""
+    """One layer's placed parameters as the data shard's positions compute
+    with them when ``lm`` runs the layer, inside its remat: the leaves in
+    ``split`` (read per model position) stay :class:`Placed`, gathered
+    along ``fsdp`` where a position reads them; the others are gathered
+    onto ``device`` (and cast for compute)."""
 
-    def __init__(self, module: nn.Module, prefix: str, params: dict, device, cast):
+    def __init__(self, module: nn.Module, prefix: str, params: dict, device, cast,
+                 split: set):
         self.module, self.prefix, self.device, self.cast = module, prefix, device, cast
         self.names = [k for k in params if k.startswith(prefix)]
-        self.params = params
+        self.params, self.split = params, split
 
     def parameters(self):
         for k in self.names:
@@ -157,24 +187,33 @@ class _LayerTiles:
 
     def gather(self) -> nn.Module:
         n = len(self.prefix)
-        return _view(self.module, {k[n:]: self.cast(self.params[k].full(self.device))
-                                   for k in self.names})
+        return lm.module_view(self.module, {k[n:]: _leaf(self.params[k], k in self.split,
+                                                         self.device, self.cast)
+                                            for k in self.names})
+
+
+def _leaf(p: Placed, split: bool, device, cast):
+    return p if split else cast(p.full(device))
 
 
 def _shard_model(template: lm.LM, params: dict, device, cast):
     """The LM as ``lm.apply_train`` reads it, for one data shard: the top
-    leaves gathered onto ``device`` now, the layers as :class:`_LayerTiles`."""
+    leaves gathered onto ``device`` now (the embedding and the head left
+    split under a ``model`` axis), the layers as :class:`_LayerTiles`."""
+    split = lm.tp_leaf_names(template) if model_size() > 1 else set()
+
     def top(name):
         sub = getattr(template, name)
         if sub is None:
             return None
-        return _view(sub, {k: cast(p.full(device)) for k, p in params.items()
-                           if k.startswith(name + ".")}, name + ".")
+        return lm.module_view(sub, {k: _leaf(p, k in split, device, cast)
+                                    for k, p in params.items() if k.startswith(name + ".")},
+                              name + ".")
 
-    groups = [[_LayerTiles(layer, f"groups.{gi}.{r}.", params, device, cast)
+    groups = [[_LayerTiles(layer, f"groups.{gi}.{r}.", params, device, cast, split)
                for r, layer in enumerate(layers)] for gi, layers in enumerate(template.groups)]
     encoder = None if template.encoder is None else [
-        _LayerTiles(layer, f"encoder.{r}.", params, device, cast)
+        _LayerTiles(layer, f"encoder.{r}.", params, device, cast, split)
         for r, layer in enumerate(template.encoder)]
     return types.SimpleNamespace(embed=top("embed"), final_norm=top("final_norm"),
                                  lm_head=top("lm_head"), enc_norm=top("enc_norm"),
@@ -198,7 +237,7 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, *,
     def step(params: dict, opt_state: OptState, batch: dict):
         with axis_rules(mesh, rules):
             first = mesh.devices.flat[0]
-            tiles = [t for p in params.values() for t in p.blocks().values()]
+            tiles = [t for p in params.values() for t in p.tiles.flat]
             for t in tiles:
                 t.grad = None
             mask = batch.get("loss_mask")
@@ -217,10 +256,15 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, *,
                 loss = shard_loss if loss is None else loss + shard_loss
             grads = {}
             for k, p in params.items():
-                grid = np.empty(p.tiles.shape, dtype=object)
-                canon = p.blocks()
+                sums = {}  # tile coordinates → the sum of its holders' gradients
                 for pos in p.positions():
-                    g = canon[p.sharding.block(pos, p.ndim)].grad
+                    g = p.tiles[pos].grad
+                    if g is not None:
+                        c = p.sharding.block(pos, p.ndim)
+                        sums[c] = g if c not in sums else sums[c] + g.to(sums[c].device)
+                grid = np.empty(p.tiles.shape, dtype=object)
+                for pos in p.positions():
+                    g = sums.get(p.sharding.block(pos, p.ndim))
                     grid[pos] = torch.zeros_like(p.tiles[pos]) if g is None else g.to(
                         p.tiles[pos].device)
                 grads[k] = Placed(p.sharding, p.shape, grid)

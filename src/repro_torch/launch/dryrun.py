@@ -10,13 +10,17 @@ counts the work per mesh position (``launch/cost.py``).
 
 * **train:** the state laid out by ``place_train_state`` (``Placed`` tiles
   of the parameters and AdamW moments) and one ``make_mesh_train_step``:
-  each data shard's forward and backward with whole gathered layers on its
-  first position, then the per-tile AdamW update.
+  each data shard's forward and backward, tensor-parallel over ``model``
+  (each position gathers its slices of the split layers along ``fsdp``
+  and computes with them; the rest gathered whole on the shard's first
+  position), then the per-tile AdamW update.
 * **prefill / decode:** the serving parameters (bf16 at rest unless
-  ``REPRO_SERVE_F32=1``) on the mesh's first position, as the port's serve
-  path keeps them, one ``make_prefill_step`` or ``make_decode_step`` under
-  the rules; from 32,768 positions the decode cache is laid as sequence
-  tiles over ``model`` (the context-parallel cache).
+  ``REPRO_SERVE_F32=1``) in the serving layout (``lm.place_params``: the
+  split layers' slices on their model positions, the rest on the mesh's
+  first position), one ``make_prefill_step`` or ``make_decode_step`` under
+  the rules; the decode cache as ``kv_heads`` tiles where the heads split,
+  and from 32,768 positions as sequence tiles over ``model`` (the
+  context-parallel cache).
 * **the decoder cells** (``--viterbi``): ``stream_16m_int8`` (32,768
   CCSDS blocks of int8 symbols, D = 512, L = 42) and ``stream_4m_f32``
   (8,192 of float32), laid over the mesh's block axes by ``lane_split``,
@@ -25,11 +29,14 @@ counts the work per mesh position (``launch/cost.py``).
   no host sync on this path, so nothing is skipped on meta.
 
 **Per device** means the busiest mesh position, never the global count
-divided by the chip count. In the port a data shard computes with whole
-gathered layers on one position (``_unused/train/train_step.py``), and a
-``model`` axis places tiles but splits no compute (ROADMAP A.4), so these
-are not the reference's post-SPMD per-device FLOPs; each report says so
-(``per_device``). ``memory`` gives the argument bytes the busiest position
+divided by the chip count: after the split over ``model``, the first
+position of a data shard, which computes its slices and what the rules
+leave whole (norms, routers, the loss's reductions, heads or hidden
+dimensions that the axis does not divide, and MLA, Mamba and RWKV-6's
+time mix, whose layers are not split yet: ROADMAP A.4). Each report says
+so (``per_device``). The serving cells run the whole batch as the data
+shards of one process: the norms and residuals of every shard run on the
+mesh's first position. ``memory`` gives the argument bytes the busiest position
 holds (its placed tiles, its data shard's rows, and on the first position
 the serving parameters); meta tensors have no temporaries, so those are
 "not measured".
@@ -64,9 +71,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[3]
 REPORTS = ROOT / "reports" / "torch_dryrun"
 VITERBI_CELLS = {"stream_16m_int8": 32768, "stream_4m_f32": 8192}
-PER_DEVICE = ("the busiest mesh position: a data shard computes with whole gathered layers "
-              "on one position and the model axis splits no compute (ROADMAP A.4), so this is "
-              "not the reference's post-SPMD per-device count")
+PER_DEVICE = ("the busiest mesh position after the split over the model axis: a data shard's "
+              "first position, with its slices of the split layers and the unsplit work (norms, "
+              "routers, undivided dimensions, and MLA, Mamba and RWKV-6's time mix still whole, "
+              "ROADMAP A.4)")
 
 
 def _mesh_name(multi_pod: bool) -> str:
@@ -189,19 +197,21 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
                 step(params, opt, specs["batch"])
         elif cell.kind == "prefill":
             step = make_prefill_step(cfg)
-            arg_bytes = _position_bytes([specs["batch"]], mesh, first, sum(
-                _nbytes(p) for p in specs["params"].parameters()))
+            params = lm.place_params(specs["params"], cfg, mesh, rules)
+            arg_bytes = _position_bytes([specs["batch"], dict(params.named_parameters())],
+                                        mesh, first, 0.0)
             with WorkCounter() as counter:
-                step(specs["params"], specs["batch"])
+                step(params, specs["batch"])
         else:  # decode: from 32,768 positions the cache as sequence tiles over the mesh
             specs["cache"] = lm.init_cache(cfg, B, S, dtype=torch.bfloat16, device="meta",
                                            cross_len=ENCODER_CTX if cfg.encdec else 0,
                                            ctx_parallel=S >= CTX_PARALLEL_THRESHOLD)
             step = make_decode_step(cfg, S)
-            arg_bytes = _position_bytes([specs["cache"], specs["tokens"]], mesh, first, sum(
-                _nbytes(p) for p in specs["params"].parameters()))
+            params = lm.place_params(specs["params"], cfg, mesh, rules)
+            arg_bytes = _position_bytes([specs["cache"], specs["tokens"],
+                                         dict(params.named_parameters())], mesh, first, 0.0)
             with WorkCounter() as counter:
-                step(specs["params"], specs["tokens"], specs["cache"], specs["cache_len"])
+                step(params, specs["tokens"], specs["cache"], specs["cache_len"])
 
     count = _count_section(counter)
     busiest = tuple(count["busiest_position"]) or first

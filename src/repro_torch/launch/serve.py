@@ -41,7 +41,9 @@ __all__ = ["main", "generate"]
 
 
 def generate(cfg, params, prompt: torch.Tensor, new_tokens: int, mesh):
-    """The CLI's loop: under ``axis_rules(mesh)``, feed ``prompt`` (B, P)
+    """The CLI's loop: under ``axis_rules(mesh)``, on the serving layout of
+    ``params`` (``lm.place_params``: itself on a mesh without a ``model``
+    axis of more than one position), feed ``prompt`` (B, P)
     token by token through the decode step, then take ``new_tokens``
     greedy steps. Returns (the new tokens (B, new_tokens) int32, the
     seconds of the greedy steps, each run ending in a synchronize on a
@@ -51,6 +53,7 @@ def generate(cfg, params, prompt: torch.Tensor, new_tokens: int, mesh):
     B, P = prompt.shape
     s_max = P + new_tokens
     with axis_rules(mesh):
+        params = lm.place_params(params, cfg, mesh)
         step = make_decode_step(cfg, s_max)
         cache = lm.init_cache(cfg, B, s_max, device=dev, ctx_parallel=step.ctx_parallel)
         for t in range(P):

@@ -17,7 +17,8 @@ a mesh of more devices (a :class:`~repro_torch.launch.mesh.DecodeMesh`
 over a device list, one process; ``[cuda:0] * n`` splits one card) places
 the parameters and AdamW state per the rules and runs
 ``make_mesh_train_step``: data-parallel over the ``batch`` rule's axes,
-FSDP over ``data``, MoE's expert-parallel path over ``model``. The CLI
+FSDP over ``data``, tensor parallelism (and MoE's expert-parallel
+path) over ``model``. The CLI
 trains over ``make_local_mesh()``: every CUDA device torch finds, or the
 ``--device`` given. ``--device cpu`` rehearses on the CPU, whose times
 are the CPU's. Weights are drawn from a generator seeded with 42 on the

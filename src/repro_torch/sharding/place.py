@@ -11,6 +11,18 @@ separate tensors on one device.
     shardings = tree_shardings(tree, axes_tree, LogicalRules(mesh, rules))
     placed = place_tree(tree, shardings)      # each device holds its tile
     back = gather_tree(placed, "cpu")         # == tree, bit for bit
+
+Tensor parallelism over the ``model`` axis, one data shard at a time:
+:func:`model_tile` is the slice of a parameter that a model position
+computes with, on its device (a :class:`Placed` leaf's own tile, joined
+along ``fsdp`` where that splits it too; a plain tensor's slice by the
+rules); :func:`model_parts` runs a function at each model position of
+each data shard and joins the parts; :func:`model_reduce` is the
+reference's all-reduce over ``model``: the positions' partial sums (or
+maxima) reduced on the data shard's first position in model order,
+recorded by a work counter as
+``"all-reduce"`` bytes at each position (the partial's, the operand size
+the reference's HLO analyzer counts).
 """
 
 from __future__ import annotations
@@ -21,10 +33,12 @@ import numpy as np
 import torch
 
 from repro_torch.launch import cost as _cost
-from .rules import NamedSharding, _is_namedtuple
+from .rules import (MODEL_AXIS, NamedSharding, _axes_of, _is_namedtuple, batch_shards,
+                    current_rules, model_positions, model_slice, on_position)
 
 __all__ = ["Placed", "place", "place_zeros", "place_tree", "gather_tree", "map_tree",
-           "zip_tree"]
+           "zip_tree", "model_tile", "model_reduce", "model_parts",
+           "join_model_parts"]
 
 
 class Placed:
@@ -35,6 +49,7 @@ class Placed:
     def __init__(self, sharding: NamedSharding, shape, tiles: np.ndarray):
         self.sharding, self.shape, self.tiles = sharding, torch.Size(shape), tiles
         self._block_positions = None
+        self._model_plans: dict = {}
 
     def __repr__(self) -> str:
         return f"Placed({tuple(self.shape)}, {self.dtype}, {self.sharding!r})"
@@ -47,6 +62,11 @@ class Placed:
     def device(self) -> torch.device:
         """The first mesh position's device."""
         return self.tiles.flat[0].device
+
+    @property
+    def requires_grad(self) -> bool:
+        """Whether a tile takes a gradient (the mesh train step's do)."""
+        return any(t.requires_grad for t in self.tiles.flat)
 
     @property
     def ndim(self) -> int:
@@ -81,21 +101,62 @@ class Placed:
         joined from the distinct tiles; differentiable, and the tile itself
         when there is one on that device."""
         device = self.device if device is None else torch.device(device)
-        splits = self.sharding.splits(self.ndim)
         blocks = self.blocks()
+        out = self._join(blocks, device, {})
+        counter = _cost.active()
+        if counter is not None:
+            self._count_gather(counter, blocks, out)
+        return out
+
+    def _join(self, blocks: dict, device, fixed: dict[int, int]) -> torch.Tensor:
+        """``blocks`` (tile coordinates → tile) joined on ``device``; a
+        dimension in ``fixed`` takes only its tile coordinate there."""
+        splits = self.sharding.splits(self.ndim)
 
         def join(prefix: tuple[int, ...]) -> torch.Tensor:
             dim = len(prefix)
             if dim == len(splits):
                 return blocks[prefix].to(device)
-            parts = [join(prefix + (i,)) for i in range(splits[dim])]
+            which = [fixed[dim]] if dim in fixed else range(splits[dim])
+            parts = [join(prefix + (i,)) for i in which]
             return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
-        out = join(())
+        return join(())
+
+    def model_tile(self, pos: tuple[int, ...]) -> torch.Tensor:
+        """What mesh position ``pos`` computes with under tensor parallelism:
+        the slice of the global tensor along the dimension that ``model``
+        splits which ``pos`` holds, whole along every other dimension. That
+        is ``pos``'s own tile, where no other mesh axis splits the tensor
+        (the serving layout); else its tile joined with the other tiles of
+        its model slice (``fsdp``'s), differentiable, the gather recorded
+        as :meth:`full`'s is."""
+        plan = self._model_plans.get(pos, False)
+        if plan is False:
+            plan = self._model_plans[pos] = self._model_plan(pos)
+        if plan is None:
+            return self.tiles[pos]
+        here, fixed, members = plan
+        blocks = {c: self.tiles[pos if c == here else at] for c, at in members}
+        out = self._join(blocks, self.tiles[pos].device, fixed)
         counter = _cost.active()
         if counter is not None:
-            self._count_gather(counter, blocks, out)
+            with on_position(pos):
+                self._count_gather(counter, blocks, out)
         return out
+
+    def _model_plan(self, pos):
+        """``None`` where ``pos``'s own tile is its model slice; else (its
+        tile coordinates, the dimensions ``model`` fixes → their
+        coordinate, [(coordinates, first holder) of the tiles it joins])."""
+        parts = list(self.sharding.spec) + [None] * (self.ndim - len(self.sharding.spec))
+        if all(not _axes_of(p) or MODEL_AXIS in _axes_of(p) for p in parts):
+            return None
+        here = self.sharding.block(pos, self.ndim)
+        fixed = {i: here[i] for i, p in enumerate(parts) if MODEL_AXIS in _axes_of(p)}
+        members = [(c, at) for c, at in self.block_positions().items()
+                   if all(c[i] == v for i, v in fixed.items())]
+        return here, fixed, members
 
     def _count_gather(self, counter, blocks: dict, out: torch.Tensor) -> None:
         """A work counter's record of :meth:`full` at the current position:
@@ -184,3 +245,79 @@ def gather_tree(tree, device=None):
     """The inverse of :func:`place_tree`: every :class:`Placed` leaf joined
     into its global tensor on ``device`` (``None``: its first device)."""
     return map_tree(lambda leaf: leaf.full(device) if isinstance(leaf, Placed) else leaf, tree)
+
+
+# ---- tensor parallelism over the ``model`` axis ------------------------------------------
+def model_tile(leaf, logical_axes, m: int, coords=None) -> torch.Tensor:
+    """The slice of the parameter ``leaf`` (logical axes ``logical_axes``)
+    that model position ``m`` of the data shard at ``coords`` (default: the
+    pinned or first one) computes with, on that position's device: a
+    :class:`Placed` leaf's :meth:`Placed.model_tile` (no copy in the
+    serving layout), a plain tensor's :func:`~repro_torch.sharding.rules.model_slice`."""
+    pos = model_positions(coords)[m]
+    if isinstance(leaf, Placed):
+        return leaf.model_tile(pos)
+    return leaf[model_slice(logical_axes, leaf.shape, m)].to(current_rules().mesh.devices[pos])
+
+
+def model_reduce(parts: list[torch.Tensor], positions, op=torch.add) -> torch.Tensor:
+    """``op`` over the model positions' ``parts`` in model order, on the
+    first part's device, in the parts' dtype: the reference's all-reduce
+    over ``model`` (``torch.add``: its sum of row-parallel partials;
+    ``torch.maximum``: its max). A sum of bf16 partials accumulates in
+    float32 and is rounded once, as one device's product accumulates its
+    terms, so that the split adds only the partials' own rounding. A work
+    counter records each part's bytes as ``"all-reduce"`` at its position."""
+    out = parts[0].float() if op is torch.add else parts[0]
+    for part in parts[1:]:
+        out = op(out, part.to(out.device, out.dtype))
+    out = out.to(parts[0].dtype)
+    counter = _cost.active()
+    if counter is not None and len(parts) > 1:
+        for part, pos in zip(parts, positions):
+            counter.collective("all-reduce", part.numel() * part.element_size(), pos)
+    return out
+
+
+def model_parts(x: torch.Tensor, fn, n: int, join=model_reduce):
+    """Run ``fn(m, x_rows, coords)`` at model positions 0..n-1 of each data
+    shard of ``x`` (its leading axis ``batch``: the rows of the shard, on
+    the position's device, under ``on_position``) and join each shard's
+    parts with ``join(parts, positions)`` on its first position; the
+    shards' results are joined along the rows on x's device. ``n`` is 1
+    where the rules leave the work whole: it runs once, on the first
+    position. ``join=None`` returns the list of the n parts, each on its
+    position's device (the shards' rows joined on the first shard's)."""
+    mesh = current_rules().mesh
+    outs = []
+    for coords, rows in batch_shards(x.shape):
+        positions = model_positions(coords)[:n]
+        xs = x[rows]
+        parts = []
+        for m, pos in enumerate(positions):
+            with on_position(pos):
+                parts.append(fn(m, xs.to(mesh.devices[pos]), coords))
+        if join is None:
+            outs.append(parts)
+            continue
+        with on_position(positions[0]):
+            y = parts[0] if n == 1 else join(parts, positions)
+        outs.append(y.to(x.device))
+    if join is None:
+        if len(outs) == 1:
+            return outs[0]
+        return [torch.cat([o[m].to(outs[0][m].device) for o in outs], 0) for m in range(n)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, 0)
+
+
+def join_model_parts(parts: list[torch.Tensor], dim: int = -1) -> torch.Tensor:
+    """Column-parallel outputs (one per model position, in model order)
+    joined along ``dim`` on the first part's device; a work counter records
+    the others' bytes there as ``"all-gather"``."""
+    if len(parts) == 1:
+        return parts[0]
+    dev = parts[0].device
+    counter = _cost.active()
+    if counter is not None:
+        counter.collective("all-gather", sum(p.numel() * p.element_size() for p in parts[1:]))
+    return torch.cat([p.to(dev) for p in parts], dim)

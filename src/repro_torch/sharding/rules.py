@@ -18,7 +18,10 @@ Default production mapping (see DESIGN.md §6):
 The port runs in one process over explicit device lists, so a rule context
 changes no value by itself: :func:`shard` returns its input, kept at every
 place the reference annotates. The code that has its own arithmetic or its
-own memory per device reads the rules: MoE's expert-parallel path, the
+own memory per device reads the rules: the tensor-parallel layers (each
+``model`` position of a data shard computes with the slice
+:func:`model_split` and :func:`model_slice` give it, at the grid index
+:func:`model_positions` gives it), MoE's expert-parallel path, the
 context-parallel cache, the mesh train step and the placement of a tree
 (:func:`tree_shardings` → :class:`NamedSharding`, placed by
 ``sharding.place.place_tree``).
@@ -51,6 +54,11 @@ __all__ = [
     "context_state",
     "restored_context",
     "block_mesh_axes",
+    "MODEL_AXIS",
+    "model_size",
+    "model_split",
+    "model_slice",
+    "model_positions",
     "DEFAULT_RULES",
     "SINGLE_POD_RULES",
 ]
@@ -79,6 +87,9 @@ DEFAULT_RULES: dict[str, str | tuple[str, ...] | None] = {
 }
 
 SINGLE_POD_RULES = dict(DEFAULT_RULES, batch="data", blocks="data")
+
+#: the mesh axis whose positions split a layer's computation (tensor parallelism)
+MODEL_AXIS = "model"
 
 _local = threading.local()
 
@@ -173,7 +184,15 @@ class LogicalRules:
         """Map logical axes to a PartitionSpec. With ``shape`` given, mesh
         axes that do not divide the corresponding dimension are dropped
         greedily (e.g. GQA kv=8 on a 16-way model axis falls back to
-        replicated KV); a mesh axis is used by one dimension at most."""
+        replicated KV); a mesh axis is used by one dimension at most.
+        Worked out once per (axes, shape)."""
+        key = (tuple(logical_axes), None if shape is None else tuple(shape))
+        memo = self.__dict__.setdefault("_specs", {})
+        if key not in memo:
+            memo[key] = self._spec(*key)
+        return memo[key]
+
+    def _spec(self, logical_axes, shape) -> PartitionSpec:
         parts = []
         used: set[str] = set()
         for i, ax in enumerate(logical_axes):
@@ -278,6 +297,61 @@ def mesh_position(mesh, coords: Mapping[str, int]) -> tuple[int, ...]:
     return tuple(int(coords.get(a, 0)) for a in mesh.axis_names)
 
 
+def model_size() -> int:
+    """The size of the active rules' ``model`` mesh axis: 1 without rules or
+    without that axis."""
+    rules = current_rules()
+    if rules is None or MODEL_AXIS not in rules.mesh.axis_names:
+        return 1
+    return int(rules.mesh.shape[MODEL_AXIS])
+
+
+def model_split(logical_axes: Sequence[str | None], shape: Sequence[int]) -> tuple[int | None, int]:
+    """(the dimension that the ``model`` axis splits, into how many slices)
+    for a leaf of these logical axes and shape under the active rules, by
+    :meth:`LogicalRules.spec` with ``shape=``: its greedy divisibility
+    fallback leaves e.g. ``kv_heads`` = 2 whole on a 4-way axis. ``(None,
+    1)`` where the rules leave every dimension whole along ``model``."""
+    if model_size() == 1:
+        return None, 1
+    spec = current_rules().spec(logical_axes, shape=tuple(shape))
+    for i, part in enumerate(spec):
+        if part == MODEL_AXIS:
+            return i, model_size()
+    return None, 1
+
+
+def model_slice(logical_axes: Sequence[str | None], shape: Sequence[int],
+                m: int) -> tuple[slice, ...]:
+    """The slices of a leaf (logical axes, shape) that model position ``m``
+    holds under the active rules: all of it where :func:`model_split` says
+    the leaf is whole."""
+    dim, n = model_split(logical_axes, shape)
+    out = [slice(None)] * len(shape)
+    if dim is not None:
+        size = shape[dim] // n
+        out[dim] = slice(m * size, (m + 1) * size)
+    return tuple(out)
+
+
+def model_positions(coords: Mapping[str, int] | None = None) -> list[tuple[int, ...]]:
+    """The grid index of each ``model`` position of a data shard, in model
+    order. ``coords`` are the data shard's mesh coordinates (default: the
+    shard :func:`on_shard` pins, else the first)."""
+    rules = current_rules()
+    if coords is None:
+        coords = shard_position() or {}
+    key = (id(rules), tuple(coords.items()))
+    out = _MODEL_POSITIONS.get(key)
+    if out is None or out[0] is not rules:
+        out = _MODEL_POSITIONS[key] = (rules, [
+            mesh_position(rules.mesh, {**coords, MODEL_AXIS: m}) for m in range(model_size())])
+    return out[1]
+
+
+_MODEL_POSITIONS: dict = {}  # (rules, shard coordinates) → the model positions
+
+
 def batch_shards(shape: Sequence[int]) -> list[tuple[dict[str, int], slice]]:
     """The data shards of an array whose leading axis is ``batch``:
     ``[(mesh coordinates, rows)]``, the rows cut along the mesh axes of the
@@ -334,8 +408,8 @@ def named_sharding(logical_axes: Sequence[str | None]) -> NamedSharding | None:
 
 def shard(x, logical_axes: Sequence[str | None]):
     """The reference's sharding annotation: ``x`` itself, in a rule context
-    or not (one process places tiles only where the code computes per
-    device)."""
+    or not (in one process the code that computes per position splits its
+    work itself)."""
     return x
 
 

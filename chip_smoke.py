@@ -292,8 +292,9 @@ Then the enc-dec card, the VLM stub and the training path:
     flash kernel's launches counted, one per model position of the
     attention layer; MoE layers on the expert-parallel path, 16 experts
     on 4 shards, each shard's routed tokens printed), then the float32
-    prefill of the first 512 tokens, its last logits and next tokens
-    against the same over a (1, 1) mesh (atol 1e-3); then ``make_decode_step`` at s_max = 32768 (context
+    prefill of the first 512 tokens (the Mamba layers split over
+    ``d_inner``, the attention over its heads), its last logits and next
+    tokens against the same over a (1, 1) mesh (atol 1e-3); then ``make_decode_step`` at s_max = 32768 (context
     parallel: the attention layer's cache as 4 sequence tiles of 8192),
     its first 30,000 positions seeded K/V (so every tile takes part),
     a 4-token prompt and 16 greedy steps in float32, logits allclose to
@@ -306,7 +307,7 @@ Then the enc-dec card, the VLM stub and the training path:
     ``pipeline_apply`` (P = 4, M = 6, (2, 16) microbatches) over
     ``[cuda:0] * 4`` against the sequential stages;
 29. the dry-run tooling (CPU only, on meta tensors, started in the
-    background at the beginning): ``python -m repro_torch.launch.dryrun``
+    background at the beginning, read after phase 32): ``python -m repro_torch.launch.dryrun``
     for the decoder cells (``--viterbi``), StarCoder2-3B × train_4k and ×
     decode_32k (the context-parallel cache) and DeepSeek-V2 × train_4k with
     and without ``REPRO_MOE_RULES=fsdp``, each report's counted FLOPs,
@@ -342,7 +343,22 @@ Then the enc-dec card, the VLM stub and the training path:
     at 2 layers, float32, over (1, 4) (experts at rest: views, memory
     flat over decode steps, a counted step gathers nothing) and (1, 16)
     (tensor parallel within each expert, d_ff_expert 16384 -> 1024, 3
-    heads a position) against (1, 1), logits and greedy tokens.
+    heads a position) against (1, 1), logits and greedy tokens;
+32. MLA, Mamba and RWKV-6's time mix split over the ``model`` axis
+    (``[32 tp mixers]``), meshes of the one card named n times: one
+    full-width float32 layer of each (DeepSeek-V2's MLA, 128 heads;
+    Jamba's Mamba, ``d_inner`` 8192; RWKV6-3B's time mix, 40 heads, its
+    mixes, bonus, groupnorm, base decay and Mamba's skip drawn at random)
+    laid by ``lm.place_module`` over (1, 2) and (1, 4), RWKV also over
+    (1, 8) and over (1, 16), where its heads do not divide and it keeps
+    the whole path bit for bit: a prefill of 2 x 2048 tokens and 8 cached
+    steps from an empty cache laid per position (``lm.init_cache``), the
+    outputs and the states within 1e-3 of (1, 1), the tiles views of the
+    weights, ms per position; RWKV6-3B at full depth, bf16, in the serving
+    layout over (1, 4): the prefill of 2 x 4096 tokens with ms per
+    position, beside phase 25's one-device prefill; DeepSeek-V2 (capacity
+    E/k) and RWKV6-3B at 2 layers, float32, over (1, 4): the last logits
+    within 1e-3 of (1, 1) and ``greedy_generate``'s tokens equal.
 
 Each phase prints its seconds (``[seconds]`` lines). The line before the
 last is the card's name and power limit; the last line is
@@ -433,6 +449,11 @@ TP_MOE = (2, 1024, 8)  # Mixtral-8x22B at 2 layers: prefill rows, sequence, gree
 # allocated bytes may move by the loop's own token tensors across decode steps; one
 # expert's slice (6144 x 16384 x 3 float32) is 1.2 GB, so a per-step weight copy cannot hide
 TP_MEM_SLACK = 1 << 20
+# phase 32: MLA, Mamba and RWKV-6's time mix split over the model axis
+TPM_LAYER = (2, 2048)  # one full-width float32 layer of each mixer: batch, prefill tokens
+TPM_DECODE = 8  # cached decode steps from an empty cache laid per position
+TPM_RWKV_PREFILL = (2, 4096)  # RWKV6-3B at full depth, bf16, the serving layout over (1, 4)
+TPM_GREEDY = (4, 16, 16)  # DeepSeek-V2 and RWKV6-3B at 2 layers, float32: requests, prompt, new
 # phase 27: REPRO_REMAT=dots keeps the products that full remat recomputes, so the losses
 # should agree as closely as the mesh step's do (the reference's tests/test_distributed.py)
 DOTS_LOSS_ATOL = 1e-4
@@ -2198,6 +2219,7 @@ def mixer_phases(torch, dev, counters, power: str, clock: PhaseClock) -> None:
         finally:
             blocks.moe_apply = moe.moe_apply
         peak = torch.cuda.max_memory_allocated()
+        MEASURED[f"{name} prefill_ms"] = pre_ms  # phase 32 sets the split prefill beside it
         others = read()
         if (fa.launches, fa.tc_launches) != (n_attn, n_attn) or others:
             raise AssertionError(f"[25 mixers] {name}: prefill launched flash {fa.launches} "
@@ -2783,7 +2805,7 @@ def lm_mesh_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
 
     from repro_torch.configs.base import get_config
     from repro_torch._unused import flash_attention as fa
-    from repro_torch._unused.models import blocks, lm, moe
+    from repro_torch._unused.models import blocks, lm, moe, ssm
     from repro_torch._unused.serve.serve_step import make_decode_step, make_prefill_step
     from repro_torch._unused.train.optimizer import AdamWConfig, adamw_init
     from repro_torch._unused.train.train_step import (make_mesh_train_step, make_train_step,
@@ -2855,6 +2877,7 @@ def lm_mesh_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
     part = {"tokens": tokens[:, :MESH_PARITY_SEQ]}
     with torch.no_grad():
         with axis_rules(mesh4):
+            mamba_ways = ssm.mamba_split(cfg32)
             last4 = lm.apply_train(params, part, cfg32)[:, -1]
         with axis_rules(mesh1):
             next1 = prefill(params, {"tokens": tokens})
@@ -2864,8 +2887,9 @@ def lm_mesh_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
     if not (same and pre_err <= MESH_LOGIT_ATOL and bool(torch.isfinite(last4).all())):
         raise AssertionError(f"{tag} jamba float32 prefill model=4 vs (1, 1): next tokens "
                              f"equal {same}, last logits differ by {pre_err}")
-    log(f"{tag} {cfg.name} float32 prefill of {B} x {MESH_PARITY_SEQ} tokens over model=4 vs "
-        f"(1, 1): next tokens equal {last4.argmax(-1).tolist()}, last-position logits max abs "
+    log(f"{tag} {cfg.name} float32 prefill of {B} x {MESH_PARITY_SEQ} tokens over model=4 (the "
+        f"Mamba layers split over d_inner {cfg.mamba_d_inner} {mamba_ways} ways, the attention "
+        f"over its heads) vs (1, 1): next tokens equal {last4.argmax(-1).tolist()}, last-position logits max abs "
         f"diff {pre_err:.3e} (atol {MESH_LOGIT_ATOL}); the bf16 prefill's next tokens "
         f"{next4.tolist()} over model=4, {next1.tolist()} over (1, 1)")
     del last4, last1
@@ -3316,6 +3340,200 @@ def tp_phases(torch, dev, counters, power: str, clock: PhaseClock) -> dict:
     finally:
         attention.flash_attention = real_flash
     return {"prefill": pre_launches[0], "flash": flash_split}
+
+
+def tp_mixer_phases(torch, dev, counters, power: str, clock: PhaseClock) -> None:
+    """Phase 32 (tp mixers): MLA, Mamba and RWKV-6's time mix split over the
+    ``model`` axis, meshes of the one card named n times (see the module
+    docstring)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch._unused.models import attention, blocks, lm, ssm
+    from repro_torch._unused.serve.serve_step import greedy_generate, make_prefill_step
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.place import Placed
+    from repro_torch.sharding.rules import axis_rules
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    zero, read = counter_fns(torch, counters)
+    tag = "[32 tp mixers]"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    splits = {"mla": attention.mla_heads_split, "mamba": ssm.mamba_split,
+              "rwkv6": ssm.rwkv_heads_split}
+
+    def mesh_of(model):
+        return make_local_mesh(data=1, model=model, devices=[dev] * model)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- one full-width float32 layer of each mixer over (1, n) against (1, 1) ------------
+    B, S = TPM_LAYER
+    for name, mixer, models in (("deepseek-v2-236b", "mla", (2, 4)),
+                                ("jamba-v0.1-52b", "mamba", (2, 4)),
+                                ("rwkv6-3b", "rwkv6", (2, 4, 8, 16))):
+        cfg = dataclasses.replace(get_config(name), compute_dtype="float32")
+        gi, key, desc = next((gi, f"l{i}", d) for gi, (pattern, _) in enumerate(cfg.layer_list)
+                             for i, d in enumerate(pattern) if d.mixer == mixer)
+        p = blocks._MIXER_INIT[mixer](cfg, gen=gen, device=dev)
+        with torch.no_grad():  # no constant vectors: the mixes, bonus, groupnorm, skip, bias
+            if mixer == "rwkv6":
+                p.mu.uniform_(0, 1, generator=gen)
+                p.u.normal_(generator=gen).mul_(0.5)
+                p.ln_scale.normal_(generator=gen).mul_(0.2).add_(1)
+                p.ln_bias.normal_(generator=gen).mul_(0.2)
+                p.w0.uniform_(-6, -1, generator=gen)
+            elif mixer == "mamba":
+                p.D.normal_(generator=gen)
+                p.conv_b.normal_(generator=gen).mul_(0.2)
+        axes = dict(lm._flat(blocks._MIXER_AXES[mixer](cfg)))
+        x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+        pos = torch.arange(S, device=dev)
+        xs = [torch.randn((B, 1, cfg.d_model), generator=gen, device=dev)
+              for _ in range(TPM_DECODE)]
+
+        def run(layer, model):
+            def apply(x_, **kw):
+                return blocks._apply_mixer(layer, x_, cfg, desc, causal=True,
+                                           ctx_parallel=False, **kw)[0:2]
+
+            with axis_rules(mesh_of(model)), torch.no_grad():
+                apply(x[:, :128], positions=pos[:128], cache=None, cache_len=None)  # warm up
+                ((out, _), pos_ms), pre_ms = timed(lambda: position_ms(torch, lambda: apply(
+                    x, positions=pos, cache=None, cache_len=None)))
+                cache = lm.init_cache(cfg, B, TPM_DECODE, torch.float32,
+                                      device=dev)["groups"][gi][0][key]["mixer"]
+                laid = sum(isinstance(t, Placed) for t in cache)
+                outs, dec_ms = [], []
+                for t in range(TPM_DECODE):
+                    (o, cache), ms = timed(lambda: apply(xs[t], positions=pos[t:t + 1],
+                                                         cache=cache, cache_len=t))
+                    outs.append(o)
+                    dec_ms.append(ms)
+            states = [t.full() if isinstance(t, Placed) else t for t in cache]
+            return out, torch.cat(outs, 1), states, pre_ms, pos_ms, dec_ms, laid
+
+        one = run(p, 1)
+        for model in models:
+            mesh = mesh_of(model)
+            with axis_rules(mesh):
+                n = splits[mixer](cfg)
+                layer = lm.place_module(p, axes, cfg, mesh)
+            width = {"mla": cfg.n_heads, "mamba": cfg.mamba_d_inner,
+                     "rwkv6": cfg.d_model // cfg.rwkv_head_dim}[mixer]
+            want_n = model if width % model == 0 else 1
+            out, dec, states, pre_ms, pos_ms, dec_ms, laid = run(layer, model)
+            errs = (float((out - one[0]).abs().max()), float((dec - one[1]).abs().max()),
+                    max(float((a - b).abs().max()) for a, b in zip(states, one[2])))
+            if n == 1:  # the whole path: the one-device mixer, bit for bit, nothing laid
+                ok = (torch.equal(out, one[0]) and torch.equal(dec, one[1]) and laid == 0
+                      and not any(isinstance(t, Placed) for t in layer.parameters()))
+                how = (f"{width} heads do not divide {model}: the whole path, bit-equal to "
+                       f"(1, 1) {ok}")
+            else:
+                lead = {"mla": "wuq", "mamba": "in_proj", "rwkv6": "wr"}[mixer]
+                views = (getattr(layer, lead).w.tiles[0, 1].data_ptr()  # position 1's columns
+                         == getattr(p, lead).w[:, width // model:].data_ptr())
+                ok = views and laid > 0 and max(errs) <= TP_LOGIT_ATOL
+                what = f"d_inner {width}" if mixer == "mamba" else f"{width} heads"
+                how = (f"{what} split {n} ways, tiles views of the weights {views}, "
+                       f"{laid} cache leaves laid per position")
+            if not (ok and n == want_n and all(e == e for e in errs)):
+                raise AssertionError(f"{tag} {cfg.name} {mixer} over (1, {model}): {n} ways "
+                                     f"(want {want_n}), prefill / decode / state max abs diff "
+                                     f"{errs} (atol {TP_LOGIT_ATOL}), {how}")
+            log(f"{tag} {power}: {cfg.name}'s {mixer} layer at full width, float32, over (1, "
+                f"{model}) ({how}): prefill of {B} x {S} tokens {pre_ms:.1f} ms ((1, 1) "
+                f"{one[3]:.1f} ms), ms per position "
+                f"{ {k[1]: round(v, 3) for k, v in pos_ms.items()} }, max abs diff "
+                f"{errs[0]:.3e} from (1, 1); {TPM_DECODE} decode steps from an empty cache: "
+                f"median {statistics.median(dec_ms):.2f} ms a step ((1, 1) "
+                f"{statistics.median(one[5]):.2f}), outputs {errs[1]:.3e} and states "
+                f"{errs[2]:.3e} from (1, 1) (atol {TP_LOGIT_ATOL})")
+            del layer, out, dec, states
+        del p, one, x, xs
+        free()
+    clock.lap("phase 32 tp mixer layers")
+
+    # ---- RWKV6-3B at full depth, bf16, the serving layout over (1, 4) ----------------------
+    full = get_config("rwkv6-3b")
+    params = lm.init_params(full, generator=gen, device=dev)
+    Bp, Sp = TPM_RWKV_PREFILL
+    tokens = torch.randint(0, full.vocab, (Bp, Sp), generator=gen, device=dev)
+    prefill = make_prefill_step(full)
+    mesh4 = mesh_of(4)
+    with axis_rules(mesh4):
+        lay = lm.place_params(params, full, mesh4)
+        n = ssm.rwkv_heads_split(full)
+        prefill(lay, {"tokens": tokens[:, :256]})  # warm up
+        zero()
+        (nxt, pos_ms), pre_ms = timed(lambda: position_ms(
+            torch, lambda: prefill(lay, {"tokens": tokens})))
+        others = read()
+    if n != 4 or others:
+        raise AssertionError(f"{tag} {full.name} serving prefill over (1, 4): heads split {n} "
+                             f"ways, decoder kernels {others}")
+    one_ms = MEASURED.get(f"{full.name} prefill_ms")
+    mixers = {k[1]: round(v, 3) for k, v in pos_ms.items()}
+    H = full.d_model // full.rwkv_head_dim
+    log(f"{tag} {power}: {full.name} at full width and depth ({full.n_layers} layers), random "
+        f"float32 weights, bf16 compute, the serving layout over (1, 4) ({H} heads, {H // 4} a "
+        f"position): make_prefill_step on {Bp} x {Sp} tokens {pre_ms:.1f} ms (one device in "
+        f"phase 25 of this run: "
+        f"{'not measured' if one_ms is None else f'{one_ms:.1f} ms'}); ms per position by CUDA "
+        f"events (its slices of the time mix and the channel mix, the first's sums and whole "
+        f"work included) {mixers}; next tokens {nxt.tolist()}")
+    del lay, params, tokens, nxt
+    free()
+    clock.lap("phase 32 rwkv6-3b serving")
+
+    # ---- DeepSeek-V2 and RWKV6-3B at 2 layers, float32: greedy over (1, 4) vs (1, 1) -------
+    Bg, P, n_new = TPM_GREEDY
+    for name in ("deepseek-v2-236b", "rwkv6-3b"):
+        base = get_config(name)
+        kw = dict(n_layers=2, compute_dtype="float32")
+        if base.n_experts:  # capacity E/k: EP over (1, 4) and over (1, 1) drop nothing
+            kw["capacity_factor"] = base.n_experts / base.top_k
+        cfg = dataclasses.replace(base, **kw)
+        params = lm.init_params(cfg, generator=gen, device=dev)
+        prompt = torch.randint(0, cfg.vocab, (Bg, P), generator=gen, device=dev)
+        runs = {}
+        for model in (1, 4):
+            mesh = mesh_of(model)
+            with axis_rules(mesh), torch.no_grad():
+                lay = lm.place_params(params, cfg, mesh)
+                last = lm.apply_train(lay, {"tokens": prompt}, cfg)[:, -1]
+                toks, ms = timed(lambda: greedy_generate(lay, cfg, prompt, n_new))
+                ways = sorted(blocks.split_mixers(cfg))
+            runs[model] = (last, toks, ms, ways)
+            del lay
+        err = float((runs[4][0] - runs[1][0]).abs().max())
+        if not (torch.equal(runs[4][1], runs[1][1]) and err <= TP_LOGIT_ATOL
+                and runs[4][3] == [base.layer_list[0][0][0].mixer]):
+            raise AssertionError(f"{tag} {cfg.name} at 2 layers over (1, 4): split mixers "
+                                 f"{runs[4][3]}, last logits differ by {err}, greedy tokens "
+                                 f"equal {torch.equal(runs[4][1], runs[1][1])}")
+        steps = P + n_new
+        log(f"{tag} {power}: {cfg.name} at full width, 2 layers, float32"
+            f"{', capacity E/k' if base.n_experts else ''}, the serving layout over (1, 4) "
+            f"(split: {runs[4][3]}): last-position logits of {Bg} x {P} tokens max abs diff "
+            f"{err:.3e} from (1, 1) (atol {TP_LOGIT_ATOL}); greedy_generate ({Bg} requests, "
+            f"prompt {P}, {n_new} new) equal to (1, 1); {runs[4][2] / steps:.1f} ms a step "
+            f"((1, 1) {runs[1][2] / steps:.1f})")
+        del params, runs
+        free()
+    clock.lap("phase 32 greedy")
 
 
 class DryRuns:
@@ -4436,10 +4654,11 @@ def checked_main(torch, clock, dryruns) -> int:
     encdec = encdec_phases(torch, dev, counters, power, clock)
     trained = train_phases(torch, dev, counters, power, clock)
     meshed = lm_mesh_phases(torch, dev, counters, power, clock)
-    dryrun_phases(torch, dryruns, power, clock)
     fleet_phases(torch, y, ref_bits, ys, power)
     clock.lap("phase 30 fleet")
     split = tp_phases(torch, dev, counters, power, clock)
+    tp_mixer_phases(torch, dev, counters, power, clock)
+    dryrun_phases(torch, dryruns, power, clock)  # last: the dry-runs have had the whole run
     # the flash launches on every LM path: StarCoder2-3B's prefill (its main path,
     # ``launches``), the enc-dec and VLM prefills, one training step and the Jamba mesh
     # prefill (the tensor-core body), and one float32 mesh train step (the CUDA-core body)

@@ -52,7 +52,7 @@ from .layers import (Dense, DenseTile, Norm, apply_rope, cdtype, dense_apply, de
                      rope_sin_cos)
 
 __all__ = ["GQA", "gqa_init", "gqa_axes", "gqa_apply", "gqa_heads_split", "MLA", "mla_init",
-           "mla_axes", "mla_apply", "KVCache", "flash_enabled"]
+           "mla_axes", "mla_apply", "mla_heads_split", "KVCache", "flash_enabled"]
 
 NEG_INF = -1e30
 
@@ -210,8 +210,13 @@ def _attend_decode(
     return out.permute(0, 3, 1, 2, 4)  # (B,1,Hkv,G,dhv)
 
 
-def _on(p: Dense, device: torch.device) -> Dense:
-    """``p``'s weights on ``device`` (the module itself where they are)."""
+def _on(p: Dense, device: torch.device) -> Dense | DenseTile:
+    """``p``'s weights whole on ``device`` (the module itself where they
+    are): a leaf laid over the mesh (the serving layout's split leaves) is
+    gathered there (``Placed.full``, an ``"all-gather"`` to a work
+    counter)."""
+    if isinstance(p.w, Placed):
+        return DenseTile(p.w.full(device), None if p.b is None else p.b.full(device))
     if p.w.device == device:
         return p
     return Dense(p.w.to(device), None if p.b is None else p.b.to(device))
@@ -544,6 +549,27 @@ def mla_axes(cfg: ModelConfig) -> dict:
     }
 
 
+def mla_heads_split(cfg: ModelConfig) -> int:
+    """Over how many model positions the active rules split MLA's heads
+    (``wuq``'s ``heads`` axis; 1: the whole layer on the first position).
+    ``wuk``, ``wuv`` and ``wo``'s rows must split with them, else
+    ``ValueError``."""
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    n = model_split(("fsdp", "heads", "head_dim"), (qr, H, dn + dr))[1]
+    if n == 1:
+        return 1
+    leaves = {"wuk": (("fsdp", "heads", "head_dim"), (kr, H, dn), 1),
+              "wuv": (("fsdp", "heads", "head_dim"), (kr, H, dv), 1),
+              "wo": (("mlp", "fsdp"), (H * dv, cfg.d_model), 0)}
+    for name, (axes, shape, dim) in leaves.items():
+        if model_split(axes, shape) != (dim, n):
+            raise ValueError(f"mla: {name} {shape} does not split with its {H} heads ({n} ways "
+                             f"over model = {model_size()})")
+    return n
+
+
 def mla_apply(
     p: MLA,
     x: torch.Tensor,  # (B, S, d)
@@ -555,25 +581,42 @@ def mla_apply(
     cache_len: Optional[int] = None,
     ctx_parallel: bool = False,
 ):
-    """Returns (out (B,S,d), new_cache)."""
+    """Returns (out (B,S,d), new_cache). Under a ``model`` axis that splits
+    the heads, each position computes its own (:func:`_mla_heads`), the
+    context-parallel decode over sequence tiles excepted: there ``wuq`` and
+    ``wo`` run through ``dense_tp`` (column- and row-parallel) and every
+    sequence tile rebuilds all heads' keys and values from its slice of the
+    latent, with ``wuk`` and ``wuv`` gathered whole onto it where they are
+    split (:func:`_on`)."""
     B, S, d = x.shape
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     scale = 1.0 / math.sqrt(dn + dr)
+    seq_tiles = (ctx_parallel and cache is not None and isinstance(cache.k, Placed)
+                 and cache.k.sharding.splits(cache.k.ndim)[1] > 1)
+    n = mla_heads_split(cfg) if model_size() > 1 and not seq_tiles else 1
 
     cq = norm_apply(p.q_norm, dense_apply(p.wdq, x, cfg), cfg)
-    q = dense_apply(p.wuq, cq, cfg)  # (B,S,H,dn+dr)
-    q_nope, q_rope = q[..., :dn], q[..., dn:]
     sin, cos = rope_sin_cos(positions, dr, cfg.rope_theta)
-    q_rope = apply_rope(q_rope, sin[None], cos[None])
-
     ckv = norm_apply(p.kv_norm, dense_apply(p.wdkv, x, cfg), cfg)  # (B,S,kr)
     k_rope = dense_apply(p.wkr, x, cfg)[:, :, None, :]  # (B,S,1,dr)
     k_rope = apply_rope(k_rope, sin[None], cos[None])[:, :, 0]  # (B,S,dr)
+    if n > 1:
+        return _mla_heads(p, cfg, cq, ckv, k_rope, sin, cos, cache, cache_len, causal, n)
+
+    # over sequence tiles, as gqa_apply: wuq column-parallel and wo row-parallel where the
+    # rules split the heads; each tile rebuilds every head's K/V with wuk and wuv whole
+    def dense(d: Dense, x_, in_axis, out_axes):
+        return dense_tp(d, x_, cfg, in_axis, out_axes) if seq_tiles else dense_apply(d, x_, cfg)
+
+    q = dense(p.wuq, cq, "fsdp", ("heads", "head_dim"))  # (B,S,H,dn+dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, sin[None], cos[None])
 
     def rebuild(c, r):
         """Each head's keys and values from the latent ``c`` and rope key
-        ``r`` (B, T, ·), on their device."""
+        ``r`` (B, T, ·), on their device (with ``wuk`` and ``wuv`` whole
+        there: gathered where the serving layout split them)."""
         k_nope = dense_apply(_on(p.wuk, c.device), c, cfg)  # (B,T,H,dn)
         vv = dense_apply(_on(p.wuv, c.device), c, cfg)  # (B,T,H,dv)
         rope = r[:, :, None, :].to(k_nope.dtype).expand(*c.shape[:2], H, dr)
@@ -597,4 +640,58 @@ def mla_apply(
                               scale=scale, p_dtype=cdtype(cfg))
 
     out = shard(out.reshape(B, S, H * dv).to(cdtype(cfg)), ("batch", "seq", "mlp"))
-    return dense_apply(p.wo, out, cfg), new_cache
+    return dense(p.wo, out, "mlp", ("fsdp",)), new_cache
+
+
+def _mla_heads(p: MLA, cfg: ModelConfig, cq, ckv, k_rope, sin, cos, cache, cache_len, causal,
+               n: int):
+    """:func:`mla_apply` with the heads over ``model``: the latents ``cq``
+    and ``ckv`` and the shared rope key come whole from the data shard's
+    first position; model position m projects its heads' queries
+    (``wuq``), rebuilds its heads' keys and values from the latent
+    (``wuk``, ``wuv``), attends (in decode against its own replica of the
+    latent cache, after writing this step's row into it) and multiplies its
+    rows of ``wo``; one sum. A decode cache must be laid by
+    ``lm.init_cache`` under the same rules (a replica per position)."""
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    h_loc = H // n
+    scale = 1.0 / math.sqrt(dn + dr)
+    heads = ("heads", "head_dim")
+    if cache is not None:
+        if not isinstance(cache.k, Placed):
+            raise ValueError("mla: a decode cache under a model axis that splits the heads must "
+                             "be laid by lm.init_cache under the same rules (a replica per "
+                             "position)")
+        cache_len = int(cache_len)
+    rows_of = {tuple(c.items()): r for c, r in batch_shards(cq.shape)}
+
+    def one(m, cq_rows, coords):
+        dev = cq_rows.device
+        rows = rows_of[tuple(coords.items())]
+        c_new, r_new = ckv[rows].to(dev), k_rope[rows].to(dev)
+        q = dense_apply(dense_tile(p.wuq, "fsdp", heads, m, coords), cq_rows, cfg)
+        q_rope = apply_rope(q[..., dn:], sin.to(dev)[None], cos.to(dev)[None])
+        B, S = q.shape[:2]
+        q_full = torch.cat([q[..., :dn], q_rope], dim=-1).reshape(B, S, h_loc, 1, dn + dr)
+        if cache is not None:
+            pos = model_positions(coords)[m]
+            c_all = _cache_write(cache.k.tiles[pos], c_new, cache_len)
+            r_all = _cache_write(cache.v.tiles[pos], r_new, cache_len)
+        else:
+            c_all, r_all = c_new, r_new
+        k_nope = dense_apply(dense_tile(p.wuk, "fsdp", heads, m, coords), c_all, cfg)
+        vv = dense_apply(dense_tile(p.wuv, "fsdp", heads, m, coords), c_all, cfg)
+        rope = r_all[:, :, None, :].to(k_nope.dtype).expand(*c_all.shape[:2], h_loc, dr)
+        k = torch.cat([k_nope, rope], dim=-1)
+        if cache is not None:
+            T = c_all.shape[1]
+            valid = (torch.arange(T, device=dev) <= cache_len).expand(B, T)
+            out = _attend_decode(q_full, k, vv, scale=scale, valid=valid)
+        else:
+            out = _attend_chunked(q_full, k, vv, causal=causal, window=None, scale=scale,
+                                  p_dtype=cdtype(cfg))
+        out = out.reshape(B, S, h_loc * dv).to(cdtype(cfg))
+        return dense_apply(dense_tile(p.wo, "mlp", ("fsdp",), m, coords), out, cfg)
+
+    return model_parts(cq, one, n), cache

@@ -14,14 +14,15 @@ RWKV's token shifts: in prefill the channel mix's ``x_prev`` is the padded
 shift of its normed input; in decode it is the cache's ``x_cm``, which then
 becomes this step's normed input (the time mix writes ``x_tm`` itself).
 
-Under a ``model`` axis of more than one position (``sharding.rules``), the
-GQA mixer and cross-attention, the dense FFN, the RWKV channel mix and the
+Under a ``model`` axis of more than one position (``sharding.rules``),
+every mixer, cross-attention, the dense FFN, the RWKV channel mix and the
 MoE compute on each position's slice of their split dimensions and end in
-one sum (``gqa_apply``, ``ffn_apply``, ``moe_apply``); the norms and the
-residual adds run once per data shard, on the reduced output, on its
-first position. MLA, Mamba and RWKV-6's time mix keep the whole-layer
-path: the whole layer computed on the data shard's first model position
-(their tensor-parallel forms are later work, ROADMAP A.4).
+one sum (``gqa_apply`` and ``mla_apply`` over the heads, ``mamba_apply``
+over ``d_inner`` with one more sum inside, ``rwkv_apply`` over the heads,
+``ffn_apply``, ``moe_apply``); the norms and the residual adds run once per
+data shard, on the reduced output, on its first position. A mixer whose
+split dimension the axis does not divide computes the whole layer there
+(:func:`split_mixers` names the mixers that split).
 """
 
 from __future__ import annotations
@@ -33,19 +34,30 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import LayerDesc, ModelConfig
-from .attention import (GQA, MLA, KVCache, gqa_apply, gqa_axes, gqa_init, mla_apply, mla_axes,
-                        mla_init)
+from .attention import (GQA, MLA, KVCache, gqa_apply, gqa_axes, gqa_heads_split, gqa_init,
+                        mla_apply, mla_axes, mla_heads_split, mla_init)
 from .layers import (FFN, ChannelMix, Norm, ffn_apply, ffn_axes, ffn_init, norm_apply,
                      norm_axes, norm_init)
 from .moe import MoE, moe_apply, moe_axes, moe_init
 from .ssm import (RWKV, Mamba, MambaCache, RwkvCache, mamba_apply, mamba_axes, mamba_init,
-                  rwkv_apply, rwkv_axes, rwkv_init)
+                  mamba_split, rwkv_apply, rwkv_axes, rwkv_heads_split, rwkv_init)
 
 __all__ = ["Block", "block_init", "block_axes", "block_apply", "block_cache_init",
-           "block_cache_axes"]
+           "block_cache_axes", "split_mixers"]
 
 _MIXER_INIT = {"gqa": gqa_init, "mla": mla_init, "mamba": mamba_init, "rwkv6": rwkv_init}
 _MIXER_AXES = {"gqa": gqa_axes, "mla": mla_axes, "mamba": mamba_axes, "rwkv6": rwkv_axes}
+_MIXER_SPLITS = {"gqa": lambda cfg: 2 if gqa_heads_split(cfg) else 1, "mla": mla_heads_split,
+                 "mamba": mamba_split, "rwkv6": rwkv_heads_split}
+
+
+def split_mixers(cfg: ModelConfig) -> set[str]:
+    """The mixers of ``cfg``'s decoder layers (``"gqa"``, ``"mla"``,
+    ``"mamba"``, ``"rwkv6"``) that the active rules split over ``model``:
+    the GQA and MLA heads, Mamba's ``d_inner``, RWKV-6's heads. Empty
+    without a ``model`` axis of more than one position."""
+    kinds = {d.mixer for pattern, _ in cfg.layer_list for d in pattern}
+    return {k for k in kinds if _MIXER_SPLITS[k](cfg) > 1}
 
 
 class Block(nn.Module):

@@ -43,11 +43,16 @@ one position, the layers split their work over it (``blocks.py``), the
 embedding lookup is vocab-parallel (each position looks up the rows of the
 table it holds, zeros elsewhere, then one sum) and so are the logits
 (``vocab_shards=True`` returns each position's columns of them, on its
-device; otherwise they are joined). :func:`init_cache` then lays the GQA
-caches as ``kv_heads`` tiles. :func:`place_params` is the serving layout:
-the weights of the split layers laid over the mesh once, per
-:func:`param_axes` under the rules with ``fsdp`` whole, so that each data
-shard serves from its own replica and gathers nothing per step.
+device; otherwise they are joined). :func:`init_cache` then lays the
+caches of the mixers that split (``blocks.split_mixers``) per position:
+GQA's as ``kv_heads`` tiles, MLA's latent cache as a replica per
+position, Mamba's ``conv`` and ``h`` as ``mlp`` tiles and RWKV's state as
+``heads`` tiles. :func:`place_params` is the serving layout: the weights
+of the split layers laid over the mesh once, per :func:`param_axes` under
+the rules with ``fsdp`` whole (Mamba's ``in_proj`` as a (d, 2, d_inner)
+view, so that each position's tile holds its columns of both halves), so
+that each data shard serves from its own replica and gathers nothing per
+step.
 """
 
 from __future__ import annotations
@@ -67,13 +72,15 @@ from repro_torch.device import resolve_device
 from repro_torch.sharding.place import (join_model_parts, model_parts, model_tile, place,
                                         place_zeros, zip_tree)
 from repro_torch.sharding.rules import (DEFAULT_RULES, SINGLE_POD_RULES, LogicalRules,
-                                        NamedSharding, context_state, current_rules,
+                                        NamedSharding, axis_rules, context_state, current_rules,
                                         model_size, model_split, restored_context, shard)
-from .attention import GQA, KVCache, gqa_heads_split
-from .blocks import block_apply, block_axes, block_cache_axes, block_cache_init, block_init
+from .attention import GQA, MLA, KVCache
+from .blocks import (block_apply, block_axes, block_cache_axes, block_cache_init, block_init,
+                     split_mixers)
 from .layers import (FFN, ChannelMix, Dense, Embed, Norm, cdtype, dense_tp, embed_axes,
                      embed_init, norm_apply, norm_axes, norm_init, pdtype, round_vocab)
 from .moe import MoE
+from .ssm import RWKV, Mamba
 
 __all__ = [
     "LM",
@@ -90,6 +97,9 @@ __all__ = [
     "module_view",
     "tp_leaf_names",
     "place_params",
+    "place_module",
+    "in_proj_layout",
+    "is_in_proj",
 ]
 
 #: the encoder's one layer kind
@@ -376,15 +386,19 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16, *
     ``"cross"`` K/V, which :func:`prefill_cross` fills. Under a rule context
     with ``ctx_parallel``, every leaf whose :func:`cache_axes` sequence axis
     the rules map to a mesh axis (``seq_ctx`` → ``model``, where it divides
-    the length) is laid as zero tiles on the mesh's devices; the rest stay
-    on ``device``. Without ``ctx_parallel``, under rules that split the
-    heads over ``model`` (``attention.gqa_heads_split``), the GQA
-    self-attention caches are laid as ``kv_heads`` tiles, one per position
-    (a replica per position where the rules keep ``kv_heads`` whole), each
-    written and read by its position only."""
+    the length) is laid as zero tiles on the mesh's devices. Under rules
+    that split a mixer over ``model`` (``blocks.split_mixers``), that
+    mixer's cache is laid per position, each tile written and read by its
+    position only: GQA's as ``kv_heads`` tiles (a replica per position
+    where the rules keep ``kv_heads`` whole; not with ``ctx_parallel``),
+    MLA's latent and rope-key cache as a replica per position (where it is
+    not in sequence tiles), Mamba's ``conv`` and ``h`` as ``mlp`` tiles,
+    RWKV's ``s`` as ``heads`` tiles (its ``x_tm`` and ``x_cm`` stay whole).
+    The rest stay on ``device``."""
     dev = resolve_device(device, user="the LM")
     cross_len = cross_len if cfg.encdec else 0
-    rules = current_rules() if ctx_parallel or gqa_heads_split(cfg) else None
+    split = split_mixers(cfg) - ({"gqa"} if ctx_parallel else set())
+    rules = current_rules() if ctx_parallel or split else None
 
     def build(device_):
         return {"groups": [
@@ -397,20 +411,25 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16, *
     if rules is None:
         return build(dev)
 
-    def leaf(t, axes):
+    def leaf(mixer, t, axes):
         spec = rules.spec(axes, shape=tuple(t.shape))
-        tiled = ("seq_ctx" in axes and spec[axes.index("seq_ctx")] is not None
-                 if ctx_parallel else "kv_heads" in axes)
+        if ctx_parallel and "seq_ctx" in axes and spec[axes.index("seq_ctx")] is not None:
+            tiled = True
+        else:
+            tiled = mixer in split and (mixer == "mla" or
+                                        bool({"kv_heads", "mlp", "heads"} & set(axes)))
         if tiled:
             return place_zeros(t.shape, t.dtype, NamedSharding(rules.mesh, spec))
         return torch.zeros(t.shape, dtype=t.dtype, device=dev)
 
-    tree = zip_tree(leaf, build("meta"), cache_axes(cfg, ctx_parallel=ctx_parallel,
-                                                    cross=bool(cross_len)))
-    for layers in tree["groups"]:  # the cross K/V stay whole (lm.prefill_cross writes them)
-        for layer in layers:
-            for c in layer.values():
-                if "cross" in c:
+    tree = build("meta")
+    axes = cache_axes(cfg, ctx_parallel=ctx_parallel, cross=bool(cross_len))
+    for (pattern, _), layers, layers_axes in zip(cfg.layer_list, tree["groups"], axes["groups"]):
+        for layer, layer_axes in zip(layers, layers_axes):
+            for i, desc in enumerate(pattern):
+                c, a = layer[f"l{i}"], layer_axes[f"l{i}"]
+                c["mixer"] = zip_tree(functools.partial(leaf, desc.mixer), c["mixer"], a["mixer"])
+                if "cross" in c:  # the cross K/V stay whole (lm.prefill_cross writes them)
                     c["cross"] = KVCache(*(torch.zeros(t.shape, dtype=t.dtype, device=dev)
                                            for t in c["cross"]))
     return tree
@@ -451,9 +470,11 @@ def apply_decode(params: LM, tokens: torch.Tensor, cache: dict, cache_len, cfg: 
     ``vocab_shards``: the list of the logits' vocab-parallel column
     blocks). The KV and MLA caches are written in place (with
     ``ctx_parallel``, the masked write into sequence tiles; under a split of
-    the heads, each position into its ``kv_heads`` tile); the Mamba and
-    RWKV states are replaced in the returned cache; the cross K/V entries
-    are kept as they are."""
+    the heads, each position into its ``kv_heads`` tile or its replica of
+    the latent cache); the Mamba and RWKV states are replaced in the
+    returned cache, except the tiles of a split mixer (Mamba's ``conv`` and
+    ``h``, RWKV's ``s``), which each position writes in place; the cross
+    K/V entries are kept as they are."""
     cache_len = int(cache_len)
     x = shard(_embed_tokens(params, tokens, cfg), ("batch", None, "embed"))
     positions = torch.full((1,), cache_len, device=x.device)
@@ -485,17 +506,22 @@ def module_view(module: nn.Module, leaves: dict, prefix: str = "") -> nn.Module:
     return view
 
 
-def tp_leaf_names(params: nn.Module) -> set[str]:
+def tp_leaf_names(params: nn.Module, cfg: ModelConfig) -> set[str]:
     """The parameters of ``params`` (an :class:`LM` or one of its modules)
     that the split layers read per model position (the
     rest are read whole, on a data shard's first position): every leaf of
     a GQA mixer or cross-attention and of a dense FFN, the channel mix's
     ``wk`` and ``wv``, a MoE's experts and shared experts (not its router),
-    the embedding table and the untied head."""
+    the embedding table and the untied head; under rules that split them
+    (``blocks.split_mixers``), also MLA's ``wuq``, ``wuk``,
+    ``wuv`` and ``wo``, every leaf of Mamba, and RWKV-6's ``wr``, ``wk``,
+    ``wv``, ``wg``, ``u``, groupnorm and ``wo`` (the token-shift mixes and
+    the decay LoRA stay whole)."""
+    split = split_mixers(cfg)
     out = set()
     for name, mod in params.named_modules():
         pre = f"{name}." if name else ""
-        if isinstance(mod, (GQA, FFN)):
+        if isinstance(mod, (GQA, FFN)) or (isinstance(mod, Mamba) and "mamba" in split):
             out |= {pre + k for k, _ in mod.named_parameters()}
         elif isinstance(mod, ChannelMix):
             out |= {pre + "wk.w", pre + "wv.w"}
@@ -503,6 +529,11 @@ def tp_leaf_names(params: nn.Module) -> set[str]:
             out |= {pre + k for k, _ in mod.named_parameters() if not k.startswith("router.")}
         elif isinstance(mod, Embed):
             out.add(pre + "table")
+        elif isinstance(mod, MLA) and "mla" in split:
+            out |= {pre + k for k in ("wuq.w", "wuk.w", "wuv.w", "wo.w")}
+        elif isinstance(mod, RWKV) and "rwkv6" in split:
+            out |= {pre + k for k in ("wr.w", "wk.w", "wv.w", "wg.w", "u", "ln_scale", "ln_bias",
+                                      "wo.w")}
     if getattr(params, "lm_head", None) is not None:
         out.add("lm_head.w")
     return out
@@ -513,18 +544,48 @@ def place_params(params: LM, cfg: ModelConfig, mesh, rules=None) -> LM:
     :func:`tp_leaf_names` laid once by :func:`param_axes` under ``rules``
     (``None``: the mesh's default rules) with ``fsdp`` whole, so that every
     data shard holds a replica and its model positions their slices (on a
-    device list that repeats one device, views of ``params``); the other
-    leaves stay as they are. ``params`` itself where the mesh has no
-    ``model`` axis of more than one position. Run the steps on it under
-    ``axis_rules(mesh, rules)``."""
+    device list that repeats one device, views of ``params``); Mamba's
+    ``in_proj`` as its (d, 2, d_inner) view split along d_inner
+    (:func:`in_proj_layout`); the other leaves stay as they are.
+    ``params`` itself where the mesh has no ``model`` axis of more than one
+    position. Run the steps on it under ``axis_rules(mesh, rules)``."""
+    return place_module(params, param_axes(cfg), cfg, mesh, rules)
+
+
+def place_module(module: nn.Module, axes: dict[str, tuple], cfg: ModelConfig, mesh,
+                 rules=None) -> nn.Module:
+    """:func:`place_params` for any module of the LM (a block, a mixer):
+    ``axes`` are the logical axes of its parameters, keyed by their names
+    in it (``dict(_flat(block_axes(cfg, desc)))`` for a block)."""
     if "model" not in mesh.axis_names or int(mesh.shape["model"]) == 1:
-        return params
+        return module
     if rules is None:
         rules = DEFAULT_RULES if "pod" in mesh.axis_names else SINGLE_POD_RULES
     r = LogicalRules(mesh, dict(rules, fsdp=None))
-    axes, tp = param_axes(cfg), tp_leaf_names(params)
+    with axis_rules(mesh, rules):
+        tp = tp_leaf_names(module, cfg)
     leaves = {}
-    for name, t in params.named_parameters(remove_duplicate=False):
-        leaves[name] = (place(t, NamedSharding(mesh, r.spec(axes[name], shape=tuple(t.shape))))
-                        if name in tp else t)
-    return module_view(params, leaves)
+    for name, t in module.named_parameters(remove_duplicate=False):
+        if name not in tp:
+            leaves[name] = t
+            continue
+        t, leaf_axes = in_proj_layout(name, t, axes[name])
+        leaves[name] = place(t, NamedSharding(mesh, r.spec(leaf_axes, shape=tuple(t.shape))))
+    return module_view(module, leaves)
+
+
+def is_in_proj(name: str) -> bool:
+    """Whether the parameter ``name`` is a Mamba ``in_proj.w``."""
+    return name == "in_proj.w" or name.endswith(".in_proj.w")
+
+
+def in_proj_layout(name: str, t: torch.Tensor, axes: tuple):
+    """(``t``, its logical ``axes``) as the layouts over a mesh lay the
+    parameter ``name``: Mamba's ``in_proj.w`` (d, 2·d_inner) as its
+    (d, 2, d_inner) view with the axes (``fsdp``, None, ``mlp``), so that a
+    tile split along d_inner holds its columns of both halves
+    (``ssm._in_proj_halves``); any other leaf as it is. Checkpoints keep
+    the reference's (d, 2·d_inner) (``launch/train.py``)."""
+    if not is_in_proj(name):
+        return t, axes
+    return t.view(t.shape[0], 2, t.shape[1] // 2), (axes[0], None, axes[1])

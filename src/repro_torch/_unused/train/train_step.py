@@ -35,10 +35,18 @@ of what its holders received (the replicas along the mesh axes its spec
 leaves out). With ``compress_grads`` the int8 round trip runs on each
 summed gradient leaf, as the reference's does on its global gradients.
 Then one AdamW update runs per tile.
+
+Counted on meta tensors (the dry-run, ``launch/cost.py``), the data shards
+do the same work at their own positions, so the step runs the first two
+and counts each later shard as the second one's count moved to that
+shard's positions (:func:`_shard_replay`): the second, because a later
+shard's backward adds into gradients that an earlier shard's made, as
+every shard after the first does. The count is that of running them all.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import types
 
@@ -47,6 +55,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import cost as _cost
 from repro_torch.sharding.place import Placed, model_reduce, place, place_zeros
 from repro_torch.sharding.rules import (DEFAULT_RULES, SINGLE_POD_RULES, LogicalRules,
                                         axis_rules, batch_shards, mesh_position, model_positions,
@@ -149,13 +158,16 @@ def place_train_state(params: nn.Module, cfg: ModelConfig, opt_cfg: AdamWConfig,
                       rules=None):
     """``params`` (the full module) laid over ``mesh`` per
     ``lm.param_axes(cfg)`` and ``rules`` (``None``: the mesh's default
-    rules): (``{name: Placed}`` with every tile a leaf of its own that
-    requires grad, the AdamW state with its moments placed alike)."""
+    rules; Mamba's ``in_proj`` as ``lm.in_proj_layout`` views it): (``{name:
+    Placed}`` with every tile a leaf of its own that requires grad, the
+    AdamW state with its moments placed alike)."""
     if rules is None:
         rules = DEFAULT_RULES if "pod" in mesh.axis_names else SINGLE_POD_RULES
     r = LogicalRules(mesh, rules)
-    named = {k: p.detach() for k, p in params.named_parameters()}
-    shardings = tree_shardings(named, lm.param_axes(cfg), r)
+    named, axes = {}, lm.param_axes(cfg)
+    for k, p in params.named_parameters():
+        named[k], axes[k] = lm.in_proj_layout(k, p.detach(), axes[k])
+    shardings = tree_shardings(named, axes, r)
     placed = {k: place(t, shardings[k], copy=True) for k, t in named.items()}
     for p in placed.values():
         for pos in p.positions():
@@ -196,11 +208,11 @@ def _leaf(p: Placed, split: bool, device, cast):
     return p if split else cast(p.full(device))
 
 
-def _shard_model(template: lm.LM, params: dict, device, cast):
+def _shard_model(template: lm.LM, cfg: ModelConfig, params: dict, device, cast):
     """The LM as ``lm.apply_train`` reads it, for one data shard: the top
     leaves gathered onto ``device`` now (the embedding and the head left
     split under a ``model`` axis), the layers as :class:`_LayerTiles`."""
-    split = lm.tp_leaf_names(template) if model_size() > 1 else set()
+    split = lm.tp_leaf_names(template, cfg) if model_size() > 1 else set()
 
     def top(name):
         sub = getattr(template, name)
@@ -218,6 +230,44 @@ def _shard_model(template: lm.LM, params: dict, device, cast):
     return types.SimpleNamespace(embed=top("embed"), final_norm=top("final_norm"),
                                  lm_head=top("lm_head"), enc_norm=top("enc_norm"),
                                  groups=groups, encoder=encoder)
+
+
+def _graded(params: dict) -> set:
+    """The (name, position) of every tile of ``params`` that has a gradient."""
+    return {(k, pos) for k, p in params.items() for pos in p.positions()
+            if p.tiles[pos].grad is not None}
+
+
+def _shard_replay(counter, mesh, params: dict, coords: dict, tallies: dict, graded: set):
+    """A counted data shard's work (``tallies``, position → ``Tally``, and
+    the tiles that its backward gave a first gradient, ``graded``) as a
+    function that adds it at another shard's positions: the same tallies
+    with the shard's mesh coordinates replaced by the other's, and an empty
+    gradient on each tile that takes the place of one in ``graded`` and has
+    none yet. ``None`` where the work touched a position outside the
+    shard (then every shard runs)."""
+    axes = {a: mesh.axis_names.index(a) for a in coords}
+
+    def inside(pos):
+        return all(pos[i] == coords[a] for a, i in axes.items())
+
+    if not (all(map(inside, tallies)) and all(inside(pos) for _, pos in graded)):
+        return None
+
+    def replay(other: dict):
+        def move(pos):
+            out = list(pos)
+            for a, i in axes.items():
+                out[i] = other[a]
+            return tuple(out)
+
+        counter.add_tallies(tallies, move)
+        for k, pos in graded:
+            tile = params[k].tiles[move(pos)]
+            if tile.grad is None:
+                tile.grad = torch.empty_like(tile)
+
+    return replay
 
 
 def make_mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, *,
@@ -243,15 +293,28 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, *,
             mask = batch.get("loss_mask")
             denom = (torch.clamp(mask.sum(), min=1.0) if mask is not None
                      else float(batch["tokens"].numel()))
-            loss = None
-            for coords, rows in batch_shards(batch["tokens"].shape):
-                dev = mesh.devices[mesh_position(mesh, coords)]
-                sub = {k: v[rows].to(dev) for k, v in batch.items()}
-                d = denom.to(dev) if isinstance(denom, torch.Tensor) else denom
-                with on_shard(coords), torch.enable_grad():
-                    shard_loss = loss_fn(_shard_model(template, params, dev, cast), sub, cfg,
-                                         denom=d)
-                    shard_loss.backward()
+            loss = replay = None
+            shards = batch_shards(batch["tokens"].shape)
+            counter = _cost.active()
+            on_meta = counter is not None and len(shards) > 2 and all(
+                v.device.type == "meta" for v in batch.values())
+            for i, (coords, rows) in enumerate(shards):
+                if replay is not None:  # on meta: the second shard's count, moved here
+                    replay(coords)
+                else:
+                    dev = mesh.devices[mesh_position(mesh, coords)]
+                    sub = {k: v[rows].to(dev) for k, v in batch.items()}
+                    d = denom.to(dev) if isinstance(denom, torch.Tensor) else denom
+                    watch = on_meta and i == 1
+                    graded = _graded(params) if watch else None
+                    with (counter.apart() if watch else contextlib.nullcontext()) as own, \
+                            on_shard(coords), torch.enable_grad():
+                        shard_loss = loss_fn(_shard_model(template, cfg, params, dev, cast), sub,
+                                             cfg, denom=d)
+                        shard_loss.backward()
+                    if watch:
+                        replay = _shard_replay(counter, mesh, params, coords, own,
+                                               _graded(params) - graded)
                 shard_loss = shard_loss.detach().to(first)
                 loss = shard_loss if loss is None else loss + shard_loss
             grads = {}

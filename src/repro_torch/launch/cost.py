@@ -57,6 +57,7 @@ shapes, strides and dtypes, and the recorded FLOPs and bytes.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 
@@ -314,6 +315,21 @@ class Tally:
         compute = sum(v / PEAKS[k] for k, v in self.flops.items())
         return max(compute, self.bytes / HBM_BYTES_PER_S)
 
+    def add(self, other: "Tally") -> None:
+        """Add ``other``'s work to this tally."""
+        for k, v in other.flops.items():
+            self.flops[k] += v
+        self.bytes += other.bytes
+        for k, v in other.collective_bytes.items():
+            self.collective_bytes[k] += v
+        for k, v in other.collective_counts.items():
+            self.collective_counts[k] += v
+        for name, kv in other.kernels.items():
+            acc = self.kernels.setdefault(name, {"launches": 0, "bytes": 0.0, "ops": 0.0,
+                                                 "kind": kv["kind"]})
+            for key in ("launches", "bytes", "ops"):
+                acc[key] += kv[key]
+
     def as_dict(self) -> dict:
         return {"flops": float(sum(self.flops.values())),
                 "flops_by_dtype": {k: float(v) for k, v in sorted(self.flops.items())},
@@ -469,19 +485,29 @@ class WorkCounter(TorchDispatchMode):
         """Every position's work added up."""
         out = Tally()
         for t in self.tallies.values():
-            for k, v in t.flops.items():
-                out.flops[k] += v
-            out.bytes += t.bytes
-            for k, v in t.collective_bytes.items():
-                out.collective_bytes[k] += v
-            for k, v in t.collective_counts.items():
-                out.collective_counts[k] += v
-            for name, kv in t.kernels.items():
-                acc = out.kernels.setdefault(name, {"launches": 0, "bytes": 0.0, "ops": 0.0,
-                                                    "kind": kv["kind"]})
-                for key in ("launches", "bytes", "ops"):
-                    acc[key] += kv[key]
+            out.add(t)
         return out
+
+    # -- counting a piece of work once and adding it again
+    @contextlib.contextmanager
+    def apart(self):
+        """Count the enclosed code into tallies of its own (position →
+        :class:`Tally`, yielded), added to the counter's when it ends: the
+        count of a piece of work that :meth:`add_tallies` may add again at
+        other positions."""
+        saved, own = self.tallies, collections.defaultdict(Tally)
+        self.tallies = own
+        try:
+            yield own
+        finally:
+            self.tallies = saved
+            self.add_tallies(own)
+
+    def add_tallies(self, tallies: dict, where=None) -> None:
+        """Add ``tallies`` (position → :class:`Tally`), each at
+        ``where(position)`` (default: the same position)."""
+        for pos, t in tallies.items():
+            self.tallies[pos if where is None else where(pos)].add(t)
 
     @property
     def flops(self) -> float:

@@ -18,9 +18,10 @@ counts the work per mesh position (``launch/cost.py``).
   ``REPRO_SERVE_F32=1``) in the serving layout (``lm.place_params``: the
   split layers' slices on their model positions, the rest on the mesh's
   first position), one ``make_prefill_step`` or ``make_decode_step`` under
-  the rules; the decode cache as ``kv_heads`` tiles where the heads split,
-  and from 32,768 positions as sequence tiles over ``model`` (the
-  context-parallel cache).
+  the rules; the decode cache laid per position where a mixer splits
+  (``kv_heads`` tiles, MLA's latent replicas, Mamba's ``mlp`` and RWKV's
+  ``heads`` tiles), and from 32,768 positions as sequence tiles over
+  ``model`` (the context-parallel cache).
 * **the decoder cells** (``--viterbi``): ``stream_16m_int8`` (32,768
   CCSDS blocks of int8 symbols, D = 512, L = 42) and ``stream_4m_f32``
   (8,192 of float32), laid over the mesh's block axes by ``lane_split``,
@@ -31,10 +32,9 @@ counts the work per mesh position (``launch/cost.py``).
 **Per device** means the busiest mesh position, never the global count
 divided by the chip count: after the split over ``model``, the first
 position of a data shard, which computes its slices and what the rules
-leave whole (norms, routers, the loss's reductions, heads or hidden
-dimensions that the axis does not divide, and MLA, Mamba and RWKV-6's
-time mix, whose layers are not split yet: ROADMAP A.4). Each report says
-so (``per_device``). The serving cells run the whole batch as the data
+leave whole (norms, routers, the loss's reductions, MLA's latents and
+RWKV-6's token-shift mixes and decay, heads or hidden dimensions that the
+axis does not divide). Each report says so (``per_device``). The serving cells run the whole batch as the data
 shards of one process: the norms and residuals of every shard run on the
 mesh's first position. ``memory`` gives the argument bytes the busiest position
 holds (its placed tiles, its data shard's rows, and on the first position
@@ -73,8 +73,8 @@ REPORTS = ROOT / "reports" / "torch_dryrun"
 VITERBI_CELLS = {"stream_16m_int8": 32768, "stream_4m_f32": 8192}
 PER_DEVICE = ("the busiest mesh position after the split over the model axis: a data shard's "
               "first position, with its slices of the split layers and the unsplit work (norms, "
-              "routers, undivided dimensions, and MLA, Mamba and RWKV-6's time mix still whole, "
-              "ROADMAP A.4)")
+              "routers, MLA's latents, RWKV-6's token-shift mixes and decay, undivided "
+              "dimensions)")
 
 
 def _mesh_name(multi_pod: bool) -> str:

@@ -89,16 +89,20 @@ def train_state_tree(params, opt_state: OptState, *, device="cpu") -> dict:
     layout (:func:`~repro_torch.interop.lm_tree`), leaves on ``device``
     (``"meta"``: the shapes only, a tree to restore into). ``params`` is the
     module or a dict keyed by its names; :class:`Placed` leaves (a mesh
-    run's tiles) are gathered."""
-    def leaf(t):
-        if isinstance(t, Placed):
-            if torch.device(device).type == "meta":
-                return torch.empty(t.shape, dtype=t.dtype, device="meta")
-            return t.full(device).detach()
-        return t.detach().to(device)
+    run's tiles) are gathered, Mamba's ``in_proj`` back from
+    ``lm.in_proj_layout``'s (d, 2, d_inner) to the reference's
+    (d, 2·d_inner)."""
+    def leaf(name, t):
+        if not isinstance(t, Placed):
+            return t.detach().to(device)
+        if torch.device(device).type == "meta":
+            out = torch.empty(t.shape, dtype=t.dtype, device="meta")
+        else:
+            out = t.full(device).detach()
+        return out.flatten(1) if lm.is_in_proj(name) else out
 
     def tree(named):
-        return lm_tree({k: leaf(t) for k, t in named.items()})
+        return lm_tree({k: leaf(k, t) for k, t in named.items()})
 
     return {"params": tree(_named(params)),
             "opt": OptState(opt_state.step.clone(), tree(opt_state.m), tree(opt_state.v))}
@@ -112,7 +116,7 @@ def load_train_state(tree: dict, params, opt_state: OptState) -> OptState:
     for dst, src in ((_named(params), tree["params"]),
                      (opt_state.m, tree["opt"].m), (opt_state.v, tree["opt"].v)):
         for k, t in lm_named(src).items():
-            dst[k].copy_(t)
+            dst[k].copy_(t.reshape(dst[k].shape))  # in_proj: lm.in_proj_layout's view
     return OptState(torch.as_tensor(tree["opt"].step, dtype=torch.int32), opt_state.m,
                     opt_state.v)
 

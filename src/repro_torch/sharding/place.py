@@ -22,7 +22,10 @@ reference's all-reduce over ``model``: the positions' partial sums (or
 maxima) reduced on the data shard's first position in model order,
 recorded by a work counter as
 ``"all-reduce"`` bytes at each position (the partial's, the operand size
-the reference's HLO analyzer counts).
+the reference's HLO analyzer counts); :func:`model_parts` with ``then``
+runs a layer in two passes over the positions, with one such sum between
+them, handed to every position (Mamba's ``x_proj``, whose output
+``dt_proj`` reads column-parallel).
 """
 
 from __future__ import annotations
@@ -279,7 +282,7 @@ def model_reduce(parts: list[torch.Tensor], positions, op=torch.add) -> torch.Te
     return out
 
 
-def model_parts(x: torch.Tensor, fn, n: int, join=model_reduce):
+def model_parts(x: torch.Tensor, fn, n: int, join=model_reduce, then=None):
     """Run ``fn(m, x_rows, coords)`` at model positions 0..n-1 of each data
     shard of ``x`` (its leading axis ``batch``: the rows of the shard, on
     the position's device, under ``on_position``) and join each shard's
@@ -287,7 +290,15 @@ def model_parts(x: torch.Tensor, fn, n: int, join=model_reduce):
     shards' results are joined along the rows on x's device. ``n`` is 1
     where the rules leave the work whole: it runs once, on the first
     position. ``join=None`` returns the list of the n parts, each on its
-    position's device (the shards' rows joined on the first shard's)."""
+    position's device (the shards' rows joined on the first shard's).
+
+    With ``then`` the layer runs in two passes: ``fn`` gives (the
+    position's partial, what it keeps for the second pass), the partials
+    are reduced in model order on the shard's first position
+    (:func:`model_reduce`, recorded as ``"all-reduce"`` at each position)
+    and the sum handed to every position, where ``then(m, kept, total,
+    coords)`` gives its part (Mamba's ``x_proj``, whose output ``dt_proj``
+    reads column-parallel)."""
     mesh = current_rules().mesh
     outs = []
     for coords, rows in batch_shards(x.shape):
@@ -297,6 +308,14 @@ def model_parts(x: torch.Tensor, fn, n: int, join=model_reduce):
         for m, pos in enumerate(positions):
             with on_position(pos):
                 parts.append(fn(m, xs.to(mesh.devices[pos]), coords))
+        if then is not None:
+            kept = [k for _, k in parts]
+            with on_position(positions[0]):
+                total = parts[0][0] if n == 1 else model_reduce([p for p, _ in parts], positions)
+            parts = []
+            for m, pos in enumerate(positions):
+                with on_position(pos):
+                    parts.append(then(m, kept[m], total.to(mesh.devices[pos]), coords))
         if join is None:
             outs.append(parts)
             continue

@@ -43,9 +43,8 @@ from repro_torch.launch.mesh import DecodeMesh, make_local_mesh
 from repro_torch._unused.models import attention, blocks, layers, lm, moe
 from repro_torch._unused.serve import serve_step
 from repro_torch._unused.train import optimizer, train_step
-from repro_torch.sharding.place import Placed, place
-from repro_torch.sharding.rules import (SINGLE_POD_RULES, LogicalRules, NamedSharding, axis_rules,
-                                        model_split)
+from repro_torch.sharding.place import Placed
+from repro_torch.sharding.rules import axis_rules, model_split
 
 ATOL = 1e-5
 LOSS_ATOL, PARAM_ATOL = 1e-4, 2e-4
@@ -75,15 +74,12 @@ def _mesh(model, data=1):
     return make_local_mesh(data=data, model=model, devices=["cpu"] * (data * model))
 
 
-def _lay(module, axes: dict, mesh):
-    """A layer's serving layout, as ``lm.place_params`` lays an LM: each
-    leaf that the split layers read per position laid over ``mesh`` by its
-    logical axes with ``fsdp`` whole, the others as they are."""
-    rules = LogicalRules(mesh, dict(SINGLE_POD_RULES, fsdp=None))
-    flat, split = dict(lm._flat(axes)), lm.tp_leaf_names(module)
-    return lm.module_view(module, {k: place(t, NamedSharding(mesh, rules.spec(
-        flat[k], shape=tuple(t.shape)))) if k in split else t
-        for k, t in module.named_parameters()})
+def _lay(module, axes: dict, cfg, mesh):
+    """A layer's serving layout, as ``lm.place_params`` lays an LM
+    (``lm.place_module``): each leaf that the split layers read per
+    position laid over ``mesh`` by its logical axes with ``fsdp`` whole,
+    the others as they are."""
+    return lm.place_module(module, dict(lm._flat(axes)), cfg, mesh)
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,7 +122,7 @@ def test_ffn_split_over_mlp(act, card, model):
     one = layers.ffn_apply(module, torch.as_tensor(x), cfg, x_prev=x_prev)
     mesh = _mesh(model)
     with axis_rules(mesh), WorkCounter(target="cpu") as c:
-        laid = _lay(module, layers.ffn_axes(cfg), mesh)
+        laid = _lay(module, layers.ffn_axes(cfg), cfg, mesh)
         got = layers.ffn_apply(laid, torch.as_tensor(x), cfg, x_prev=x_prev)
     w_in = laid.wk if act == "rwkv_cm" else laid.wi
     assert tuple(w_in.w.tiles[0, model - 1].shape) == (cfg.d_model, cfg.d_ff // model)
@@ -162,7 +158,7 @@ def test_gqa_prefill_split_over_heads(kind, model, g_loc, monkeypatch):
     monkeypatch.setattr(attention, "flash_attention", seen)
     mesh = _mesh(model)
     with axis_rules(mesh), attention.flash_enabled("on"):
-        laid = _lay(module, attention.gqa_axes(cfg), mesh)
+        laid = _lay(module, attention.gqa_axes(cfg), cfg, mesh)
         got, _ = attention.gqa_apply(laid, torch.as_tensor(x), cfg,
                                      positions=torch.as_tensor(pos), **tkw)
     assert shapes == [(B, S, 1, g_loc, cfg.head_dim)] * model
@@ -184,7 +180,7 @@ def test_cross_decode_against_a_prefilled_cache(model):
                                  kv_cached=True)
     mesh = _mesh(model)
     with axis_rules(mesh):
-        got, _ = attention.gqa_apply(_lay(module, attention.gqa_axes(cfg), mesh), x, cfg,
+        got, _ = attention.gqa_apply(_lay(module, attention.gqa_axes(cfg), cfg, mesh), x, cfg,
                                      positions=pos, causal=False, cache=kv, kv_cached=True)
     np.testing.assert_allclose(got.numpy(), one.numpy(), atol=ATOL, rtol=0)
 
@@ -298,7 +294,7 @@ def test_moe_experts_at_rest_over_model_2():
         want = np.asarray(jax.jit(lambda p, x_: j_moe.moe_apply(p, x_, jcfg))(jp, jnp.asarray(x)))
     mesh = _mesh(2)
     with axis_rules(mesh):
-        laid = _lay(tp, moe.moe_axes(cfg), mesh)
+        laid = _lay(tp, moe.moe_axes(cfg), cfg, mesh)
         assert moe._ep_enabled(cfg) == "model"
         assert laid.wi.tiles[0, 1].data_ptr() == tp.wi[2:].data_ptr()  # a view: at rest
         with WorkCounter(target="cpu") as c:
@@ -317,7 +313,7 @@ def test_moe_tensor_parallel_within_an_expert_over_model_8():
     one = moe.moe_apply(tp, torch.as_tensor(x), cfg)
     mesh = _mesh(8)
     with axis_rules(mesh), WorkCounter(target="cpu") as c:
-        laid = _lay(tp, moe.moe_axes(cfg), mesh)
+        laid = _lay(tp, moe.moe_axes(cfg), cfg, mesh)
         assert moe._ep_enabled(cfg) is None
         assert tuple(laid.wi.tiles[0, 7].shape) == (4, cfg.d_model, 8)
         got = moe.moe_apply(laid, torch.as_tensor(x), cfg)
@@ -335,7 +331,7 @@ def test_shared_experts_split_over_mlp():
         want = moe.moe_apply(layer.ffn, x, cfg)
     mesh = _mesh(2)
     with axis_rules(mesh):
-        laid = _lay(layer.ffn, moe.moe_axes(cfg), mesh)
+        laid = _lay(layer.ffn, moe.moe_axes(cfg), cfg, mesh)
         assert laid.shared.wi.w.tiles[0, 1].shape[1] == layer.ffn.shared.wi.w.shape[1] // 2
         got = moe.moe_apply(laid, x, cfg)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
@@ -344,8 +340,10 @@ def test_shared_experts_split_over_mlp():
 # ---- the unsplit mixers -------------------------------------------------------------------
 @pytest.mark.parametrize("name", ["deepseek-v2-236b", "jamba-v0.1-52b", "rwkv6-3b"])
 def test_unsplit_mixers_keep_their_values(name):
-    """MLA, Mamba and RWKV-6's time mix compute the whole layer on the
-    first position under a model axis: bit for bit the one-device mixer."""
+    """MLA, Mamba and RWKV-6's time mix under a (1, 1) mesh and under a
+    model axis of 3, which divides neither their 4 heads nor d_inner 128:
+    the whole layer on the first position, bit for bit the one-device
+    mixer (they split over model = 2 and 4 in ``test_torch_tp_mixers.py``)."""
     _, cfg = _cfgs(name)
     full = lm.init_params(cfg, generator=torch.Generator().manual_seed(18), device="cpu")
     mixers = [(layer[f"l{i}"].mixer, desc) for group, (pattern, _) in
@@ -360,9 +358,11 @@ def test_unsplit_mixers_keep_their_values(name):
                                        cache_len=None, causal=True, ctx_parallel=False)[0]
 
         want = run()
-        with axis_rules(_mesh(2)):
-            got = run()
-        assert torch.equal(got, want), type(mixer).__name__
+        for model in (1, 3):
+            with axis_rules(_mesh(model)):
+                assert not blocks.split_mixers(cfg) - {"gqa"}
+                got = run()
+            assert torch.equal(got, want), (type(mixer).__name__, model)
 
 
 # ---- the mesh train step -------------------------------------------------------------------
